@@ -7,8 +7,10 @@ on the card (``cuda``) unless the caller passes ``device="cpu"``; there the
 hand-written kernels under ``csrc/`` give way to their plain PyTorch
 versions, which the tests hold against the JAX package.
 
-Ported so far: the serving forward render of the default configuration
-(3DGS, OBB bounds, COLOR mode), ``render.api.render``.
+Ported so far, for the default configuration (3DGS, OBB bounds, COLOR
+mode): the serving forward render, ``render.api.render``, and the training
+step, ``train.step.train_step`` (``ops.rasterize_tile.render_tiled`` is
+differentiable in the cloud's tensors).
 """
 
 __version__ = "0.1.0"

@@ -147,8 +147,12 @@ def cov2d_eigen(cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _norm_last(v: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm over the last axis, kept: sqrt(sum(v * v))."""
-    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    """Euclidean norm over the last axis, kept: sqrt(sum(v * v)).  At v = 0
+    the value is 0 and the gradient 0, not sqrt's 0 * inf = NaN (which the
+    caller's ``where`` would not stop)."""
+    sq = torch.sum(v * v, dim=-1, keepdim=True)
+    pos = sq > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, sq, torch.ones_like(sq))), torch.zeros_like(sq))
 
 
 def obb_axes(cov: torch.Tensor, cutoff: torch.Tensor):

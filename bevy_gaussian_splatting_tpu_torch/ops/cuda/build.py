@@ -32,12 +32,15 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # contracted multiply-add rounds once where the plain PyTorch version rounds
 # twice, and in the OBB inside-test |u| <= 1 that one-ulp change can flip a
 # fragment in or out of the quad, a jump of up to exp(-4.5) * opacity, far
-# above the 2e-5 image tolerance.
+# above the 2e-5 image tolerance.  Its backward recomputes the same alpha and
+# transmittance and must round them as the forward did, so it takes the same
+# flag.
 EXTRA_FLAGS = {
     "tile_fwd": ["--fmad=false"],
+    "tile_bwd": ["--fmad=false"],
 }
 
-SOURCES = ("expand", "tile_fwd")
+SOURCES = ("expand", "tile_fwd", "tile_bwd", "reduce")
 
 _LOADED: dict = {}
 

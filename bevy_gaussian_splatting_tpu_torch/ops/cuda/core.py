@@ -1,0 +1,84 @@
+"""The differentiable compositing core of the training step.
+
+The counterpart of the JAX package's ``ops/pallas/core.py``
+``get_train_core_windowed`` (a ``jax.custom_vjp``) as a
+``torch.autograd.Function``:
+
+  forward:  params_sorted = params[g_s]; the forward compositor kernel
+            (``composite_tiles_raw``) -> raw [T, 4, 256]
+  backward: gbar from the cotangent and the saved raw output
+            -> the backward kernel (``composite_backward``), per-pair
+               gradients in pair-sorted order
+            -> slot order: ``dslot[order] = dsorted``, the inverse of the
+               binning's stable tile sort (the JAX package re-sorts by depth
+               rank instead, a TPU cost choice; both give slot order exactly)
+            -> the segmented reduce kernel (``segment_reduce``), per depth rank
+            -> cloud order: ``dparams[perm] = drank`` (the JAX package's
+               "perm"/"rank" formulations are one permutation, chosen there
+               by a TPU cost model)
+
+Like the custom VJP it is not twice differentiable.  The integer binning
+artifacts get no gradient.  On CPU tensors both passes run the kernels' plain
+versions, so the hand-derived backward is what the CPU tests check.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.reduce import segment_reduce
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_bwd import composite_backward, pack_gbar
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MAX_CHUNK, composite_tiles_raw
+
+
+class CompositeCore(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, params, g_s, start, count, order, cum, perm, geometry):
+        tx_count, width, full_height, y0, chunk = geometry
+        params_sorted = params[g_s].contiguous()
+        out_raw = composite_tiles_raw(
+            params_sorted, start, count, tx_count, width, full_height, y0, chunk
+        )
+        ctx.save_for_backward(params_sorted, start, count, order, cum, perm, out_raw)
+        ctx.geometry = geometry
+        return out_raw
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_raw):
+        params_sorted, start, count, order, cum, perm, out_raw = ctx.saved_tensors
+        gbar = pack_gbar(grad_raw, out_raw)
+        dsorted = composite_backward(params_sorted, start, count, gbar, *ctx.geometry)
+        dslot = torch.empty_like(dsorted)
+        dslot[order] = dsorted
+        drank = segment_reduce(dslot, cum, perm.shape[0])
+        dparams = torch.empty_like(drank)
+        dparams[perm.to(torch.int64)] = drank
+        return dparams, None, None, None, None, None, None, None
+
+
+def composite_core(
+    params: torch.Tensor,
+    g_s: torch.Tensor,
+    start: torch.Tensor,
+    count: torch.Tensor,
+    order: torch.Tensor,
+    cum: torch.Tensor,
+    perm: torch.Tensor,
+    tx_count: int,
+    width: int,
+    full_height: int,
+    y0: int = 0,
+    chunk: int = MAX_CHUNK,
+) -> torch.Tensor:
+    """Raw compositor output [T, 4, 256], differentiable in ``params`` [N, 10]
+    (cloud order) through the hand-derived backward.
+
+    ``g_s`` [P]: cloud index of each tile-sorted pair; ``start``/``count``
+    [T]: tile ranges; ``order`` [P]: expansion slot of each tile-sorted pair;
+    ``cum`` [N]: clamped inclusive pair counts in depth order; ``perm`` [N]:
+    cloud index of each depth rank (``rasterize_tile.tile_bins``)."""
+    return CompositeCore.apply(
+        params, g_s, start, count, order, cum, perm, (tx_count, width, full_height, y0, chunk)
+    )

@@ -1,0 +1,90 @@
+"""Segmented gradient reduce: per-pair rows in slot order -> per depth rank.
+
+Replaces the TPU kernel ``bevy_gaussian_splatting_tpu/ops/pallas/reduce.py``
+``_reduce_kernel`` (``pallas_segment_reduce``) with ``csrc/reduce.cu``: one
+thread per (rank, column) sums that rank's contiguous slots in slot order.
+On the H100 it is bound by memory (each owned slot row read once, each rank
+row written once); see the source for the design.
+
+``segment_reduce`` launches the kernel for CUDA tensors and runs the plain
+version, ``segment_reduce_plain``, for CPU tensors; both add in slot order,
+so they agree bit for bit.  ``segment_reduce.launches`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import N_COLS
+
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+
+
+def segment_bounds(cum: torch.Tensor):
+    """Each rank's slot range from the inclusive counts ``cum`` [N] ->
+    (first slot, slot count), int64 [N]."""
+    cum = cum.to(torch.int64)
+    first = torch.cat([cum.new_zeros(1), cum[:-1]])
+    return first, cum - first
+
+
+def _check_inputs(dslot, cum, n):
+    if dslot.dtype != torch.float32:
+        raise TypeError(f"dslot must be float32, got {dslot.dtype}")
+    if dslot.dim() != 2 or dslot.shape[1] != N_COLS:
+        raise ValueError(f"dslot must be [P, {N_COLS}], got {tuple(dslot.shape)}")
+    if cum.dtype != torch.int32:
+        raise TypeError(f"cum must be int32, got {cum.dtype}")
+    if cum.dim() != 1 or cum.shape[0] != n:
+        raise ValueError(f"cum must be [{n}], got {tuple(cum.shape)}")
+    if cum.device != dslot.device:
+        raise ValueError(f"cum is on {cum.device}, dslot on {dslot.device}")
+    if not (dslot.is_contiguous() and cum.is_contiguous()):
+        raise ValueError("dslot and cum must be contiguous")
+
+
+def segment_reduce_plain(dslot: torch.Tensor, cum: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain PyTorch version: step k adds every rank's k-th slot, so each
+    rank's sum runs in slot order, as the kernel's does."""
+    out = dslot.new_zeros((n, N_COLS))
+    if n == 0:
+        return out
+    first, length = segment_bounds(cum)
+    for k in range(int(length.max())):
+        live = torch.nonzero(length > k).squeeze(1)
+        out[live] += dslot[first[live] + k]
+    return out
+
+
+def segment_reduce(dslot: torch.Tensor, cum: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-rank gradient sums [n, 10] of slot-ordered rows ``dslot`` [P, 10].
+
+    ``cum`` [n] int32 holds the inclusive pair counts in depth order,
+    clamped at P: rank r owns slots [cum[r-1], cum[r]).  Ranks with no slots
+    get exact zeros."""
+    _check_inputs(dslot, cum, n)
+    if dslot.device.type == "cpu":
+        return segment_reduce_plain(dslot, cum, n)
+    if dslot.device.type != "cuda":
+        raise ValueError(f"unsupported device {dslot.device}")
+    dev = dslot.device
+    drank = torch.empty((n, N_COLS), dtype=torch.float32, device=dev)
+    lib = build.load("reduce")
+    fn = lib.bgs_segment_reduce
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(dslot.data_ptr(), cum.data_ptr(), n, drank.data_ptr(), stream)
+    build.check(status, "segment_reduce")
+    if n > 0:
+        segment_reduce.launches += 1
+    return drank
+
+
+segment_reduce.launches = 0

@@ -1,0 +1,215 @@
+"""Backward tile compositor: per-pair parameter gradients of the blend.
+
+Replaces the TPU kernel ``bevy_gaussian_splatting_tpu/ops/pallas/tile_bwd.py``
+``_backward_kernel`` (``pallas_composite_backward``) with
+``csrc/tile_bwd.cu``: one block of 256 threads per 16x16 tile, one thread per
+pixel, re-walking the tile front to back with the forward's chunk grid and
+early exit, each pair's ten gradients summed over the pixels by warp shuffles
+and a fixed-order pass over the warps.  On the H100 it is bound by FP32
+operations (about 70 per pair and pixel inside the splat, plus one
+``expf``, and 12 per pair and pixel outside it); see the source
+for the derivation and the design.
+
+``composite_backward`` launches the kernel for CUDA tensors and runs the
+plain version, ``composite_backward_plain``, for CPU tensors.
+``composite_backward.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
+    ALPHA_CAP,
+    MAX_CHUNK,
+    N_COLS,
+    PIX,
+    TRANS_EPS,
+    _check_inputs,
+    _coord_constants,
+    tile_pixel_coords,
+)
+
+GBAR_ROWS = 8  # [ghat_r, ghat_g, ghat_b, ghat_T, total_r, total_g, total_b, T_fin]
+
+_ARGTYPES = (
+    [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 2
+    + [ctypes.c_float] * 4
+    + [ctypes.c_int] * 2
+    + [ctypes.c_float]
+    + [ctypes.c_void_p] * 2
+)
+
+
+def pack_gbar(grad_raw: torch.Tensor, out_raw: torch.Tensor) -> torch.Tensor:
+    """Per-pixel backward inputs [T, 8, 256] from the cotangent of the raw
+    forward output and the output itself (both [T, 4, 256]): rows 0-2 the
+    rgb cotangent, 3 the transmittance cotangent, 4-6 the rgb totals, 7 the
+    final transmittance (core.py:386-389 of the JAX package)."""
+    return torch.cat([grad_raw, out_raw], dim=1).contiguous()
+
+
+def _check_gbar(gbar, tile_start):
+    if gbar.dtype != torch.float32:
+        raise TypeError(f"gbar must be float32, got {gbar.dtype}")
+    if tuple(gbar.shape) != (tile_start.shape[0], GBAR_ROWS, PIX):
+        raise ValueError(f"gbar must be [T, {GBAR_ROWS}, {PIX}], got {tuple(gbar.shape)}")
+    if gbar.device != tile_start.device:
+        raise ValueError(f"gbar is on {gbar.device}, tile_start on {tile_start.device}")
+    if not gbar.is_contiguous():
+        raise ValueError("gbar must be contiguous")
+
+
+def composite_backward_plain(
+    params: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    gbar: torch.Tensor,
+    tx_count: int,
+    width: int,
+    full_height: int,
+    y0: int = 0,
+    chunk: int = MAX_CHUNK,
+    tile_batch: int = 128,
+    inside_count: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version, vectorized over [tiles, chunk, 256] in batches
+    of ``tile_batch`` tiles with the forward's chunk grid and exit rule
+    (``composite_tiles_raw_plain``).  Within a chunk the transmittance is an
+    exclusive ``cumprod`` and the running ``q`` prefix a ``cumsum``.
+
+    ``inside_count``, if given ([T] int64), receives the number of walked
+    (pair, pixel) evaluations of each tile that fall inside their splat."""
+    dev = params.device
+    num_tiles = tile_start.shape[0]
+    p = params.shape[0]
+    table = torch.cat([params, params.new_zeros((1, N_COLS))], dim=0)
+    dparams = params.new_zeros((p, N_COLS))
+    lane = torch.arange(chunk, device=dev)
+    for b0 in range(0, num_tiles, tile_batch):
+        tids = torch.arange(b0, min(b0 + tile_batch, num_tiles), device=dev)
+        start = tile_start[tids].to(torch.int64)
+        count = tile_count[tids].to(torch.int64)
+        base = start // 128 * 128
+        prefix = start - base
+        total = count + prefix
+        n_chunks = torch.where(count > 0, (total + chunk - 1) // chunk, torch.zeros_like(total))
+        px_vp, py_vp = tile_pixel_coords(tids, tx_count, width, full_height, y0)
+        px_vp, py_vp = px_vp[:, None, :], py_vp[:, None, :]
+        gb = gbar[tids]  # [B, 8, 256]
+        ghat = [gb[:, ch, None, :] for ch in range(3)]  # [B, 1, 256]
+        q_total = gb[:, 0] * gb[:, 4] + gb[:, 1] * gb[:, 5] + gb[:, 2] * gb[:, 6]
+        s_total = q_total + gb[:, 3] * gb[:, 7]  # [B, 256]
+        trans = torch.ones((tids.shape[0], PIX), dtype=torch.float32, device=dev)
+        q_acc = torch.zeros_like(trans)
+        for c in range(int(n_chunks.max()) if tids.numel() else 0):
+            running = c < n_chunks
+            if c > 0:
+                running = running & (trans.amax(dim=1) > TRANS_EPS)
+            if not bool(running.any()):
+                break
+            lane_idx = c * chunk + lane
+            in_rng = (lane_idx >= prefix[:, None]) & (lane_idx < total[:, None]) & running[:, None]
+            idx = (base[:, None] + lane_idx).clamp(max=p)
+            q = table[idx]  # [B, chunk, 10]
+            cx, cy, e1x, e1y, b1, b2, cr, cg, cb, op = (q[..., i : i + 1] for i in range(N_COLS))
+            dx = px_vp - cx
+            dy = py_vp - cy
+            inv_b1 = 1.0 / torch.clamp(b1, min=1e-12)
+            inv_b2 = 1.0 / torch.clamp(b2, min=1e-12)
+            u = (dx * e1x + dy * e1y) * inv_b1
+            v = (dx * e1y - dy * e1x) * inv_b2
+            inside = (u.abs() <= 1.0) & (v.abs() <= 1.0) & (b1 > 0.0) & in_rng[..., None]
+            if inside_count is not None:
+                inside_count[tids] += inside.sum(dim=(1, 2))
+            g = torch.where(inside, torch.exp(-4.5 * (u * u + v * v)), 0.0)
+            raw = g * op
+            alpha = torch.clamp(raw, max=ALPHA_CAP)  # [B, chunk, 256]
+            cum = torch.cumprod(1.0 - alpha, dim=1)
+            excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
+            t_i = excl * trans[:, None, :]
+            w = alpha * t_i
+            gc = ghat[0] * cr + ghat[1] * cg + ghat[2] * cb
+            qv = gc * w
+            q_incl = q_acc[:, None, :] + torch.cumsum(qv, dim=1)
+            inv_om = 1.0 / torch.clamp(1.0 - alpha, min=1e-6)
+            dalpha = gc * t_i - (s_total[:, None, :] - q_incl) * inv_om
+            dalpha = torch.where(raw >= ALPHA_CAP, 0.0, dalpha)
+            dag = dalpha * g
+            dpower = dag * op
+            dub = (dpower * u) * (-9.0 * inv_b1)
+            dvb = (dpower * v) * (-9.0 * inv_b2)
+            grads = torch.stack(
+                [
+                    -torch.sum(dub * e1x + dvb * e1y, dim=2),
+                    torch.sum(dvb * e1x - dub * e1y, dim=2),
+                    torch.sum(dub * dx - dvb * dy, dim=2),
+                    torch.sum(dub * dy + dvb * dx, dim=2),
+                    -torch.sum(dub * u, dim=2),
+                    -torch.sum(dvb * v, dim=2),
+                    torch.sum(w * ghat[0], dim=2),
+                    torch.sum(w * ghat[1], dim=2),
+                    torch.sum(w * ghat[2], dim=2),
+                    torch.sum(dag, dim=2),
+                ],
+                dim=-1,
+            )  # [B, chunk, 10]
+            dparams[idx[in_rng]] = grads[in_rng]
+            q_acc = q_incl[:, -1, :]
+            trans = trans * cum[:, -1, :]
+    return dparams
+
+
+def composite_backward(
+    params: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    gbar: torch.Tensor,
+    tx_count: int,
+    width: int,
+    full_height: int,
+    y0: int = 0,
+    chunk: int = MAX_CHUNK,
+) -> torch.Tensor:
+    """Per-pair gradients [P, 10] of the tile blend, in the pair-sorted
+    layout of ``params``.
+
+    Takes the forward's inputs (``composite_tiles_raw``) and ``gbar`` [T, 8,
+    256] from :func:`pack_gbar`.  Pairs the forward did not blend (past the
+    clipped count or the early exit, or in no tile) get exact zeros."""
+    _check_inputs(params, tile_start, tile_count, chunk)
+    _check_gbar(gbar, tile_start)
+    if params.device.type == "cpu":
+        return composite_backward_plain(
+            params, tile_start, tile_count, gbar, tx_count, width, full_height, y0, chunk
+        )
+    if params.device.type != "cuda":
+        raise ValueError(f"unsupported device {params.device}")
+    dev = params.device
+    num_tiles = tile_start.shape[0]
+    dparams = torch.zeros_like(params)
+    inv_w2, inv_h2 = _coord_constants(width, full_height)
+    lib = build.load("tile_bwd")
+    fn = lib.bgs_composite_bwd
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(
+            params.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(), gbar.data_ptr(),
+            num_tiles, tx_count, float(width), float(full_height), inv_w2, inv_h2,
+            int(y0), chunk, TRANS_EPS, dparams.data_ptr(), stream,
+        )
+    build.check(status, "composite_backward")
+    if num_tiles > 0:
+        composite_backward.launches += 1
+    return dparams
+
+
+composite_backward.launches = 0

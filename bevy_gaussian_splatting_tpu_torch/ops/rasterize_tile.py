@@ -1,9 +1,9 @@
-"""Tile-binned forward renderer: binning, parameter packing and the pipeline.
+"""Tile-binned renderer: binning, parameter packing and the pipeline.
 
-The counterpart of the JAX package's ``ops/rasterize_tile.py`` serving path
-(``render_tiled(..., compositor="pallas", differentiable=False)``) for the
-default configuration: 3DGS, OBB bounds, COLOR mode.  It reproduces that
-path's integer artifacts exactly:
+The counterpart of the JAX package's ``ops/rasterize_tile.py``
+``render_tiled(..., compositor="pallas")`` for the default configuration:
+3DGS, OBB bounds, COLOR mode, serving and training alike.  It reproduces
+that path's integer artifacts exactly:
 
   1. project every gaussian (ops/project.py) and take its radix depth key;
   2. each splat's clipped tile rectangle from its OBB screen extent;
@@ -15,25 +15,27 @@ path's integer artifacts exactly:
   7. per-tile ranges, counts clipped at ``k_max``;
   8. tile compositing (kernel, ops/cuda/tile_fwd.py) and the epilogue.
 
+The image is differentiable in the cloud's tensors: compositing runs inside
+``ops/cuda/core.py``'s autograd Function, whose backward is the backward
+compositor and segmented reduce kernels; autograd carries the per-gaussian
+gradients on through packing and projection.
+
 Heights that are not a multiple of 16 render on a padded tile grid with
 fragments in the true frame (``full_height``); the pad rows are cropped.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
 from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
 from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.core import composite_core
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
-from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
-    composite_epilogue,
-    composite_tiles_raw,
-    preferred_chunk,
-)
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import composite_epilogue, preferred_chunk
 from bevy_gaussian_splatting_tpu_torch.ops.project import project_gaussians
 
 TILE = 16  # pixels per tile side
@@ -153,19 +155,28 @@ def expansion_inputs(splats: dict, width: int, height: int, p_max: int):
 
 
 def bin_gaussians(splats: dict, width: int, height: int, p_max: int):
-    """Sorted (tile, pair) assignment -> ``(g_s, tile_s, valid_s, total)``.
+    """Sorted (tile, pair) assignment -> ``(g_s, tile_s, valid_s, total,
+    order, rank, cum, perm)``.
 
     ``g_s`` / ``tile_s`` [p_max] int32: cloud index and tile of each pair,
     sorted by tile, front to back within a tile; slots past the total carry
     the sentinel tile ``tx_count * ty_count`` (and cloud index 0).
-    ``total`` is the uncapped pair count (int64 scalar tensor)."""
+    ``total`` is the uncapped pair count (int64 scalar tensor).
+
+    The rest is what the backward needs to carry per-pair gradients back to
+    the cloud: ``order`` [p_max] int64, the expansion slot of each sorted
+    pair (``tile_s == tile[order]``); ``rank`` [p_max] int32, the depth rank
+    owning each slot (N past the total; ``rank[order]`` is the JAX package's
+    ``gidx_s``); ``cum`` [N] int32, the inclusive pair counts clamped at
+    ``p_max``; ``perm`` [N] int32, the cloud index of each depth rank."""
     tx_count = width // TILE
     sentinel = tx_count * (pad_to_tile(height) // TILE)
     table, total = expansion_inputs(splats, width, height, p_max)
-    tile, g_cloud, _ = expand_pairs(*table, p_max, tx_count, sentinel)
+    tile, g_cloud, rank = expand_pairs(*table, p_max, tx_count, sentinel)
     # born depth-ordered: a stable sort on the tile alone keeps depth order
     tile_s, order = torch.sort(tile, stable=True)
-    return g_cloud[order], tile_s, tile_s < sentinel, total
+    cum, perm = table[0], table[4]
+    return g_cloud[order], tile_s, tile_s < sentinel, total, order, rank, cum, perm
 
 
 def tile_ranges(pair_tile: torch.Tensor, num_tiles: int):
@@ -194,18 +205,25 @@ def pack_raster_params(splats: dict, width: int, height: int) -> torch.Tensor:
     return torch.stack(pack_raster_param_cols(splats, width, height), dim=-1)
 
 
-def composite_inputs(splats: dict, width: int, height: int, p_max: int):
-    """The compositor kernel's inputs -> ``(params_sorted, start, count)``:
-    pair-sorted [p_max, 10] parameters and each tile's range, its count
-    clipped at ``k_max``, on the padded tile grid."""
+class TileBins(NamedTuple):
+    """Binning artifacts of one frame (see :func:`bin_gaussians`)."""
+
+    g_s: torch.Tensor  # [P] int32 cloud index of each tile-sorted pair
+    start: torch.Tensor  # [T] int32 first pair of each tile
+    count: torch.Tensor  # [T] int32 pairs of each tile, clipped at k_max
+    order: torch.Tensor  # [P] int64 expansion slot of each tile-sorted pair
+    cum: torch.Tensor  # [N] int32 inclusive pair counts (depth order), clamped
+    perm: torch.Tensor  # [N] int32 cloud index of each depth rank
+
+
+def tile_bins(splats: dict, width: int, height: int, p_max: int) -> TileBins:
+    """Bin a frame on the padded tile grid: tile ranges with counts clipped
+    at ``k_max``, plus the inverse maps the backward needs."""
     num_tiles = (width // TILE) * (pad_to_tile(height) // TILE)
-    g_s, tile_s, _, _ = bin_gaussians(splats, width, height, p_max)
+    g_s, tile_s, _, _, order, _, cum, perm = bin_gaussians(splats, width, height, p_max)
     start, end = tile_ranges(tile_s, num_tiles)
     count = torch.clamp(end - start, max=tile_budget(splats["mask"].shape[0]))
-    # slots past the total hold row 0 of the table; tile ranges never
-    # reach them, so the compositor never reads those rows
-    params_sorted = pack_raster_params(splats, width, height)[g_s].contiguous()
-    return params_sorted, start, count
+    return TileBins(g_s, start, count, order, cum, perm)
 
 
 def render_tiled(
@@ -216,9 +234,10 @@ def render_tiled(
     background: Optional[torch.Tensor] = None,
     pairs_max: Optional[int] = None,
 ) -> torch.Tensor:
-    """Forward render -> [H, W, 4] linear premultiplied RGBA on the cloud's
-    device.  ``background`` is None or a solid [4] RGBA; ``pairs_max`` is
-    the pair budget (default: ``pairs_budget(N)``, the 6N cap)."""
+    """Render -> [H, W, 4] linear premultiplied RGBA on the cloud's device,
+    differentiable in the cloud's tensors where they require grad.
+    ``background`` is None or a solid [4] RGBA; ``pairs_max`` is the pair
+    budget (default: ``pairs_budget(N)``, the 6N cap)."""
     width, height = camera.width, camera.height
     if width % TILE:
         raise ValueError(f"image width must be a multiple of {TILE}")
@@ -231,10 +250,11 @@ def render_tiled(
     p_max = pairs_max if pairs_max is not None else pairs_budget(len(cloud))
 
     splats = project_for_binning(cloud, camera, settings, model_transform)
-    params_sorted, start, count = composite_inputs(splats, width, height, p_max)
-    out_raw = composite_tiles_raw(
-        params_sorted, start, count, tx_count, width, height,
-        chunk=preferred_chunk(p_max, start.shape[0]),
+    bins = tile_bins(splats, width, height, p_max)
+    out_raw = composite_core(
+        pack_raster_params(splats, width, height), *bins,
+        tx_count=tx_count, width=width, full_height=height,
+        chunk=preferred_chunk(p_max, bins.start.shape[0]),
     )
     img = composite_epilogue(out_raw, background, width, h_pad)
     return img[:height] if h_pad != height else img

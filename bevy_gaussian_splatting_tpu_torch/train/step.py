@@ -1,0 +1,87 @@
+"""One training step: render, loss, backward, optimizer update.
+
+The JAX package keeps its step inline (``train/quality.py:113-124``,
+``bench.py:158-169``, ``examples/training.py:41-53``):
+``value_and_grad(loss o render_tiled(..., differentiable=True,
+compositor="pallas"))`` then an optax update.  Here the cloud's four fields
+are ``nn.Parameter``s of a :class:`TrainableCloud`, the render is
+``ops/rasterize_tile.render_tiled`` (differentiable through the hand-derived
+backward kernels) and the update is a ``torch.optim`` optimizer;
+:func:`adam` is ``optax.adam(lr)``'s update.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from bevy_gaussian_splatting_tpu_torch.device import DeviceLike
+from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
+from bevy_gaussian_splatting_tpu_torch.models.cloud import Gaussian3dCloud, cloud_from_numpy
+from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
+from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import render_tiled
+from bevy_gaussian_splatting_tpu_torch.train.losses import mse
+
+FIELDS = tuple(f.name for f in dataclasses.fields(Gaussian3dCloud))
+
+
+class TrainableCloud(torch.nn.Module):
+    """A 3DGS cloud whose four fields are trainable parameters."""
+
+    def __init__(self, cloud: Gaussian3dCloud):
+        super().__init__()
+        for name in FIELDS:
+            setattr(self, name, torch.nn.Parameter(getattr(cloud, name).detach().clone()))
+
+    @classmethod
+    def from_numpy(cls, arrays: dict, device: DeviceLike = None) -> "TrainableCloud":
+        """From numpy arrays keyed by the cloud's field names (for example a
+        JAX cloud's, carried across as in ``cloud_from_numpy``); on the card
+        unless ``device`` says otherwise."""
+        return cls(cloud_from_numpy(arrays, device))
+
+    def cloud(self) -> Gaussian3dCloud:
+        """A ``Gaussian3dCloud`` view of the parameters (no copy)."""
+        return Gaussian3dCloud(**{name: getattr(self, name) for name in FIELDS})
+
+
+def adam(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
+    """Adam with optax.adam's defaults: betas (0.9, 0.999), eps 1e-8 added
+    to the bias-corrected root."""
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def train_step(
+    model: TrainableCloud,
+    optimizer: torch.optim.Optimizer,
+    camera: Camera,
+    target: torch.Tensor,
+    settings: Optional[CloudSettings] = None,
+    loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = mse,
+    background: Optional[torch.Tensor] = None,
+    pairs_max: Optional[int] = None,
+) -> torch.Tensor:
+    """Render ``model`` through ``camera``, take ``loss_fn(image, target)``,
+    back-propagate and step ``optimizer``.  Returns the loss (a detached
+    scalar tensor; reading it waits for the card).  The gradients stay in
+    the parameters' ``.grad`` until the next step."""
+    optimizer.zero_grad(set_to_none=True)
+    image = render_tiled(
+        model.cloud(), camera, settings or CloudSettings(),
+        background=background, pairs_max=pairs_max,
+    )
+    loss = loss_fn(image, target)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def shifted_arrays(arrays: dict, offset=(0.25, -0.15, 0.1)) -> dict:
+    """A copy of ``arrays`` with every position moved by ``offset``
+    (examples/training.py perturbs its cloud this way)."""
+    out = dict(arrays)
+    out["position_visibility"] = arrays["position_visibility"] + np.array([*offset, 0.0], np.float32)
+    return out

@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port (bevy_gaussian_splatting_tpu_torch) on one
 NVIDIA card.
 
-    python3 chip_smoke.py            # the whole run, about a minute
+    python3 chip_smoke.py            # the whole run, about half a minute
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one
-                                     # frame per size, written to chiprun_out/
+                                     # frame per size and of one training
+                                     # step, written to the output directory
 
 Phases, each of which raises on failure (nothing is caught):
 
@@ -15,13 +16,26 @@ Phases, each of which raises on failure (nothing is caught):
              (1, 1, 0.25), scales by 0.05 (bench.py), camera at (0, 0, 60);
   3. kernels each kernel against its plain PyTorch version on the scene's
              real inputs at 512x512 (and 1920x1080): expansion array-equal,
-             compositing within 2e-5;
+             compositing within 2e-5, the backward compositor within 1e-4 of
+             each gradient column's largest magnitude (its cotangent taken
+             from a real loss), the segmented reduce array-equal;
   4. small   ``render()`` on the card against the port's oracle (3e-5) and
-             against the same call on the CPU (2e-5), at 128x128 and 128x120;
+             against the same call on the CPU (2e-5), and the gradients of
+             every cloud field, card against CPU (1e-4 of the field's
+             largest magnitude), at 128x128 and 128x120;
   5. main    ``render()`` at four orbit poses at 512x512, then 1920x1080,
              with the launch counters set to 0 just before and read after;
-             every frame must launch both kernels and give a finite image
-             with at least a quarter of its pixels lit.
+             every frame must launch both forward kernels, neither backward
+             kernel, and give a finite image with at least a quarter of its
+             pixels lit;
+  6. train   Adam steps (``train/step.py``) on the scene as a
+             ``TrainableCloud`` towards a render of the same cloud moved by
+             (0.25, -0.15, 0.1): a warm-up and 10 timed steps on the bench
+             objective mean((img - target)^2) and two
+             ``gaussian_splatting_loss`` steps at 512x512, then a warm-up
+             and 3 timed steps at 1920x1080.  Every step must launch all
+             four kernels and give a finite loss and finite gradients; the
+             last bench-objective loss must be below the first.
 
 It prints the kernels line, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``.  Without a card it exits non-zero
@@ -58,6 +72,17 @@ FP32_NO_FMA_OPS_PER_S = FP32_OPS_PER_S / 2
 # half the FP32 lanes, one operation per instruction.
 INT32_OPS_PER_S = FP32_OPS_PER_S / 4
 COMPOSITE_OPS_PER_EVAL = 26  # 25 FP32 operations and one expf per (pair, pixel)
+# The backward compositor (csrc/tile_bwd.cu), per walked (pair, pixel): 12
+# FP32 operations for the offsets, u, v and the inside test; inside the
+# splat 59 more and one expf (alpha, transmittance, the gradient chain and
+# one add into each of the ten pixel sums).
+BACKWARD_OPS_PER_EVAL = 12
+BACKWARD_OPS_PER_INSIDE = 60
+GRAD_BAR = 1e-4  # kernel vs plain (and card vs CPU), per gradient column
+TRAIN_LR = 1e-3
+TRAIN_STEPS = 10  # timed bench-objective steps at 512x512
+TRAIN_STEPS_1080 = 3  # timed steps at 1920x1080, after one warm-up
+FIELDS = ("position_visibility", "spherical_harmonic", "rotation", "scale_opacity")
 
 
 def log(*args):
@@ -103,10 +128,19 @@ def phase_build() -> None:
     log(f"[build] {', '.join(build.SOURCES)} built for sm_90a in {seconds:.2f} s")
 
 
-def phase_kernels(cloud, settings, width: int, height: int) -> dict:
+def bound(nbytes: float, nops: float, ops_per_s: float):
+    """Least time (ms) for ``nbytes`` moved and ``nops`` done, and which of
+    the two sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dict:
     """Each kernel against its plain version on this frame's real inputs."""
     from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import expand as ex
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import reduce as rd
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 
     dev = cloud.device
@@ -140,7 +174,9 @@ def phase_kernels(cloud, settings, width: int, height: int) -> dict:
     exp_ops = p_max * (2 * math.ceil(math.log2(n + 1)) + 12)  # search + tile arithmetic
 
     # ---- compositor: within 2e-5 ----
-    params, start, count = rt.composite_inputs(splats, width, height, p_max)
+    bins = rt.tile_bins(splats, width, height, p_max)
+    params = rt.pack_raster_params(splats, width, height)[bins.g_s].contiguous()
+    start, count = bins.start, bins.count
     chunk = tf.preferred_chunk(p_max, num_tiles)
     comp_args = (params, start, count, tx_count, width, height)
     raw = tf.composite_tiles_raw(*comp_args, chunk=chunk)
@@ -155,27 +191,105 @@ def phase_kernels(cloud, settings, width: int, height: int) -> dict:
     comp_bytes = params.numel() * 4 + 2 * 4 * num_tiles + raw.numel() * 4
     comp_ops = evals * COMPOSITE_OPS_PER_EVAL
 
+    # ---- backward compositor: per column within GRAD_BAR of its largest |plain| ----
+    # the cotangent of a real loss: the bench objective against a render of
+    # the moved cloud, through the epilogue
+    with torch.no_grad():
+        target = rt.render_tiled(target_cloud, camera, settings, pairs_max=p_max)
+    raw_req = raw.detach().requires_grad_()
+    img = tf.composite_epilogue(raw_req, None, width, rt.pad_to_tile(height))[:height]
+    (grad_raw,) = torch.autograd.grad(torch.mean((img - target) ** 2), raw_req)
+    gbar = tb.pack_gbar(grad_raw, raw)
+    bwd_args = (params, start, count, gbar, tx_count, width, height)
+    dsorted = tb.composite_backward(*bwd_args, chunk=chunk)
+    inside = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
+    dsorted_plain = tb.composite_backward_plain(*bwd_args, chunk=chunk, tile_batch=512, inside_count=inside)
+    col_max = dsorted_plain.abs().amax(dim=0)
+    col_err = (dsorted - dsorted_plain).abs().amax(dim=0)
+    col_rel = (col_err / col_max.clamp(min=1e-30)).tolist()
+    bwd_err = float(col_err.max())
+    if not bool((col_err <= GRAD_BAR * col_max).all()):
+        raise AssertionError(
+            f"composite_backward {width}x{height}: per-column |kernel - plain| / max|plain| "
+            f"{[f'{r:.2e}' for r in col_rel]} above {GRAD_BAR}"
+        )
+    bwd_ms = cuda_ms(lambda: tb.composite_backward(*bwd_args, chunk=chunk), 10)
+    bwd_plain_ms = cuda_ms(lambda: tb.composite_backward_plain(*bwd_args, chunk=chunk, tile_batch=512), 1)
+    n_inside = int(inside.sum())
+    bwd_bytes = params.numel() * 4 + 2 * 4 * num_tiles + gbar.numel() * 4 + dsorted.numel() * 4
+    bwd_ops = evals * BACKWARD_OPS_PER_EVAL + n_inside * BACKWARD_OPS_PER_INSIDE
+
+    # ---- segmented reduce: array-equal ----
+    dslot = torch.empty_like(dsorted)
+    dslot[bins.order] = dsorted
+    drank = rd.segment_reduce(dslot, bins.cum, n)
+    drank_plain = rd.segment_reduce_plain(dslot, bins.cum, n)
+    if not torch.equal(drank, drank_plain):
+        bad = int((drank != drank_plain).any(dim=1).sum())
+        raise AssertionError(f"segment_reduce {width}x{height}: {bad} of {n} ranks differ from the plain version")
+    red_err = float((drank - drank_plain).abs().max())
+    red_ms = cuda_ms(lambda: rd.segment_reduce(dslot, bins.cum, n), 20)
+    red_plain_ms = cuda_ms(lambda: rd.segment_reduce_plain(dslot, bins.cum, n), 2)
+    owned = int(bins.cum[-1])
+    _, lengths = rd.segment_bounds(bins.cum)
+    owned_rows = dslot[:owned]
+    lib = torch.segment_reduce(owned_rows, "sum", lengths=lengths, axis=0)
+    lib_err = float((lib - drank).abs().max())
+    red_lib_ms = cuda_ms(lambda: torch.segment_reduce(owned_rows, "sum", lengths=lengths, axis=0), 20)
+    red_bytes = owned * tf.N_COLS * 4 + n * 4 + n * tf.N_COLS * 4
+    red_ops = owned * tf.N_COLS
+
     log(
         f"[kernels {width}x{height}] pairs {total} p_max {p_max} chunk {chunk} | "
         f"expand equal, {exp_ms:.4f} ms (plain {exp_plain_ms:.4f}) | "
         f"composite max_abs_err {comp_err:.3e}, {comp_ms:.4f} ms (plain {comp_plain_ms:.4f}), "
         f"pairs walked {int(walked.sum())} of {int(count.sum())}"
     )
-
-    def bound(nbytes, nops, ops_per_s):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    log(
+        f"[kernels {width}x{height}] composite_backward per-column |kernel - plain| / max|plain| "
+        f"{' '.join(f'{r:.2e}' for r in col_rel)} (bar {GRAD_BAR}), max_abs_err {bwd_err:.3e}, "
+        f"{bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}), (pair, pixel) inside {n_inside} of {evals} | "
+        f"segment_reduce equal over {n} ranks, {owned} slots, {red_ms:.4f} ms (plain {red_plain_ms:.4f}, "
+        f"torch.segment_reduce {red_lib_ms:.4f}, differs by {lib_err:.3e})"
+    )
 
     eb, eby = bound(exp_bytes, exp_ops, INT32_OPS_PER_S)
     cb, cby = bound(comp_bytes, comp_ops, FP32_NO_FMA_OPS_PER_S)
+    bb, bby = bound(bwd_bytes, bwd_ops, FP32_NO_FMA_OPS_PER_S)
+    rb, rby = bound(red_bytes, red_ops, FP32_NO_FMA_OPS_PER_S)
     return {
-        "expand_pairs": dict(max_abs_err=exp_err, ms=exp_ms, plain_ms=exp_plain_ms, bound_ms=eb, bound_by=eby),
-        "composite_tiles_raw": dict(max_abs_err=comp_err, ms=comp_ms, plain_ms=comp_plain_ms, bound_ms=cb, bound_by=cby),
+        "expand_pairs": dict(max_abs_err=exp_err, ms=exp_ms, plain_ms=exp_plain_ms, bound_ms=eb, bound_by=eby,
+                             library_ms=None),
+        "composite_tiles_raw": dict(max_abs_err=comp_err, ms=comp_ms, plain_ms=comp_plain_ms, bound_ms=cb,
+                                    bound_by=cby, library_ms=None),
+        "composite_backward": dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bb, bound_by=bby,
+                                   library_ms=None),
+        "segment_reduce": dict(max_abs_err=red_err, ms=red_ms, plain_ms=red_plain_ms, bound_ms=rb, bound_by=rby,
+                               library_ms=red_lib_ms),
     }
 
 
+def small_grads(arrays: dict, camera, background, device) -> dict:
+    """Gradients of every cloud field of the bench objective against a
+    render of the moved cloud, on ``device``."""
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
+    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import render_tiled
+    from bevy_gaussian_splatting_tpu_torch.train.losses import mse
+    from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, shifted_arrays
+
+    settings = CloudSettings()
+    camera, background = camera.to(device), background.to(device)
+    with torch.no_grad():
+        target = render_tiled(cloud_from_numpy(shifted_arrays(arrays), device), camera, settings, background=background)
+    model = TrainableCloud.from_numpy(arrays, device)
+    mse(render_tiled(model.cloud(), camera, settings, background=background), target).backward()
+    return {name: getattr(model, name).grad.cpu() for name in FIELDS}
+
+
 def phase_small() -> None:
-    """Small inputs: card against the oracle and against the CPU."""
+    """Small inputs: card against the oracle and against the CPU, images and
+    gradients."""
     from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
     from bevy_gaussian_splatting_tpu_torch.render.api import render
 
@@ -191,6 +305,18 @@ def phase_small() -> None:
         log(f"[small {width}x{height}] card vs cpu {e_cpu:.3e} (bar 2e-5), card vs oracle {e_oracle:.3e} (bar 3e-5)")
         if not (e_cpu <= 2e-5 and e_oracle <= 3e-5):
             raise AssertionError(f"small render {width}x{height} disagrees: cpu {e_cpu:.3e}, oracle {e_oracle:.3e}")
+        g_cpu = small_grads(a, cam, bg, "cpu")
+        g_card = small_grads(a, cam, bg, "cuda")
+        rel = {}
+        for name in FIELDS:
+            if not bool(torch.isfinite(g_card[name]).all()):
+                raise AssertionError(f"small gradients {width}x{height}: {name} not finite on the card")
+            scale = float(g_cpu[name].abs().max())
+            rel[name] = float((g_card[name] - g_cpu[name]).abs().max()) / max(scale, 1e-30)
+        log(f"[small {width}x{height}] gradients card vs cpu, max |diff| / max |cpu| per field: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (bar {GRAD_BAR})")
+        if not all(v <= GRAD_BAR for v in rel.values()):
+            raise AssertionError(f"small gradients {width}x{height} disagree card vs cpu: {rel}")
 
 
 def phase_main(cloud, settings, profile: bool) -> dict:
@@ -200,9 +326,15 @@ def phase_main(cloud, settings, profile: bool) -> dict:
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import composite_tiles_raw
     from bevy_gaussian_splatting_tpu_torch.render import api
 
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.reduce import segment_reduce
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_bwd import composite_backward
+
     dev = cloud.device
     counters = (expand_pairs, composite_tiles_raw)
+    idle = (composite_backward, segment_reduce)  # serving runs no backward
     launches = {f.__name__: 0 for f in counters}
+    for f in idle:
+        f.launches = 0
     for width, height in SIZES:
         cams = [orbit_camera(az, width, height, dev) for az in ORBIT_AZ]
         pairs = [int(rt.pair_count(cloud, c, settings)) for c in cams]
@@ -229,6 +361,8 @@ def phase_main(cloud, settings, profile: bool) -> dict:
                     times.append(dt)
         for f in counters:
             launches[f.__name__] += f.launches
+        if any(f.launches for f in idle):
+            raise AssertionError(f"a backward kernel launched while serving at {width}x{height}")
         bucket = api._BUDGET_STATE[("auto", settings.static_key(), width, height, len(cloud), str(dev))][0]
         log(
             f"[main {width}x{height}] pairs per pose {pairs} p_max {bucket} "
@@ -237,36 +371,106 @@ def phase_main(cloud, settings, profile: bool) -> dict:
             + ", ".join(f"{f.__name__} {f.launches}" for f in counters)
         )
         if profile:
-            profile_frame(cloud, settings, cams[0], width, height, statistics.median(times))
+            profile_call(lambda: api.render(cloud, cams[0], settings), f"{width}x{height}", statistics.median(times))
     return launches
 
 
-def profile_frame(cloud, settings, camera, width: int, height: int, frame_ms: float) -> None:
-    """Device time by kernel for one warm frame, to chiprun_out/.  The
-    idle share is taken against ``frame_ms``, the unprofiled median frame,
-    since the profiler slows the host."""
+def profile_call(fn, label: str, wall_ms: float) -> None:
+    """Device time by kernel for one warm call of ``fn``, as a table in the
+    output directory.  The idle share is taken against ``wall_ms``, the
+    unprofiled median, since the profiler slows the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from bevy_gaussian_splatting_tpu_torch.render import api
-
-    api.render(cloud, camera, settings)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        api.render(cloud, camera, settings)
+        fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    # CUDA-side rows named like a CPU op are annotations (the optimizer's
+    # step range), not kernels: leave them out of the busy sum
+    cpu_ops = {e.key for e in events if e.device_type == DeviceType.CPU}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in cpu_ops]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
-    (out / f"profile_{width}x{height}.txt").write_text(table)
+    table = events.table(sort_by="self_cuda_time_total", row_limit=60)
+    (out / f"profile_{label}.txt").write_text(table)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     log(
-        f"[profile {width}x{height}] {sum(e.count for e in kernels)} kernel launches, device busy "
-        f"{busy_ms:.3f} ms of a {frame_ms:.3f} ms frame, idle share {max(0.0, 1 - busy_ms / frame_ms):.3f}; top: "
+        f"[profile {label}] {sum(e.count for e in kernels)} kernel launches, device busy "
+        f"{busy_ms:.3f} ms of a {wall_ms:.3f} ms call, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}; top: "
         + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top)
     )
+
+
+def phase_train(arrays: dict, settings, profile: bool) -> dict:
+    """The training path through ``train_step``; counters read per step."""
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
+    from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.reduce import segment_reduce
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_bwd import composite_backward
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import composite_tiles_raw
+    from bevy_gaussian_splatting_tpu_torch.train.losses import gaussian_splatting_loss, mse
+    from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, adam, shifted_arrays, train_step
+
+    counters = (expand_pairs, composite_tiles_raw, composite_backward, segment_reduce)
+    model = TrainableCloud.from_numpy(arrays, "cuda")
+    target_cloud = cloud_from_numpy(shifted_arrays(arrays), "cuda")
+    optimizer = adam(model, TRAIN_LR)
+    for f in counters:
+        f.launches = 0
+
+    def step(camera, target, p_max, loss_fn, label):
+        before = [f.launches for f in counters]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = train_step(model, optimizer, camera, target, settings, loss_fn, pairs_max=p_max)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        for f, b in zip(counters, before):
+            if f.launches <= b:
+                raise AssertionError(f"{f.__name__} did not launch in the {label}")
+        value = float(loss)
+        bad = [name for name in FIELDS if not bool(torch.isfinite(getattr(model, name).grad).all())]
+        if not math.isfinite(value) or bad:
+            raise AssertionError(f"{label}: loss {value}, non-finite gradients in {bad}")
+        return value, dt
+
+    for width, height in SIZES:
+        camera = orbit_camera(0.0, width, height, "cuda")
+        with torch.no_grad():
+            p_max = rt.pairs_budget(len(model.cloud()), int(rt.pair_count(model.cloud(), camera, settings)))
+            target = rt.render_tiled(target_cloud, camera, settings, pairs_max=p_max)
+        size = f"{width}x{height}"
+        first, warm_ms = step(camera, target, p_max, mse, f"{size} warm-up step")
+        timed = TRAIN_STEPS if (width, height) == SIZES[0] else TRAIN_STEPS_1080
+        losses, times = [], []
+        for i in range(timed):
+            value, dt = step(camera, target, p_max, mse, f"{size} step {i}")
+            losses.append(value)
+            times.append(dt)
+        median = statistics.median(times)
+        line = (
+            f"[train {size}] p_max {p_max} | warm-up {warm_ms:.3f} ms, median {median:.3f} ms/step over "
+            f"{timed} Adam steps (min {min(times):.3f}, max {max(times):.3f}) | mse loss {first:.6e} -> "
+            f"{losses[-1]:.6e}"
+        )
+        if (width, height) == SIZES[0]:
+            if not losses[-1] < first:
+                raise AssertionError(f"train {size}: the loss did not fall ({first:.6e} -> {losses[-1]:.6e})")
+            # two steps: the first call of the SSIM convolutions sets cuDNN up
+            gs = [step(camera, target, p_max, gaussian_splatting_loss, f"{size} gaussian_splatting_loss step")
+                  for _ in range(2)]
+            line += (f" | gaussian_splatting_loss steps {gs[0][1]:.3f}, {gs[1][1]:.3f} ms, "
+                     f"loss {gs[0][0]:.6e} -> {gs[1][0]:.6e}")
+        log(line + " | launches " + ", ".join(f"{f.__name__} {f.launches}" for f in counters))
+        if profile:
+            profile_call(lambda: train_step(model, optimizer, camera, target, settings, mse, pairs_max=p_max),
+                         f"train_{size}", median)
+    return {f.__name__: f.launches for f in counters}
 
 
 def main() -> int:
@@ -283,6 +487,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
     from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
+    from bevy_gaussian_splatting_tpu_torch.train.step import shifted_arrays
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -292,17 +497,22 @@ def main() -> int:
     phase_build()
 
     t0 = time.perf_counter()
-    cloud = cloud_from_numpy(bench_arrays(N_GAUSSIANS, seed=0), "cuda")
+    arrays = bench_arrays(N_GAUSSIANS, seed=0)
+    cloud = cloud_from_numpy(arrays, "cuda")
+    target_cloud = cloud_from_numpy(shifted_arrays(arrays), "cuda")
     settings = CloudSettings()
     log(f"[scene] {len(cloud)} gaussians on {cloud.device} in {time.perf_counter() - t0:.2f} s")
 
     results = {}
     for width, height in SIZES:
-        res = phase_kernels(cloud, settings, width, height)
+        res = phase_kernels(cloud, target_cloud, settings, width, height)
         if (width, height) == SIZES[0]:
             results = res
+    del target_cloud
+    torch.cuda.empty_cache()
     phase_small()
-    launches = phase_main(cloud, settings, opts.profile)
+    serve = phase_main(cloud, settings, opts.profile)
+    train = phase_train(arrays, settings, opts.profile)
 
     kernels = []
     sources = {
@@ -310,16 +520,22 @@ def main() -> int:
                          "bevy_gaussian_splatting_tpu/ops/pallas/expand.py:76"),
         "composite_tiles_raw": ("bevy_gaussian_splatting_tpu_torch/csrc/tile_fwd.cu",
                                 "bevy_gaussian_splatting_tpu/ops/pallas/tile_fwd.py:237"),
+        "composite_backward": ("bevy_gaussian_splatting_tpu_torch/csrc/tile_bwd.cu",
+                               "bevy_gaussian_splatting_tpu/ops/pallas/tile_bwd.py:188"),
+        "segment_reduce": ("bevy_gaussian_splatting_tpu_torch/csrc/reduce.cu",
+                           "bevy_gaussian_splatting_tpu/ops/pallas/reduce.py:39"),
     }
     for name, (source, replaces) in sources.items():
-        if launches[name] <= 0:
+        # launches on the paths driven: serving frames, then training steps
+        launches = serve.get(name, 0) + train[name]
+        if launches <= 0:
             raise AssertionError(f"{name} was never launched on the main path")
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,
+            "library_ms": r["library_ms"],
         })
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain version,
-and ``render()`` on the card against the same call on the CPU.
+``render()`` on the card against the same call on the CPU, and the training
+gradients of every cloud field, card against CPU.
 
 These skip without an NVIDIA card.  On one, run them without the JAX-side
 conftest: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -14,8 +15,15 @@ from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy, ran
 from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
 from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import expand as ex
+from bevy_gaussian_splatting_tpu_torch.ops.cuda import reduce as rd
+from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 from bevy_gaussian_splatting_tpu_torch.render.api import render
+from bevy_gaussian_splatting_tpu_torch.train.losses import mse
+from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, shifted_arrays
+
+FIELDS = ("position_visibility", "spherical_harmonic", "rotation", "scale_opacity")
+GRAD_BAR = 1e-4  # chip_smoke.py's bar: per column or field, of its largest |plain|
 
 pytestmark = pytest.mark.cuda
 
@@ -66,7 +74,9 @@ def test_expand_kernel_equals_plain(card, kind, n, height):
 ])
 def test_composite_kernel_matches_plain(card, kind, n, height, chunk):
     splats, p_max = _inputs(_scene(kind, n, 4), 256, height, card)
-    params, start, count = rt.composite_inputs(splats, 256, height, p_max)
+    bins = rt.tile_bins(splats, 256, height, p_max)
+    params = rt.pack_raster_params(splats, 256, height)[bins.g_s].contiguous()
+    start, count = bins.start, bins.count
     if chunk is None:
         chunk = tf.preferred_chunk(p_max, start.shape[0])
     args = (params, start, count, 16, 256, height)
@@ -87,3 +97,56 @@ def test_render_card_matches_cpu(card, height):
     gpu = render(cloud_from_numpy(a, card), cam.to(card), background=bg.to(card))
     assert gpu.device.type == "cuda"
     assert float((gpu.cpu() - cpu).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("kind,n,height,chunk", [("bench", 20000, 256, None), ("occluded", 1000, 120, 128)])
+def test_backward_and_reduce_kernels_match_plain(card, kind, n, height, chunk):
+    splats, p_max = _inputs(_scene(kind, n, 5), 256, height, card)
+    bins = rt.tile_bins(splats, 256, height, p_max)
+    params = rt.pack_raster_params(splats, 256, height)[bins.g_s].contiguous()
+    if chunk is None:
+        chunk = tf.preferred_chunk(p_max, bins.start.shape[0])
+    raw = tf.composite_tiles_raw(params, bins.start, bins.count, 16, 256, height, chunk=chunk)
+    cotangent = torch.randn(raw.shape, generator=torch.Generator().manual_seed(0)) * 1e-3
+    gbar = tb.pack_gbar(cotangent.to(card), raw)
+    args = (params, bins.start, bins.count, gbar, 16, 256, height)
+    before = tb.composite_backward.launches
+    got = tb.composite_backward(*args, chunk=chunk)
+    assert tb.composite_backward.launches == before + 1
+    ref = tb.composite_backward_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    col_max = ref.abs().amax(dim=0)
+    assert bool(((got - ref).abs().amax(dim=0) <= GRAD_BAR * col_max).all())
+
+    dslot = torch.empty_like(got)
+    dslot[bins.order] = got
+    n_ranks = bins.cum.shape[0]
+    before = rd.segment_reduce.launches
+    drank = rd.segment_reduce(dslot, bins.cum, n_ranks)
+    assert rd.segment_reduce.launches == before + 1
+    assert torch.equal(drank, rd.segment_reduce_plain(dslot, bins.cum, n_ranks))
+
+
+def _grads(arrays, camera, background, device):
+    with torch.no_grad():
+        target = rt.render_tiled(cloud_from_numpy(shifted_arrays(arrays), device), camera.to(device),
+                                 CloudSettings(), background=background.to(device))
+    model = TrainableCloud.from_numpy(arrays, device)
+    img = rt.render_tiled(model.cloud(), camera.to(device), CloudSettings(), background=background.to(device))
+    mse(img, target).backward()
+    return {f: getattr(model, f).grad.cpu() for f in FIELDS}
+
+
+@pytest.mark.parametrize("height", [128, 120])
+def test_training_gradients_card_match_cpu(card, height):
+    a = _scene("bench", 2000, 3)
+    bg = torch.tensor([0.2, 0.1, 0.4, 1.0])
+    cam = Camera.create(eye=(0.0, 0.0, 60.0), width=128, height=height, device="cpu")
+    before = (tb.composite_backward.launches, rd.segment_reduce.launches)
+    gpu = _grads(a, cam, bg, card)
+    assert tb.composite_backward.launches == before[0] + 1
+    assert rd.segment_reduce.launches == before[1] + 1
+    cpu = _grads(a, cam, bg, "cpu")
+    for f in FIELDS:
+        assert bool(torch.isfinite(gpu[f]).all()), f
+        assert float((gpu[f] - cpu[f]).abs().max()) <= GRAD_BAR * float(cpu[f].abs().max()), f

@@ -36,9 +36,14 @@ SOURCES = sorted(PORT.rglob("*.py")) + [CHIP_SMOKE]
 
 def test_port_has_sources():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
-    for need in ("render/api.py", "ops/rasterize_tile.py", "ops/cuda/expand.py", "ops/cuda/tile_fwd.py"):
+    for need in (
+        "render/api.py", "ops/rasterize_tile.py", "ops/cuda/expand.py", "ops/cuda/tile_fwd.py",
+        "ops/cuda/tile_bwd.py", "ops/cuda/reduce.py", "ops/cuda/core.py",
+        "train/__init__.py", "train/losses.py", "train/step.py",
+    ):
         assert need in names
-    assert (PORT / "csrc" / "expand.cu").exists() and (PORT / "csrc" / "tile_fwd.cu").exists()
+    for source in ("expand", "tile_fwd", "tile_bwd", "reduce"):
+        assert (PORT / "csrc" / f"{source}.cu").exists(), source
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(PORT.parent).as_posix())
