@@ -7,10 +7,12 @@ on the card (``cuda``) unless the caller passes ``device="cpu"``; there the
 hand-written kernels under ``csrc/`` give way to their plain PyTorch
 versions, which the tests hold against the JAX package.
 
-Ported so far, for the default configuration (3DGS, OBB bounds, COLOR
-mode): the serving forward render, ``render.api.render``, and the training
-step, ``train.step.train_step`` (``ops.rasterize_tile.render_tiled`` is
-differentiable in the cloud's tensors).
+Ported so far, for 3DGS in COLOR mode with OBB or AABB bounds: the serving
+forward render, ``render.api.render``, the training step,
+``train.step.train_step`` (``ops.rasterize_tile.render_tiled`` is
+differentiable in the cloud's tensors), and the training loop's pieces:
+densification (``train.densify``) and the convergence benchmark,
+``train.quality.convergence_psnr``.
 """
 
 __version__ = "0.1.0"
@@ -21,6 +23,7 @@ from bevy_gaussian_splatting_tpu_torch.models.cloud import (  # noqa: F401
     random_gaussians_3d_seeded,
     sh_coeff_width,
     sh_degree_from_width,
+    test_model_3d,
 )
 from bevy_gaussian_splatting_tpu_torch.models.settings import (  # noqa: F401
     CloudSettings,

@@ -17,6 +17,7 @@ seed gives bit-identical clouds in both.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -98,6 +99,11 @@ class Gaussian3dCloud:
     def __len__(self) -> int:
         return self.position_visibility.shape[0]
 
+    def compute_aabb(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(min, max) over positions [3] each (reference interface.rs:33-49)."""
+        pos = self.position
+        return pos.amin(dim=0), pos.amax(dim=0)
+
     def to(self, device) -> "Gaussian3dCloud":
         return Gaussian3dCloud(
             **{
@@ -169,3 +175,29 @@ def random_gaussians_3d_seeded(
     n: int, seed: int = 0, sh_degree: int = SH_DEGREE, device: DeviceLike = None
 ) -> Gaussian3dCloud:
     return cloud_from_numpy(random_arrays_3d_seeded(n, seed, sh_degree), device)
+
+
+def test_model_3d(seed: Optional[int] = 42, device: DeviceLike = None) -> Gaussian3dCloud:
+    """The deterministic 9-gaussian test cloud: the 8 cube corners at +-0.5
+    plus a duplicate of the first corner (reference TestCloud::test_model,
+    src/gaussian/formats/planar_3d.rs:190-247), drawn as the JAX package's
+    ``test_model_3d`` draws it; on the card unless ``device`` says
+    otherwise."""
+    rng = np.random.default_rng(seed)
+    base_sh = rng.uniform(-1.0, 1.0, SH_COEFF_COUNT).astype(np.float32)
+    rows = []
+    for x in (-0.5, 0.5):
+        for y in (-0.5, 0.5):
+            for z in (-0.5, 0.5):
+                sh = base_sh.copy()
+                rng.shuffle(sh)
+                rows.append((np.array([x, y, z, 1.0], np.float32), sh))
+    rows.append(rows[0])
+    n = len(rows)
+    arrays = {
+        "position_visibility": np.stack([r[0] for r in rows]),
+        "spherical_harmonic": np.stack([r[1] for r in rows]),
+        "rotation": np.tile(np.array([1.0, 0.0, 0.0, 0.0], np.float32), (n, 1)),
+        "scale_opacity": np.tile(np.array([0.125, 0.125, 0.125, 0.125], np.float32), (n, 1)),
+    }
+    return cloud_from_numpy(arrays, device)

@@ -133,14 +133,12 @@ class CloudSettings:
 def check_supported(settings: CloudSettings) -> None:
     """Raise ``NotImplementedError`` for settings outside the ported slice.
 
-    Slice 1 is the default forward render: 3DGS, OBB bounds, COLOR mode, all
-    gaussians drawn, no bounding-box overlay.  The other kernel and raster
-    modes arrive with slice 3 of the port."""
+    Ported: 3DGS with OBB or AABB bounds, COLOR mode, all gaussians drawn,
+    no bounding-box overlay.  2DGS, 4DGS, the overlay and the other raster
+    and draw modes arrive with slice 3 of the port."""
     later = []
     if settings.gaussian_mode != GaussianMode.GAUSSIAN_3D:
         later.append(f"gaussian_mode={settings.gaussian_mode.name}")
-    if settings.aabb:
-        later.append("aabb=True")
     if settings.visualize_bounding_box:
         later.append("visualize_bounding_box=True")
     if settings.rasterize_mode != RasterizeMode.COLOR:
@@ -151,6 +149,6 @@ def check_supported(settings: CloudSettings) -> None:
         later.append(f"sort_mode={settings.sort_mode.name}")
     if later:
         raise NotImplementedError(
-            "the PyTorch port renders 3DGS / OBB / COLOR only so far; "
+            "the PyTorch port renders 3DGS / OBB or AABB / COLOR only so far; "
             f"{', '.join(later)} arrives with slice 3 (other kernel modes)"
         )

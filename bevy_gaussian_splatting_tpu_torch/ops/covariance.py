@@ -6,7 +6,8 @@ products, same order), which transcribes the reference shaders:
   - rotation matrix:   src/render/helpers.wgsl:127-168
   - 3D covariance:     src/render/gaussian_3d.wgsl:49-71
   - EWA projection:    src/render/helpers.wgsl:8-55, +0.3 dilation
-  - screen bounding:   src/render/helpers.wgsl:57-120
+  - screen bounding:   src/render/helpers.wgsl:57-120 (AABB radius, OBB axes)
+  - conic (AABB):      src/render/gaussian.wgsl:316-325
 
 2D covariances are in "vp units" (NDC times viewport extent, half a pixel),
 the frame the reference evaluates fragments in.
@@ -144,6 +145,21 @@ def cov2d_eigen(cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     lambda1 = mid + term
     lambda2 = torch.clamp(mid - term, min=0.0)
     return lambda1, lambda2
+
+
+def conic_from_cov2d(cov: torch.Tensor) -> torch.Tensor:
+    """Inverse 2D covariance (conic.x, conic.y, conic.z), the AABB fragment
+    path (src/render/gaussian.wgsl:316-325)."""
+    sxx, sxy, syy = cov[..., 0], cov[..., 1], cov[..., 2]
+    det_inv = 1.0 / (sxx * syy - sxy * sxy)
+    return torch.stack([syy * det_inv, -sxy * det_inv, sxx * det_inv], dim=-1)
+
+
+def aabb_radius(cov: torch.Tensor, cutoff: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned bounding radius in vp units: cutoff * sqrt(max
+    eigenvalue) (src/render/helpers.wgsl:76-86)."""
+    lambda1, lambda2 = cov2d_eigen(cov)
+    return cutoff * torch.maximum(safe_sqrt(lambda1), safe_sqrt(lambda2))
 
 
 def _norm_last(v: torch.Tensor) -> torch.Tensor:

@@ -29,17 +29,14 @@ from torch.autograd.function import once_differentiable
 
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.reduce import segment_reduce
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_bwd import composite_backward, pack_gbar
-from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MAX_CHUNK, composite_tiles_raw
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MAX_CHUNK, MODE_OBB, composite_tiles_raw
 
 
 class CompositeCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, params, g_s, start, count, order, cum, perm, geometry):
-        tx_count, width, full_height, y0, chunk = geometry
         params_sorted = params[g_s].contiguous()
-        out_raw = composite_tiles_raw(
-            params_sorted, start, count, tx_count, width, full_height, y0, chunk
-        )
+        out_raw = composite_tiles_raw(params_sorted, start, count, *geometry)
         ctx.save_for_backward(params_sorted, start, count, order, cum, perm, out_raw)
         ctx.geometry = geometry
         return out_raw
@@ -71,14 +68,15 @@ def composite_core(
     full_height: int,
     y0: int = 0,
     chunk: int = MAX_CHUNK,
+    mode: int = MODE_OBB,
 ) -> torch.Tensor:
     """Raw compositor output [T, 4, 256], differentiable in ``params`` [N, 10]
-    (cloud order) through the hand-derived backward.
+    (cloud order, ``mode``'s row layout) through the hand-derived backward.
 
     ``g_s`` [P]: cloud index of each tile-sorted pair; ``start``/``count``
     [T]: tile ranges; ``order`` [P]: expansion slot of each tile-sorted pair;
     ``cum`` [N]: clamped inclusive pair counts in depth order; ``perm`` [N]:
     cloud index of each depth rank (``rasterize_tile.tile_bins``)."""
     return CompositeCore.apply(
-        params, g_s, start, count, order, cum, perm, (tx_count, width, full_height, y0, chunk)
+        params, g_s, start, count, order, cum, perm, (tx_count, width, full_height, y0, chunk, mode)
     )

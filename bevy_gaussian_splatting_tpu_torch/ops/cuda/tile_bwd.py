@@ -5,10 +5,10 @@ Replaces the TPU kernel ``bevy_gaussian_splatting_tpu/ops/pallas/tile_bwd.py``
 ``csrc/tile_bwd.cu``: one block of 256 threads per 16x16 tile, one thread per
 pixel, re-walking the tile front to back with the forward's chunk grid and
 early exit, each pair's ten gradients summed over the pixels by warp shuffles
-and a fixed-order pass over the warps.  On the H100 it is bound by FP32
-operations (about 70 per pair and pixel inside the splat, plus one
-``expf``, and 12 per pair and pixel outside it); see the source
-for the derivation and the design.
+and a fixed-order pass over the warps.  OBB and AABB modes, as the forward.
+On the H100 it is bound by FP32 operations (about 70 per pair and pixel
+inside the splat, plus one ``expf``, and 12 per pair and pixel outside it);
+see the source for the derivation and the design.
 
 ``composite_backward`` launches the kernel for CUDA tensors and runs the
 plain version, ``composite_backward_plain``, for CPU tensors.
@@ -26,11 +26,14 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
     ALPHA_CAP,
     MAX_CHUNK,
+    MODE_AABB,
+    MODE_OBB,
     N_COLS,
     PIX,
     TRANS_EPS,
     _check_inputs,
     _coord_constants,
+    splat_falloff,
     tile_pixel_coords,
 )
 
@@ -40,7 +43,7 @@ _ARGTYPES = (
     [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 2
     + [ctypes.c_float] * 4
-    + [ctypes.c_int] * 2
+    + [ctypes.c_int] * 3
     + [ctypes.c_float]
     + [ctypes.c_void_p] * 2
 )
@@ -75,6 +78,7 @@ def composite_backward_plain(
     full_height: int,
     y0: int = 0,
     chunk: int = MAX_CHUNK,
+    mode: int = MODE_OBB,
     tile_batch: int = 128,
     inside_count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -107,27 +111,25 @@ def composite_backward_plain(
         s_total = q_total + gb[:, 3] * gb[:, 7]  # [B, 256]
         trans = torch.ones((tids.shape[0], PIX), dtype=torch.float32, device=dev)
         q_acc = torch.zeros_like(trans)
+        # lanes past the batch's longest range are masked in every tile:
+        # leave them out (alpha 0 multiplies and adds exactly nothing)
+        span = int(total.max()) if tids.numel() else 0
         for c in range(int(n_chunks.max()) if tids.numel() else 0):
             running = c < n_chunks
             if c > 0:
                 running = running & (trans.amax(dim=1) > TRANS_EPS)
             if not bool(running.any()):
                 break
-            lane_idx = c * chunk + lane
+            lane_idx = c * chunk + lane[: span - c * chunk]
             in_rng = (lane_idx >= prefix[:, None]) & (lane_idx < total[:, None]) & running[:, None]
             idx = (base[:, None] + lane_idx).clamp(max=p)
             q = table[idx]  # [B, chunk, 10]
-            cx, cy, e1x, e1y, b1, b2, cr, cg, cb, op = (q[..., i : i + 1] for i in range(N_COLS))
-            dx = px_vp - cx
-            dy = py_vp - cy
-            inv_b1 = 1.0 / torch.clamp(b1, min=1e-12)
-            inv_b2 = 1.0 / torch.clamp(b2, min=1e-12)
-            u = (dx * e1x + dy * e1y) * inv_b1
-            v = (dx * e1y - dy * e1x) * inv_b2
-            inside = (u.abs() <= 1.0) & (v.abs() <= 1.0) & (b1 > 0.0) & in_rng[..., None]
+            _, _, c2, c3, c4, _, cr, cg, cb, op = (q[..., i : i + 1] for i in range(N_COLS))
+            g, inside, aux = splat_falloff(q, px_vp, py_vp, mode)
+            inside = inside & in_rng[..., None]
             if inside_count is not None:
                 inside_count[tids] += inside.sum(dim=(1, 2))
-            g = torch.where(inside, torch.exp(-4.5 * (u * u + v * v)), 0.0)
+            g = torch.where(inside, g, 0.0)
             raw = g * op
             alpha = torch.clamp(raw, max=ALPHA_CAP)  # [B, chunk, 256]
             cum = torch.cumprod(1.0 - alpha, dim=1)
@@ -142,16 +144,32 @@ def composite_backward_plain(
             dalpha = torch.where(raw >= ALPHA_CAP, 0.0, dalpha)
             dag = dalpha * g
             dpower = dag * op
-            dub = (dpower * u) * (-9.0 * inv_b1)
-            dvb = (dpower * v) * (-9.0 * inv_b2)
-            grads = torch.stack(
-                [
-                    -torch.sum(dub * e1x + dvb * e1y, dim=2),
-                    torch.sum(dvb * e1x - dub * e1y, dim=2),
+            if mode == MODE_AABB:
+                # power = -0.5 (a dx^2 + c dy^2) + b dx dy with dx = cx - px
+                # (tile_bwd.py:320-332); the radius only masks: no gradient
+                dx, dy = aux
+                head = [
+                    torch.sum(dpower * (-c2 * dx + c3 * dy), dim=2),
+                    torch.sum(dpower * (-c4 * dy + c3 * dx), dim=2),
+                    torch.sum(dpower * (-0.5 * dx * dx), dim=2),
+                    torch.sum(dpower * (dx * dy), dim=2),
+                    torch.sum(dpower * (-0.5 * dy * dy), dim=2),
+                    torch.zeros_like(dpower[..., 0]),
+                ]
+            else:
+                dx, dy, u, v, inv_b1, inv_b2 = aux
+                dub = (dpower * u) * (-9.0 * inv_b1)
+                dvb = (dpower * v) * (-9.0 * inv_b2)
+                head = [
+                    -torch.sum(dub * c2 + dvb * c3, dim=2),
+                    torch.sum(dvb * c2 - dub * c3, dim=2),
                     torch.sum(dub * dx - dvb * dy, dim=2),
                     torch.sum(dub * dy + dvb * dx, dim=2),
                     -torch.sum(dub * u, dim=2),
                     -torch.sum(dvb * v, dim=2),
+                ]
+            grads = torch.stack(
+                head + [
                     torch.sum(w * ghat[0], dim=2),
                     torch.sum(w * ghat[1], dim=2),
                     torch.sum(w * ghat[2], dim=2),
@@ -175,18 +193,20 @@ def composite_backward(
     full_height: int,
     y0: int = 0,
     chunk: int = MAX_CHUNK,
+    mode: int = MODE_OBB,
 ) -> torch.Tensor:
     """Per-pair gradients [P, 10] of the tile blend, in the pair-sorted
     layout of ``params``.
 
     Takes the forward's inputs (``composite_tiles_raw``) and ``gbar`` [T, 8,
     256] from :func:`pack_gbar`.  Pairs the forward did not blend (past the
-    clipped count or the early exit, or in no tile) get exact zeros."""
-    _check_inputs(params, tile_start, tile_count, chunk)
+    clipped count or the early exit, or in no tile) get exact zeros, and so
+    does the AABB radius column (5), which only masks."""
+    _check_inputs(params, tile_start, tile_count, chunk, mode)
     _check_gbar(gbar, tile_start)
     if params.device.type == "cpu":
         return composite_backward_plain(
-            params, tile_start, tile_count, gbar, tx_count, width, full_height, y0, chunk
+            params, tile_start, tile_count, gbar, tx_count, width, full_height, y0, chunk, mode
         )
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
@@ -204,7 +224,7 @@ def composite_backward(
         status = fn(
             params.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(), gbar.data_ptr(),
             num_tiles, tx_count, float(width), float(full_height), inv_w2, inv_h2,
-            int(y0), chunk, TRANS_EPS, dparams.data_ptr(), stream,
+            int(y0), chunk, mode, TRANS_EPS, dparams.data_ptr(), stream,
         )
     build.check(status, "composite_backward")
     if num_tiles > 0:

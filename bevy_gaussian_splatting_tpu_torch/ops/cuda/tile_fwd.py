@@ -4,10 +4,12 @@ Replaces the TPU kernel ``bevy_gaussian_splatting_tpu/ops/pallas/tile_fwd.py``
 ``_composite_kernel`` (``pallas_forward_raw`` / ``pallas_composite_tiles``)
 with ``csrc/tile_fwd.cu``: one block of 256 threads per 16x16 tile, one
 thread per pixel, parameter rows staged chunk by chunk into shared memory and
-blended in sequence.  On the H100 it is bound by FP32 operations (about 25
-per pair and pixel, plus one ``expf``); see the source for the design and
-for what it keeps of the TPU kernel (chunk grid, between-chunk early exit,
-pixel coordinates).
+blended in sequence.  Two modes, as the TPU kernel's ``kernel_mode``: OBB
+(``MODE_OBB``, the eigen-rotated quad) and AABB (``MODE_AABB``, the conic
+quadratic form clipped to the radius square).  On the H100 it is bound by
+FP32 operations (about 25 per pair and pixel, plus one ``expf``); see the
+source for the design and for what it keeps of the TPU kernel (chunk grid,
+between-chunk early exit, pixel coordinates).
 
 ``composite_tiles_raw`` launches the kernel for CUDA tensors and runs the
 plain version, ``composite_tiles_raw_plain``, for CPU tensors.
@@ -26,7 +28,12 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
 
 TILE = 16
 PIX = TILE * TILE  # 256
-N_COLS = 10  # [cx_vp, cy_vp, e1x, e1y, b1, b2, r, g, b, alpha]
+# OBB rows [cx_vp, cy_vp, e1x, e1y, b1, b2, r, g, b, alpha];
+# AABB rows [cx_vp, cy_vp, conic.x, conic.y, conic.z, radius_vp, r, g, b, alpha]
+N_COLS = 10
+MODE_OBB = 0
+MODE_AABB = 1
+MODES = {MODE_OBB: "obb", MODE_AABB: "aabb"}
 ALPHA_CAP = 0.999
 TRANS_EPS = float(np.float32(1.0 / 255.0))
 MAX_CHUNK = 512
@@ -35,7 +42,7 @@ _ARGTYPES = (
     [ctypes.c_void_p] * 3
     + [ctypes.c_int] * 2
     + [ctypes.c_float] * 4
-    + [ctypes.c_int] * 2
+    + [ctypes.c_int] * 3
     + [ctypes.c_float]
     + [ctypes.c_void_p] * 2
 )
@@ -73,7 +80,9 @@ def tile_pixel_coords(tids, tx_count: int, width: int, full_height: int, y0: int
     return px_vp, py_vp
 
 
-def _check_inputs(params, tile_start, tile_count, chunk):
+def _check_inputs(params, tile_start, tile_count, chunk, mode):
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode}")
     if params.dtype != torch.float32:
         raise TypeError(f"params must be float32, got {params.dtype}")
     if params.dim() != 2 or params.shape[1] != N_COLS:
@@ -93,6 +102,32 @@ def _check_inputs(params, tile_start, tile_count, chunk):
         raise ValueError(f"chunk must be in (0, {MAX_CHUNK}], got {chunk}")
 
 
+def splat_falloff(q, px_vp, py_vp, mode: int):
+    """The Gaussian term g of rows ``q`` [..., 10] at pixels ``px_vp``,
+    ``py_vp`` (vp units), zero outside the splat's quad, in the kernel's
+    operation order (``_chunk_alpha``, tile_fwd.py:146-179).  Returns ``(g,
+    inside, aux)``; ``aux`` holds what the backward chains through: ``(dx,
+    dy)`` for AABB, ``(dx, dy, u, v, inv_b1, inv_b2)`` for OBB."""
+    cx, cy, c2, c3, c4, c5 = (q[..., i : i + 1] for i in range(6))
+    if mode == MODE_AABB:
+        # conic quadratic form clipped to the radius square; the offset is
+        # centre minus pixel, the opposite sign of OBB's
+        dx = cx - px_vp
+        dy = cy - py_vp
+        power = -0.5 * (c2 * dx * dx + c4 * dy * dy) + c3 * dx * dy
+        inside = (dx.abs() <= c5) & (dy.abs() <= c5) & (power <= 0.0)
+        return torch.where(inside, torch.exp(power), 0.0), inside, (dx, dy)
+    dx = px_vp - cx
+    dy = py_vp - cy
+    inv_b1 = 1.0 / torch.clamp(c4, min=1e-12)
+    inv_b2 = 1.0 / torch.clamp(c5, min=1e-12)
+    u = (dx * c2 + dy * c3) * inv_b1
+    v = (dx * c3 - dy * c2) * inv_b2
+    inside = (u.abs() <= 1.0) & (v.abs() <= 1.0) & (c4 > 0.0)
+    g = torch.where(inside, torch.exp(-4.5 * (u * u + v * v)), 0.0)
+    return g, inside, (dx, dy, u, v, inv_b1, inv_b2)
+
+
 def composite_tiles_raw_plain(
     params: torch.Tensor,
     tile_start: torch.Tensor,
@@ -102,6 +137,7 @@ def composite_tiles_raw_plain(
     full_height: int,
     y0: int = 0,
     chunk: int = MAX_CHUNK,
+    mode: int = MODE_OBB,
     tile_batch: int = 128,
     walked: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -129,13 +165,16 @@ def composite_tiles_raw_plain(
         px_vp, py_vp = px_vp[:, None, :], py_vp[:, None, :]
         trans = torch.ones((tids.shape[0], PIX), dtype=torch.float32, device=dev)
         accum = torch.zeros((tids.shape[0], 3, PIX), dtype=torch.float32, device=dev)
+        # lanes past the batch's longest range are masked in every tile:
+        # leave them out (alpha 0 multiplies and adds exactly nothing)
+        span = int(total.max()) if tids.numel() else 0
         for c in range(int(n_chunks.max()) if tids.numel() else 0):
             running = c < n_chunks
             if c > 0:
                 running = running & (trans.amax(dim=1) > TRANS_EPS)
             if not bool(running.any()):
                 break
-            lane_idx = c * chunk + lane
+            lane_idx = c * chunk + lane[: span - c * chunk]
             in_rng = (
                 (lane_idx >= prefix[:, None])
                 & (lane_idx < total[:, None])
@@ -145,15 +184,7 @@ def composite_tiles_raw_plain(
                 walked[tids] += in_rng.sum(dim=1)
             idx = (base[:, None] + lane_idx).clamp(max=p)
             q = table[idx]  # [B, chunk, 10]
-            cx, cy, e1x, e1y, b1, b2 = (q[..., i : i + 1] for i in range(6))
-            dx = px_vp - cx
-            dy = py_vp - cy
-            inv_b1 = 1.0 / torch.clamp(b1, min=1e-12)
-            inv_b2 = 1.0 / torch.clamp(b2, min=1e-12)
-            u = (dx * e1x + dy * e1y) * inv_b1
-            v = (dx * e1y - dy * e1x) * inv_b2
-            inside = (u.abs() <= 1.0) & (v.abs() <= 1.0) & (b1 > 0.0)
-            g = torch.where(inside, torch.exp(-4.5 * (u * u + v * v)), 0.0)
+            g = splat_falloff(q, px_vp, py_vp, mode)[0]
             alpha = torch.clamp(g * q[..., 9:10], max=ALPHA_CAP)
             alpha = torch.where(in_rng[..., None], alpha, 0.0)  # [B, chunk, 256]
             cum = torch.cumprod(1.0 - alpha, dim=1)
@@ -176,18 +207,20 @@ def composite_tiles_raw(
     full_height: int,
     y0: int = 0,
     chunk: int = MAX_CHUNK,
+    mode: int = MODE_OBB,
 ) -> torch.Tensor:
     """Composite every tile -> raw [T, 4, 256]: rows 0-2 premultiplied rgb,
     row 3 final transmittance.
 
-    ``params`` [P, 10] f32: pair-sorted OBB rows; ``tile_start`` /
-    ``tile_count`` [T] int32: each tile's range in ``params`` (counts already
-    clipped to the per-tile budget).  ``full_height`` and ``y0`` place the
-    tile grid in the full image (``y0`` = 0 for one device)."""
-    _check_inputs(params, tile_start, tile_count, chunk)
+    ``params`` [P, 10] f32: pair-sorted rows of ``mode``'s layout;
+    ``tile_start`` / ``tile_count`` [T] int32: each tile's range in
+    ``params`` (counts already clipped to the per-tile budget).
+    ``full_height`` and ``y0`` place the tile grid in the full image (``y0``
+    = 0 for one device)."""
+    _check_inputs(params, tile_start, tile_count, chunk, mode)
     if params.device.type == "cpu":
         return composite_tiles_raw_plain(
-            params, tile_start, tile_count, tx_count, width, full_height, y0, chunk
+            params, tile_start, tile_count, tx_count, width, full_height, y0, chunk, mode
         )
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
@@ -205,7 +238,7 @@ def composite_tiles_raw(
         status = fn(
             params.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
             num_tiles, tx_count, float(width), float(full_height), inv_w2, inv_h2,
-            int(y0), chunk, TRANS_EPS, out.data_ptr(), stream,
+            int(y0), chunk, mode, TRANS_EPS, out.data_ptr(), stream,
         )
     build.check(status, "composite_tiles_raw")
     if num_tiles > 0:

@@ -1,8 +1,8 @@
 """Per-gaussian projection: cloud -> screen-space splat attributes.
 
 The counterpart of the JAX package's ``ops/project.py`` (the reference's
-vertex stage ``vs_points``, src/render/gaussian.wgsl:205-436), for the
-default configuration only: 3DGS, OBB bounds, COLOR mode.
+vertex stage ``vs_points``, src/render/gaussian.wgsl:205-436), for 3DGS in
+COLOR mode with OBB or AABB bounds.
 
 Outputs ("splats" dict, all [N, ...]):
   mask        bool     survives frustum culling
@@ -10,8 +10,10 @@ Outputs ("splats" dict, all [N, ...]):
   sort_key    int64    radix depth key (ops/sort.py), sentinel where culled
   center_ndc  [N, 2]   projected center in NDC
   cutoff      f32      sigma cutoff (3 or opacity-adaptive)
-  obb_bounds  [N, 2]   major / minor radius in vp units
-  obb_axis    [N, 2]   unit major eigenvector
+  obb_bounds  [N, 2]   major / minor radius in vp units      (OBB)
+  obb_axis    [N, 2]   unit major eigenvector                (OBB)
+  conic       [N, 3]   inverse 2D covariance                 (AABB)
+  radius_vp   f32      axis-aligned bounding radius, vp units (AABB)
   rgb         [N, 3]   SH colour (linear)
   alpha       f32      opacity * global_opacity
 """
@@ -75,7 +77,6 @@ def project_gaussians(
     cov2 = cov_ops.cov2d(
         world_pos, cov3, camera.view_from_world, camera.clip_from_view, viewport
     )
-    major, minor, axis = cov_ops.obb_axes(cov2, cutoff)
 
     # COLOR mode (gaussian.wgsl:312-328): SH lookup along the view ray
     ray_dir = diff / torch.clamp(torch.sqrt(dist2)[..., None], min=1e-12)
@@ -84,14 +85,20 @@ def project_gaussians(
     if settings.color_space == GaussianColorSpace.SRGB_REC709_DISPLAY:
         rgb = sh_ops.srgb_to_linear(rgb)
 
-    return {
+    splats = {
         "mask": mask,
         "center_ndc": proj[..., :2],
         "depth2": dist2,
         "sort_key": sort_key,
         "cutoff": cutoff,
-        "obb_bounds": torch.stack([major, minor], dim=-1),
-        "obb_axis": axis,
         "rgb": rgb,
         "alpha": opacity * settings.global_opacity,
     }
+    if settings.aabb:
+        splats["conic"] = cov_ops.conic_from_cov2d(cov2)
+        splats["radius_vp"] = cov_ops.aabb_radius(cov2, cutoff)
+    else:
+        major, minor, axis = cov_ops.obb_axes(cov2, cutoff)
+        splats["obb_bounds"] = torch.stack([major, minor], dim=-1)
+        splats["obb_axis"] = axis
+    return splats

@@ -1,11 +1,13 @@
 """Reference (oracle) rasterizer: exact, slow, plain PyTorch.
 
-The counterpart of the JAX package's ``ops/rasterize_ref.py`` for 3DGS / OBB
-/ COLOR: back-to-front painter blending over depth-sorted gaussians with
-premultiplied alpha, dst factor (1 - a) (src/render/mod.rs:914-982), OBB
-falloff power = -4.5 |uv|^2 in the eigen-rotated quad frame
-(src/render/gaussian.wgsl:489-497), alpha cap 0.999 (:499-505).  It defines
-correctness for the tiled renderer.  Its cost is O(N * H * W): small N only.
+The counterpart of the JAX package's ``ops/rasterize_ref.py`` for 3DGS /
+COLOR with OBB or AABB bounds: back-to-front painter blending over
+depth-sorted gaussians with premultiplied alpha, dst factor (1 - a)
+(src/render/mod.rs:914-982), OBB falloff power = -4.5 |uv|^2 in the
+eigen-rotated quad frame (src/render/gaussian.wgsl:489-497) or the AABB conic
+falloff clipped to the radius square (:455-470), alpha cap 0.999
+(:499-505).  It defines correctness for the tiled renderer.  Its cost is
+O(N * H * W): small N only.
 """
 
 from __future__ import annotations
@@ -55,6 +57,16 @@ def _fragment_alpha_3d_obb(cx, cy, e1, bounds, px_vp, py_vp):
     return torch.where(inside, torch.exp(power), torch.zeros_like(power))
 
 
+def _fragment_alpha_3d_aabb(cx, cy, conic, radius, px_vp, py_vp):
+    """AABB conic falloff clipped to the radius square (gaussian.wgsl:455-470;
+    rasterize_ref.py:48-69 of the JAX package)."""
+    dx = cx - px_vp
+    dy = cy - py_vp
+    power = -0.5 * (conic[0] * dx * dx + conic[2] * dy * dy) + conic[1] * dx * dy
+    inside = (dx.abs() <= radius) & (dy.abs() <= radius) & (power <= 0.0)
+    return torch.where(inside, torch.exp(power), torch.zeros_like(power))
+
+
 def composite_splats(
     splats: dict,
     order: torch.Tensor,
@@ -63,7 +75,8 @@ def composite_splats(
     background: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Painter-blend splats over the image in ``order`` (back-to-front).
-    Returns [H, W, 4] premultiplied linear RGBA."""
+    Returns [H, W, 4] premultiplied linear RGBA.  Splats that carry
+    ``radius_vp`` (an AABB projection) take the AABB falloff."""
     dev = splats["rgb"].device
     px_ndc, py_ndc = pixel_grid_ndc(width, height, dev)
     px_vp = px_ndc * float(width)
@@ -75,13 +88,17 @@ def composite_splats(
     center = splats["center_ndc"][order]
     cx_all = center[:, 0] * float(width)
     cy_all = center[:, 1] * float(height)
-    axis = splats["obb_axis"][order]
-    bounds = splats["obb_bounds"][order]
+    if "radius_vp" in splats:
+        shape_a, shape_b = splats["conic"][order], splats["radius_vp"][order]
+        falloff = _fragment_alpha_3d_aabb
+    else:
+        shape_a, shape_b = splats["obb_axis"][order], splats["obb_bounds"][order]
+        falloff = _fragment_alpha_3d_obb
     rgb = splats["rgb"][order]
     alpha_s = splats["alpha"][order]
     mask = splats["mask"][order]
     for i in range(order.shape[0]):
-        g = _fragment_alpha_3d_obb(cx_all[i], cy_all[i], axis[i], bounds[i], px_vp, py_vp)
+        g = falloff(cx_all[i], cy_all[i], shape_a[i], shape_b[i], px_vp, py_vp)
         alpha = torch.clamp(g * alpha_s[i], max=ALPHA_CAP)
         alpha = torch.where(mask[i], alpha, torch.zeros_like(alpha))
         src_rgb = rgb[i][None, None, :] * alpha[..., None]

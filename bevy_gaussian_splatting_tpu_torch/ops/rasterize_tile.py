@@ -1,12 +1,13 @@
 """Tile-binned renderer: binning, parameter packing and the pipeline.
 
 The counterpart of the JAX package's ``ops/rasterize_tile.py``
-``render_tiled(..., compositor="pallas")`` for the default configuration:
-3DGS, OBB bounds, COLOR mode, serving and training alike.  It reproduces
-that path's integer artifacts exactly:
+``render_tiled(..., compositor="pallas")`` for 3DGS in COLOR mode with OBB
+or AABB bounds, serving and training alike.  It reproduces that path's
+integer artifacts exactly:
 
   1. project every gaussian (ops/project.py) and take its radix depth key;
-  2. each splat's clipped tile rectangle from its OBB screen extent;
+  2. each splat's clipped tile rectangle from its OBB screen extent, or the
+     square of its AABB radius;
   3. a stable depth pre-sort, front to back, inactive gaussians first;
   4. inclusive pair counts, capped at the budget ``p_max`` (the farthest
      pairs drop when the cap binds);
@@ -35,7 +36,12 @@ from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
 from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.core import composite_core
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
-from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import composite_epilogue, preferred_chunk
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
+    MODE_AABB,
+    MODE_OBB,
+    composite_epilogue,
+    preferred_chunk,
+)
 from bevy_gaussian_splatting_tpu_torch.ops.project import project_gaussians
 
 TILE = 16  # pixels per tile side
@@ -79,9 +85,14 @@ def project_for_binning(cloud, camera: Camera, settings: CloudSettings, model_tr
 
 
 def _pixel_extents(splats: dict, width: int, height: int):
-    """Per-splat centre (cx, cy) and OBB half-extents (rx, ry) in pixels."""
+    """Per-splat centre (cx, cy) and half-extents (rx, ry) in pixels: the
+    square of the AABB radius where the projection gave one, else the OBB's
+    rotated rectangle (rasterize_tile.py:166-183)."""
     cx_px = (splats["center_ndc"][:, 0] + 1.0) * 0.5 * width
     cy_px = (1.0 - splats["center_ndc"][:, 1]) * 0.5 * height
+    if "radius_vp" in splats:
+        r = splats["radius_vp"] * 0.5  # vp -> px
+        return cx_px, cy_px, r, r
     e1 = splats["obb_axis"]
     b = splats["obb_bounds"]
     # rotated-rect bbox: |e1|*b1 + |e2|*b2 with e2 = (e1.y, -e1.x)
@@ -187,22 +198,33 @@ def tile_ranges(pair_tile: torch.Tensor, num_tiles: int):
     return bounds[:num_tiles], bounds[1:]
 
 
-def pack_raster_param_cols(splats: dict, width: int, height: int) -> list:
+def kernel_mode(settings: CloudSettings) -> int:
+    """The compositing kernels' mode for ``settings`` (tile_fwd.py:81-84)."""
+    return MODE_AABB if settings.aabb else MODE_OBB
+
+
+def pack_raster_param_cols(splats: dict, settings: CloudSettings, width: int, height: int) -> list:
     """Per-splat compositor parameters as a list of columns, in the kernel's
-    OBB order ``[cx_vp, cy_vp, e1x, e1y, b1, b2, r, g, b, alpha]``
-    (rasterize_tile.py:854-858)."""
+    order (rasterize_tile.py:850-858): ``[cx_vp, cy_vp, e1x, e1y, b1, b2, r,
+    g, b, alpha]`` for OBB, ``[cx_vp, cy_vp, conic.x, conic.y, conic.z,
+    radius_vp, r, g, b, alpha]`` for AABB."""
     cx_vp = splats["center_ndc"][:, 0] * width
     cy_vp = splats["center_ndc"][:, 1] * height
     rgb = splats["rgb"]
     alpha = splats["alpha"] * splats["mask"].to(torch.float32)
-    e1 = splats["obb_axis"]
-    b = splats["obb_bounds"]
-    return [cx_vp, cy_vp, e1[:, 0], e1[:, 1], b[:, 0], b[:, 1], rgb[:, 0], rgb[:, 1], rgb[:, 2], alpha]
+    if settings.aabb:
+        conic = splats["conic"]
+        cols = [cx_vp, cy_vp, conic[:, 0], conic[:, 1], conic[:, 2], splats["radius_vp"]]
+    else:
+        e1 = splats["obb_axis"]
+        b = splats["obb_bounds"]
+        cols = [cx_vp, cy_vp, e1[:, 0], e1[:, 1], b[:, 0], b[:, 1]]
+    return cols + [rgb[:, 0], rgb[:, 1], rgb[:, 2], alpha]
 
 
-def pack_raster_params(splats: dict, width: int, height: int) -> torch.Tensor:
+def pack_raster_params(splats: dict, settings: CloudSettings, width: int, height: int) -> torch.Tensor:
     """[N, 10] packed per-splat parameters for the compositor."""
-    return torch.stack(pack_raster_param_cols(splats, width, height), dim=-1)
+    return torch.stack(pack_raster_param_cols(splats, settings, width, height), dim=-1)
 
 
 class TileBins(NamedTuple):
@@ -252,9 +274,9 @@ def render_tiled(
     splats = project_for_binning(cloud, camera, settings, model_transform)
     bins = tile_bins(splats, width, height, p_max)
     out_raw = composite_core(
-        pack_raster_params(splats, width, height), *bins,
+        pack_raster_params(splats, settings, width, height), *bins,
         tx_count=tx_count, width=width, full_height=height,
-        chunk=preferred_chunk(p_max, bins.start.shape[0]),
+        chunk=preferred_chunk(p_max, bins.start.shape[0]), mode=kernel_mode(settings),
     )
     img = composite_epilogue(out_raw, background, width, h_pad)
     return img[:height] if h_pad != height else img

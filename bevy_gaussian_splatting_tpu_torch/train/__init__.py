@@ -1,3 +1,3 @@
 """Training: losses and the optimizer step (``train/losses.py``,
-``train/step.py``).  Densification and the convergence benchmark come with
-the training-loop slice."""
+``train/step.py``), adaptive density control (``train/densify.py``) and the
+convergence benchmark (``train/quality.py``)."""

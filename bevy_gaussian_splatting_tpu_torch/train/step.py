@@ -47,6 +47,14 @@ class TrainableCloud(torch.nn.Module):
         """A ``Gaussian3dCloud`` view of the parameters (no copy)."""
         return Gaussian3dCloud(**{name: getattr(self, name) for name in FIELDS})
 
+    def grads(self) -> Gaussian3dCloud:
+        """The last step's gradients as a ``Gaussian3dCloud`` (no copy), the
+        counterpart of the cloud-shaped gradient of ``jax.grad``."""
+        missing = [name for name in FIELDS if getattr(self, name).grad is None]
+        if missing:
+            raise ValueError(f"no gradient for {missing}: run a training step first")
+        return Gaussian3dCloud(**{name: getattr(self, name).grad for name in FIELDS})
+
 
 def adam(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
     """Adam with optax.adam's defaults: betas (0.9, 0.999), eps 1e-8 added

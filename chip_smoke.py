@@ -2,12 +2,16 @@
 """Smoke run of the PyTorch port (bevy_gaussian_splatting_tpu_torch) on one
 NVIDIA card.
 
-    python3 chip_smoke.py            # the whole run, about half a minute
+    python3 chip_smoke.py            # the whole run (35-50 s of script time on
+                                     # "NVIDIA H100 80GB HBM3, 700.00 W")
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one
-                                     # frame per size and of one training
-                                     # step, written to the output directory
+                                     # frame per size and mode and of one
+                                     # training step, written to the output
+                                     # directory
 
-Phases, each of which raises on failure (nothing is caught):
+Phases, each of which raises on failure (nothing is caught).  Phases 3-6 run
+with OBB bounds (``CloudSettings()``), then phases 3-5 and 7 with AABB bounds
+(``CloudSettings(aabb=True)``), then phase 8:
 
   1. build   every kernel under bevy_gaussian_splatting_tpu_torch/csrc with
              nvcc for sm_90a, one nvcc per source, all started together;
@@ -15,10 +19,11 @@ Phases, each of which raises on failure (nothing is caught):
              ``random_gaussians_3d_seeded(n, seed=0)``, positions scaled by
              (1, 1, 0.25), scales by 0.05 (bench.py), camera at (0, 0, 60);
   3. kernels each kernel against its plain PyTorch version on the scene's
-             real inputs at 512x512 (and 1920x1080): expansion array-equal,
+             real inputs at 512x512 and 1920x1080: expansion array-equal,
              compositing within 2e-5, the backward compositor within 1e-4 of
              each gradient column's largest magnitude (its cotangent taken
-             from a real loss), the segmented reduce array-equal;
+             from a real loss; the AABB radius column exactly 0 in both),
+             the segmented reduce array-equal;
   4. small   ``render()`` on the card against the port's oracle (3e-5) and
              against the same call on the CPU (2e-5), and the gradients of
              every cloud field, card against CPU (1e-4 of the field's
@@ -33,13 +38,23 @@ Phases, each of which raises on failure (nothing is caught):
              (0.25, -0.15, 0.1): a warm-up and 10 timed steps on the bench
              objective mean((img - target)^2) and two
              ``gaussian_splatting_loss`` steps at 512x512, then a warm-up
-             and 3 timed steps at 1920x1080.  Every step must launch all
+             and 2 timed steps at 1920x1080.  Every step must launch all
              four kernels and give a finite loss and finite gradients; the
-             last bench-objective loss must be below the first.
+             last bench-objective loss must be below the first;
+  7. train   (AABB) the training loop's pieces on the scene: a warm-up and 5
+             Adam steps at 512x512, a warm-up and 2 at 1920x1080, with
+             ``accumulate_stats`` after every step, then one
+             ``densify_and_prune(k_budget=N // 8)`` (scene extent from
+             ``compute_aabb``), a fresh Adam and 2 more steps.  The same checks
+             per step; the densify stats are printed;
+  8. converge ``convergence_psnr()`` on the card at the JAX package's bench
+             protocol (120 steps, 512 gaussians, 128x128; at least 15.91 dB,
+             its 16.41 dB less 0.5) and at its CPU test protocol (60 steps,
+             192 gaussians, 48x48; at least 17.28 dB).
 
-It prints the kernels line, the card's name and power limit, and as its last
-line ``{"ok": true, "device": {...}}``.  Without a card it exits non-zero
-and prints no result.
+It prints the kernels line (one entry per kernel and mode), the card's name
+and power limit, and as its last line ``{"ok": true, "device": {...}}``.
+Without a card it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -71,17 +86,26 @@ FP32_NO_FMA_OPS_PER_S = FP32_OPS_PER_S / 2
 # The expansion is integer work: 64 INT32 lanes per SM (Hopper whitepaper),
 # half the FP32 lanes, one operation per instruction.
 INT32_OPS_PER_S = FP32_OPS_PER_S / 4
-COMPOSITE_OPS_PER_EVAL = 26  # 25 FP32 operations and one expf per (pair, pixel)
-# The backward compositor (csrc/tile_bwd.cu), per walked (pair, pixel): 12
-# FP32 operations for the offsets, u, v and the inside test; inside the
-# splat 59 more and one expf (alpha, transmittance, the gradient chain and
-# one add into each of the ten pixel sums).
-BACKWARD_OPS_PER_EVAL = 12
-BACKWARD_OPS_PER_INSIDE = 60
+# Operations per (pair, pixel) evaluation of each mode, counted from the
+# sources (csrc/tile_fwd.cu, csrc/tile_bwd.cu).  Forward: OBB 25 FP32
+# operations and one expf, AABB 27 and one expf.  Backward, per walked
+# evaluation: OBB 12 (offsets, u, v, the inside test), AABB 16 (offsets, the
+# quadratic form, the clip); inside the splat 59 more and one expf for OBB
+# (alpha, transmittance, the gradient chain and one add into each of the ten
+# pixel sums), 50 more and one expf for AABB (nine sums).
+COMPOSITE_OPS_PER_EVAL = {"obb": 26, "aabb": 28}
+BACKWARD_OPS_PER_EVAL = {"obb": 12, "aabb": 16}
+BACKWARD_OPS_PER_INSIDE = {"obb": 60, "aabb": 51}
 GRAD_BAR = 1e-4  # kernel vs plain (and card vs CPU), per gradient column
 TRAIN_LR = 1e-3
 TRAIN_STEPS = 10  # timed bench-objective steps at 512x512
-TRAIN_STEPS_1080 = 3  # timed steps at 1920x1080, after one warm-up
+TRAIN_STEPS_1080 = 2  # timed steps at 1920x1080, after one warm-up
+AABB_TRAIN_STEPS = {SIZES[0]: 5, SIZES[1]: 2}  # Adam steps after one warm-up
+AABB_AFTER_DENSIFY = 2  # steps after densify_and_prune
+# convergence_psnr: (steps, n, size, floor in dB).  The bench protocol's floor
+# is the JAX package's 16.41 dB (BENCH_r05.json) less the 0.5 dB its own test
+# allows (tests/test_train.py); the test protocol's floor is that test's.
+CONVERGE = ((120, 512, 128, 15.91), (60, 192, 48, 17.28))
 FIELDS = ("position_visibility", "spherical_harmonic", "rotation", "scale_opacity")
 
 
@@ -136,7 +160,8 @@ def bound(nbytes: float, nops: float, ops_per_s: float):
 
 
 def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dict:
-    """Each kernel against its plain version on this frame's real inputs."""
+    """Each kernel against its plain version on this frame's real inputs, in
+    the compositors' mode for ``settings``."""
     from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import expand as ex
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import reduce as rd
@@ -144,6 +169,9 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 
     dev = cloud.device
+    kmode = rt.kernel_mode(settings)
+    mode = tf.MODES[kmode]
+    label = f"{mode} {width}x{height}"
     camera = orbit_camera(0.0, width, height, dev)
     n = len(cloud)
     total = int(rt.pair_count(cloud, camera, settings))
@@ -152,11 +180,13 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     tx_count = width // rt.TILE
     num_tiles = tx_count * (rt.pad_to_tile(height) // rt.TILE)
 
-    # radix keys: the card's against the CPU's, counted (ROADMAP Queue 3)
-    keys_card = splats["sort_key"].cpu()
-    cpu_cloud, cpu_cam = cloud.to("cpu"), orbit_camera(0.0, width, height, "cpu")
-    keys_cpu = rt.project_for_binning(cpu_cloud, cpu_cam, settings)["sort_key"]
-    log(f"[keys {width}x{height}] radix keys differing card vs cpu: {int((keys_card != keys_cpu).sum())} of {n}")
+    if not settings.aabb:
+        # radix keys (the same in both modes): the card's against the CPU's,
+        # counted (ROADMAP Queue 3)
+        keys_card = splats["sort_key"].cpu()
+        cpu_cloud, cpu_cam = cloud.to("cpu"), orbit_camera(0.0, width, height, "cpu")
+        keys_cpu = rt.project_for_binning(cpu_cloud, cpu_cam, settings)["sort_key"]
+        log(f"[keys {width}x{height}] radix keys differing card vs cpu: {int((keys_card != keys_cpu).sum())} of {n}")
 
     # ---- pair expansion: array-equal ----
     table, _ = rt.expansion_inputs(splats, width, height, p_max)
@@ -166,7 +196,7 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     for name, g, r in zip(("tile", "g_cloud", "rank"), got, ref):
         if not torch.equal(g, r):
             bad = int((g != r).sum())
-            raise AssertionError(f"expand_pairs {width}x{height}: {name} differs in {bad} slots")
+            raise AssertionError(f"expand_pairs {label}: {name} differs in {bad} slots")
     exp_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
     exp_ms = cuda_ms(lambda: ex.expand_pairs(*args), 20)
     exp_plain_ms = cuda_ms(lambda: ex.expand_pairs_plain(*args), 5)
@@ -175,21 +205,23 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
 
     # ---- compositor: within 2e-5 ----
     bins = rt.tile_bins(splats, width, height, p_max)
-    params = rt.pack_raster_params(splats, width, height)[bins.g_s].contiguous()
+    params = rt.pack_raster_params(splats, settings, width, height)[bins.g_s].contiguous()
     start, count = bins.start, bins.count
     chunk = tf.preferred_chunk(p_max, num_tiles)
     comp_args = (params, start, count, tx_count, width, height)
-    raw = tf.composite_tiles_raw(*comp_args, chunk=chunk)
+    raw = tf.composite_tiles_raw(*comp_args, chunk=chunk, mode=kmode)
     walked = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
-    raw_plain = tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, tile_batch=512, walked=walked)
+    raw_plain = tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, mode=kmode, tile_batch=512, walked=walked)
     comp_err = float((raw - raw_plain).abs().max())
     if not comp_err <= 2e-5:
-        raise AssertionError(f"composite_tiles_raw {width}x{height}: max |kernel - plain| = {comp_err:.3e} > 2e-5")
-    comp_ms = cuda_ms(lambda: tf.composite_tiles_raw(*comp_args, chunk=chunk), 20)
-    comp_plain_ms = cuda_ms(lambda: tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, tile_batch=512), 2)
+        raise AssertionError(f"composite_tiles_raw {label}: max |kernel - plain| = {comp_err:.3e} > 2e-5")
+    comp_ms = cuda_ms(lambda: tf.composite_tiles_raw(*comp_args, chunk=chunk, mode=kmode), 20)
+    comp_plain_ms = cuda_ms(
+        lambda: tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, mode=kmode, tile_batch=512), 2
+    )
     evals = int(walked.sum()) * tf.PIX
     comp_bytes = params.numel() * 4 + 2 * 4 * num_tiles + raw.numel() * 4
-    comp_ops = evals * COMPOSITE_OPS_PER_EVAL
+    comp_ops = evals * COMPOSITE_OPS_PER_EVAL[mode]
 
     # ---- backward compositor: per column within GRAD_BAR of its largest |plain| ----
     # the cotangent of a real loss: the bench objective against a render of
@@ -201,23 +233,29 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     (grad_raw,) = torch.autograd.grad(torch.mean((img - target) ** 2), raw_req)
     gbar = tb.pack_gbar(grad_raw, raw)
     bwd_args = (params, start, count, gbar, tx_count, width, height)
-    dsorted = tb.composite_backward(*bwd_args, chunk=chunk)
+    dsorted = tb.composite_backward(*bwd_args, chunk=chunk, mode=kmode)
     inside = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
-    dsorted_plain = tb.composite_backward_plain(*bwd_args, chunk=chunk, tile_batch=512, inside_count=inside)
+    dsorted_plain = tb.composite_backward_plain(
+        *bwd_args, chunk=chunk, mode=kmode, tile_batch=512, inside_count=inside
+    )
     col_max = dsorted_plain.abs().amax(dim=0)
     col_err = (dsorted - dsorted_plain).abs().amax(dim=0)
     col_rel = (col_err / col_max.clamp(min=1e-30)).tolist()
     bwd_err = float(col_err.max())
     if not bool((col_err <= GRAD_BAR * col_max).all()):
         raise AssertionError(
-            f"composite_backward {width}x{height}: per-column |kernel - plain| / max|plain| "
+            f"composite_backward {label}: per-column |kernel - plain| / max|plain| "
             f"{[f'{r:.2e}' for r in col_rel]} above {GRAD_BAR}"
         )
-    bwd_ms = cuda_ms(lambda: tb.composite_backward(*bwd_args, chunk=chunk), 10)
-    bwd_plain_ms = cuda_ms(lambda: tb.composite_backward_plain(*bwd_args, chunk=chunk, tile_batch=512), 1)
+    if settings.aabb and (bool(dsorted[:, 5].any()) or bool(dsorted_plain[:, 5].any())):
+        raise AssertionError(f"composite_backward {label}: the radius column (5) has a gradient")
+    bwd_ms = cuda_ms(lambda: tb.composite_backward(*bwd_args, chunk=chunk, mode=kmode), 10)
+    bwd_plain_ms = cuda_ms(
+        lambda: tb.composite_backward_plain(*bwd_args, chunk=chunk, mode=kmode, tile_batch=512), 1
+    )
     n_inside = int(inside.sum())
     bwd_bytes = params.numel() * 4 + 2 * 4 * num_tiles + gbar.numel() * 4 + dsorted.numel() * 4
-    bwd_ops = evals * BACKWARD_OPS_PER_EVAL + n_inside * BACKWARD_OPS_PER_INSIDE
+    bwd_ops = evals * BACKWARD_OPS_PER_EVAL[mode] + n_inside * BACKWARD_OPS_PER_INSIDE[mode]
 
     # ---- segmented reduce: array-equal ----
     dslot = torch.empty_like(dsorted)
@@ -226,7 +264,7 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     drank_plain = rd.segment_reduce_plain(dslot, bins.cum, n)
     if not torch.equal(drank, drank_plain):
         bad = int((drank != drank_plain).any(dim=1).sum())
-        raise AssertionError(f"segment_reduce {width}x{height}: {bad} of {n} ranks differ from the plain version")
+        raise AssertionError(f"segment_reduce {label}: {bad} of {n} ranks differ from the plain version")
     red_err = float((drank - drank_plain).abs().max())
     red_ms = cuda_ms(lambda: rd.segment_reduce(dslot, bins.cum, n), 20)
     red_plain_ms = cuda_ms(lambda: rd.segment_reduce_plain(dslot, bins.cum, n), 2)
@@ -239,24 +277,24 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     red_bytes = owned * tf.N_COLS * 4 + n * 4 + n * tf.N_COLS * 4
     red_ops = owned * tf.N_COLS
 
-    log(
-        f"[kernels {width}x{height}] pairs {total} p_max {p_max} chunk {chunk} | "
-        f"expand equal, {exp_ms:.4f} ms (plain {exp_plain_ms:.4f}) | "
-        f"composite max_abs_err {comp_err:.3e}, {comp_ms:.4f} ms (plain {comp_plain_ms:.4f}), "
-        f"pairs walked {int(walked.sum())} of {int(count.sum())}"
-    )
-    log(
-        f"[kernels {width}x{height}] composite_backward per-column |kernel - plain| / max|plain| "
-        f"{' '.join(f'{r:.2e}' for r in col_rel)} (bar {GRAD_BAR}), max_abs_err {bwd_err:.3e}, "
-        f"{bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}), (pair, pixel) inside {n_inside} of {evals} | "
-        f"segment_reduce equal over {n} ranks, {owned} slots, {red_ms:.4f} ms (plain {red_plain_ms:.4f}, "
-        f"torch.segment_reduce {red_lib_ms:.4f}, differs by {lib_err:.3e})"
-    )
-
     eb, eby = bound(exp_bytes, exp_ops, INT32_OPS_PER_S)
     cb, cby = bound(comp_bytes, comp_ops, FP32_NO_FMA_OPS_PER_S)
     bb, bby = bound(bwd_bytes, bwd_ops, FP32_NO_FMA_OPS_PER_S)
     rb, rby = bound(red_bytes, red_ops, FP32_NO_FMA_OPS_PER_S)
+    log(
+        f"[kernels {label}] pairs {total} p_max {p_max} chunk {chunk} | "
+        f"expand equal, {exp_ms:.4f} ms (plain {exp_plain_ms:.4f}, bound {eb:.4f} by {eby}) | "
+        f"composite max_abs_err {comp_err:.3e}, {comp_ms:.4f} ms (plain {comp_plain_ms:.4f}, "
+        f"bound {cb:.4f} by {cby}), pairs walked {int(walked.sum())} of {int(count.sum())}"
+    )
+    log(
+        f"[kernels {label}] composite_backward per-column |kernel - plain| / max|plain| "
+        f"{' '.join(f'{r:.2e}' for r in col_rel)} (bar {GRAD_BAR}), max_abs_err {bwd_err:.3e}, "
+        f"{bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}, bound {bb:.4f} by {bby}), (pair, pixel) inside "
+        f"{n_inside} of {evals} | segment_reduce equal over {n} ranks, {owned} slots, {red_ms:.4f} ms "
+        f"(plain {red_plain_ms:.4f}, bound {rb:.4f} by {rby}, torch.segment_reduce {red_lib_ms:.4f}, "
+        f"differs by {lib_err:.3e})"
+    )
     return {
         "expand_pairs": dict(max_abs_err=exp_err, ms=exp_ms, plain_ms=exp_plain_ms, bound_ms=eb, bound_by=eby,
                              library_ms=None),
@@ -269,16 +307,14 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     }
 
 
-def small_grads(arrays: dict, camera, background, device) -> dict:
+def small_grads(arrays: dict, camera, background, settings, device) -> dict:
     """Gradients of every cloud field of the bench objective against a
     render of the moved cloud, on ``device``."""
     from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
-    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
     from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import render_tiled
     from bevy_gaussian_splatting_tpu_torch.train.losses import mse
     from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, shifted_arrays
 
-    settings = CloudSettings()
     camera, background = camera.to(device), background.to(device)
     with torch.no_grad():
         target = render_tiled(cloud_from_numpy(shifted_arrays(arrays), device), camera, settings, background=background)
@@ -287,7 +323,7 @@ def small_grads(arrays: dict, camera, background, device) -> dict:
     return {name: getattr(model, name).grad.cpu() for name in FIELDS}
 
 
-def phase_small() -> None:
+def phase_small(settings) -> None:
     """Small inputs: card against the oracle and against the CPU, images and
     gradients."""
     from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
@@ -295,47 +331,50 @@ def phase_small() -> None:
 
     a = bench_arrays(2000, seed=3)
     bg = torch.tensor([0.2, 0.1, 0.4, 1.0])
+    mode = "aabb" if settings.aabb else "obb"
     for width, height in ((128, 128), (128, 120)):
+        label = f"{mode} {width}x{height}"
         cam = orbit_camera(0.0, width, height, "cpu")
-        cpu = render(cloud_from_numpy(a, "cpu"), cam, background=bg, device="cpu")
-        gpu = render(cloud_from_numpy(a, "cuda"), cam.to("cuda"), background=bg.cuda())
-        oracle = render(cloud_from_numpy(a, "cuda"), cam.to("cuda"), background=bg.cuda(), impl="oracle")
+        cpu = render(cloud_from_numpy(a, "cpu"), cam, settings, background=bg, device="cpu")
+        gpu = render(cloud_from_numpy(a, "cuda"), cam.to("cuda"), settings, background=bg.cuda())
+        oracle = render(cloud_from_numpy(a, "cuda"), cam.to("cuda"), settings, background=bg.cuda(), impl="oracle")
         e_cpu = float((gpu.cpu() - cpu).abs().max())
         e_oracle = float((gpu - oracle).abs().max())
-        log(f"[small {width}x{height}] card vs cpu {e_cpu:.3e} (bar 2e-5), card vs oracle {e_oracle:.3e} (bar 3e-5)")
+        log(f"[small {label}] card vs cpu {e_cpu:.3e} (bar 2e-5), card vs oracle {e_oracle:.3e} (bar 3e-5)")
         if not (e_cpu <= 2e-5 and e_oracle <= 3e-5):
-            raise AssertionError(f"small render {width}x{height} disagrees: cpu {e_cpu:.3e}, oracle {e_oracle:.3e}")
-        g_cpu = small_grads(a, cam, bg, "cpu")
-        g_card = small_grads(a, cam, bg, "cuda")
+            raise AssertionError(f"small render {label} disagrees: cpu {e_cpu:.3e}, oracle {e_oracle:.3e}")
+        g_cpu = small_grads(a, cam, bg, settings, "cpu")
+        g_card = small_grads(a, cam, bg, settings, "cuda")
         rel = {}
         for name in FIELDS:
             if not bool(torch.isfinite(g_card[name]).all()):
-                raise AssertionError(f"small gradients {width}x{height}: {name} not finite on the card")
+                raise AssertionError(f"small gradients {label}: {name} not finite on the card")
             scale = float(g_cpu[name].abs().max())
             rel[name] = float((g_card[name] - g_cpu[name]).abs().max()) / max(scale, 1e-30)
-        log(f"[small {width}x{height}] gradients card vs cpu, max |diff| / max |cpu| per field: "
+        log(f"[small {label}] gradients card vs cpu, max |diff| / max |cpu| per field: "
             + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (bar {GRAD_BAR})")
         if not all(v <= GRAD_BAR for v in rel.values()):
-            raise AssertionError(f"small gradients {width}x{height} disagree card vs cpu: {rel}")
+            raise AssertionError(f"small gradients {label} disagree card vs cpu: {rel}")
 
 
 def phase_main(cloud, settings, profile: bool) -> dict:
     """The serving path through ``render()``; counters read per frame."""
     from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.reduce import segment_reduce
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_bwd import composite_backward
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import composite_tiles_raw
     from bevy_gaussian_splatting_tpu_torch.render import api
 
-    from bevy_gaussian_splatting_tpu_torch.ops.cuda.reduce import segment_reduce
-    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_bwd import composite_backward
-
     dev = cloud.device
+    mode = "aabb" if settings.aabb else "obb"
     counters = (expand_pairs, composite_tiles_raw)
     idle = (composite_backward, segment_reduce)  # serving runs no backward
     launches = {f.__name__: 0 for f in counters}
     for f in idle:
         f.launches = 0
     for width, height in SIZES:
+        label = f"{mode} {width}x{height}"
         cams = [orbit_camera(az, width, height, dev) for az in ORBIT_AZ]
         pairs = [int(rt.pair_count(cloud, c, settings)) for c in cams]
         times = []
@@ -351,27 +390,28 @@ def phase_main(cloud, settings, profile: bool) -> dict:
                 dt = (time.perf_counter() - t0) * 1e3
                 for f, b in zip(counters, before):
                     if f.launches <= b:
-                        raise AssertionError(f"{f.__name__} did not launch in a {width}x{height} frame")
+                        raise AssertionError(f"{f.__name__} did not launch in a {label} frame")
                 if img.shape != (height, width, 4) or not bool(torch.isfinite(img).all()):
-                    raise AssertionError(f"bad image {tuple(img.shape)} at {width}x{height}")
+                    raise AssertionError(f"bad image {tuple(img.shape)} at {label}")
                 lit = int((img[..., :3].abs().amax(dim=-1) > 1.0 / 255.0).sum())
                 if lit < LIT_FLOOR * width * height:
-                    raise AssertionError(f"only {lit} lit pixels at {width}x{height}")
+                    raise AssertionError(f"only {lit} lit pixels at {label}")
                 if rnd:
                     times.append(dt)
         for f in counters:
             launches[f.__name__] += f.launches
         if any(f.launches for f in idle):
-            raise AssertionError(f"a backward kernel launched while serving at {width}x{height}")
+            raise AssertionError(f"a backward kernel launched while serving at {label}")
         bucket = api._BUDGET_STATE[("auto", settings.static_key(), width, height, len(cloud), str(dev))][0]
         log(
-            f"[main {width}x{height}] pairs per pose {pairs} p_max {bucket} "
+            f"[main {label}] pairs per pose {pairs} p_max {bucket} "
             f"lit {lit} | median {statistics.median(times):.3f} ms/frame over {len(times)} frames "
             f"(min {min(times):.3f}, max {max(times):.3f}) | launches "
             + ", ".join(f"{f.__name__} {f.launches}" for f in counters)
         )
         if profile:
-            profile_call(lambda: api.render(cloud, cams[0], settings), f"{width}x{height}", statistics.median(times))
+            profile_call(lambda: api.render(cloud, cams[0], settings), f"{mode}_{width}x{height}",
+                         statistics.median(times))
     return launches
 
 
@@ -405,18 +445,57 @@ def profile_call(fn, label: str, wall_ms: float) -> None:
     )
 
 
-def phase_train(arrays: dict, settings, profile: bool) -> dict:
-    """The training path through ``train_step``; counters read per step."""
-    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
-    from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
+def train_counters() -> tuple:
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.reduce import segment_reduce
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_bwd import composite_backward
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import composite_tiles_raw
+
+    return (expand_pairs, composite_tiles_raw, composite_backward, segment_reduce)
+
+
+def checked_step(model, optimizer, camera, target, settings, loss_fn, p_max, label):
+    """One ``train_step`` that must launch all four kernels and leave a
+    finite loss and finite gradients -> (loss, host ms)."""
+    from bevy_gaussian_splatting_tpu_torch.train.step import train_step
+
+    counters = train_counters()
+    before = [f.launches for f in counters]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = train_step(model, optimizer, camera, target, settings, loss_fn, pairs_max=p_max)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3
+    for f, b in zip(counters, before):
+        if f.launches <= b:
+            raise AssertionError(f"{f.__name__} did not launch in the {label}")
+    value = float(loss)
+    bad = [name for name in FIELDS if not bool(torch.isfinite(getattr(model, name).grad).all())]
+    if not math.isfinite(value) or bad:
+        raise AssertionError(f"{label}: loss {value}, non-finite gradients in {bad}")
+    return value, dt
+
+
+def train_target(model, target_cloud, settings, width: int, height: int):
+    """The pose-0 camera, the pair budget from the model's measured count,
+    and a render of ``target_cloud`` -> (camera, p_max, pairs, target)."""
+    from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
+
+    camera = orbit_camera(0.0, width, height, "cuda")
+    with torch.no_grad():
+        pairs = int(rt.pair_count(model.cloud(), camera, settings))
+        p_max = rt.pairs_budget(len(model.cloud()), pairs)
+        target = rt.render_tiled(target_cloud, camera, settings, pairs_max=p_max)
+    return camera, p_max, pairs, target
+
+
+def phase_train(arrays: dict, settings, profile: bool) -> dict:
+    """The training path through ``train_step``; counters read per step."""
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
     from bevy_gaussian_splatting_tpu_torch.train.losses import gaussian_splatting_loss, mse
     from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, adam, shifted_arrays, train_step
 
-    counters = (expand_pairs, composite_tiles_raw, composite_backward, segment_reduce)
+    counters = train_counters()
     model = TrainableCloud.from_numpy(arrays, "cuda")
     target_cloud = cloud_from_numpy(shifted_arrays(arrays), "cuda")
     optimizer = adam(model, TRAIN_LR)
@@ -424,26 +503,10 @@ def phase_train(arrays: dict, settings, profile: bool) -> dict:
         f.launches = 0
 
     def step(camera, target, p_max, loss_fn, label):
-        before = [f.launches for f in counters]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = train_step(model, optimizer, camera, target, settings, loss_fn, pairs_max=p_max)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) * 1e3
-        for f, b in zip(counters, before):
-            if f.launches <= b:
-                raise AssertionError(f"{f.__name__} did not launch in the {label}")
-        value = float(loss)
-        bad = [name for name in FIELDS if not bool(torch.isfinite(getattr(model, name).grad).all())]
-        if not math.isfinite(value) or bad:
-            raise AssertionError(f"{label}: loss {value}, non-finite gradients in {bad}")
-        return value, dt
+        return checked_step(model, optimizer, camera, target, settings, loss_fn, p_max, label)
 
     for width, height in SIZES:
-        camera = orbit_camera(0.0, width, height, "cuda")
-        with torch.no_grad():
-            p_max = rt.pairs_budget(len(model.cloud()), int(rt.pair_count(model.cloud(), camera, settings)))
-            target = rt.render_tiled(target_cloud, camera, settings, pairs_max=p_max)
+        camera, p_max, _, target = train_target(model, target_cloud, settings, width, height)
         size = f"{width}x{height}"
         first, warm_ms = step(camera, target, p_max, mse, f"{size} warm-up step")
         timed = TRAIN_STEPS if (width, height) == SIZES[0] else TRAIN_STEPS_1080
@@ -454,7 +517,7 @@ def phase_train(arrays: dict, settings, profile: bool) -> dict:
             times.append(dt)
         median = statistics.median(times)
         line = (
-            f"[train {size}] p_max {p_max} | warm-up {warm_ms:.3f} ms, median {median:.3f} ms/step over "
+            f"[train obb {size}] p_max {p_max} | warm-up {warm_ms:.3f} ms, median {median:.3f} ms/step over "
             f"{timed} Adam steps (min {min(times):.3f}, max {max(times):.3f}) | mse loss {first:.6e} -> "
             f"{losses[-1]:.6e}"
         )
@@ -469,8 +532,99 @@ def phase_train(arrays: dict, settings, profile: bool) -> dict:
         log(line + " | launches " + ", ".join(f"{f.__name__} {f.launches}" for f in counters))
         if profile:
             profile_call(lambda: train_step(model, optimizer, camera, target, settings, mse, pairs_max=p_max),
-                         f"train_{size}", median)
+                         f"train_obb_{size}", median)
     return {f.__name__: f.launches for f in counters}
+
+
+def phase_train_aabb(arrays: dict, settings, profile: bool) -> dict:
+    """The AABB training loop's pieces on the bench scene: Adam steps with
+    ``accumulate_stats`` after each, one ``densify_and_prune`` and a fresh
+    Adam, and two more steps; counters read per step."""
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
+    from bevy_gaussian_splatting_tpu_torch.train.densify import (
+        accumulate_stats,
+        densify_and_prune,
+        init_densify_state,
+    )
+    from bevy_gaussian_splatting_tpu_torch.train.losses import mse
+    from bevy_gaussian_splatting_tpu_torch.train.step import FIELDS as MODEL_FIELDS
+    from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, adam, shifted_arrays, train_step
+
+    counters = train_counters()
+    model = TrainableCloud.from_numpy(arrays, "cuda")
+    target_cloud = cloud_from_numpy(shifted_arrays(arrays), "cuda")
+    optimizer = adam(model, TRAIN_LR)
+    dstate = init_densify_state(len(model.cloud()), device="cuda")
+    for f in counters:
+        f.launches = 0
+
+    def step(camera, target, p_max, label):
+        nonlocal dstate
+        value, dt = checked_step(model, optimizer, camera, target, settings, mse, p_max, label)
+        dstate = accumulate_stats(dstate, model.grads())
+        return value, dt
+
+    for width, height in SIZES:
+        camera, p_max, pairs, target = train_target(model, target_cloud, settings, width, height)
+        size = f"{width}x{height}"
+        first, warm_ms = step(camera, target, p_max, f"aabb {size} warm-up step")
+        steps = [step(camera, target, p_max, f"aabb {size} step {i}") for i in range(AABB_TRAIN_STEPS[(width, height)])]
+        times = [dt for _, dt in steps]
+        median = statistics.median(times)
+        log(
+            f"[train aabb {size}] pairs {pairs} p_max {p_max} | warm-up {warm_ms:.3f} ms, median {median:.3f} "
+            f"ms/step over {len(steps)} Adam steps (min {min(times):.3f}, max {max(times):.3f}) | mse loss "
+            f"{first:.6e} -> {steps[-1][0]:.6e} | launches " + ", ".join(f"{f.__name__} {f.launches}" for f in counters)
+        )
+        if profile:
+            profile_call(lambda: train_step(model, optimizer, camera, target, settings, mse, pairs_max=p_max),
+                         f"train_aabb_{size}", median)
+
+    with torch.no_grad():
+        lo, hi = model.cloud().compute_aabb()
+        extent = float((hi - lo).max())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_cloud, dstate, stats = densify_and_prune(
+        model.cloud(), dstate, k_budget=len(model.cloud()) // 8, scene_extent=extent
+    )
+    with torch.no_grad():
+        for name in MODEL_FIELDS:
+            getattr(model, name).copy_(getattr(new_cloud, name))
+    torch.cuda.synchronize()
+    densify_ms = (time.perf_counter() - t0) * 1e3
+    optimizer = adam(model, TRAIN_LR)
+    stats = {k: int(v) for k, v in stats.items()}
+    camera, p_max, pairs, target = train_target(model, target_cloud, settings, *SIZES[0])
+    after = [step(camera, target, p_max, f"aabb step {i} after densify") for i in range(AABB_AFTER_DENSIFY)]
+    log(
+        f"[train aabb densify] densify_and_prune(k_budget={len(model.cloud()) // 8}, scene_extent={extent:.4f}) "
+        f"{densify_ms:.3f} ms, stats {json.dumps(stats)} | {SIZES[0][0]}x{SIZES[0][1]} after it: pairs {pairs}, "
+        f"steps {', '.join(f'{dt:.3f}' for _, dt in after)} ms, mse loss {after[-1][0]:.6e} | launches "
+        + ", ".join(f"{f.__name__} {f.launches}" for f in counters)
+    )
+    return {f.__name__: f.launches for f in counters}
+
+
+def phase_converge() -> dict:
+    """``convergence_psnr`` on the card at the bench and test protocols."""
+    from bevy_gaussian_splatting_tpu_torch.train.quality import convergence_psnr
+
+    counters = train_counters()
+    for f in counters:
+        f.launches = 0
+    for steps, n, size, floor in CONVERGE:
+        out = convergence_psnr(steps=steps, n=n, size=size)
+        log(
+            f"[converge steps {steps} n {n} size {size}] psnr {out['psnr_db']:.4f} dB (floor {floor}), "
+            f"per view {' '.join(f'{v:.4f}' for v in out['psnr_per_view'])}, loss {out['losses'][0]:.6e} -> "
+            f"{out['final_loss']:.6e}, densify {json.dumps(out['densify'])}, {out['seconds']:.2f} s wall"
+        )
+        if not (math.isfinite(out["psnr_db"]) and out["psnr_db"] >= floor):
+            raise AssertionError(f"convergence_psnr {steps}/{n}/{size}: {out['psnr_db']:.4f} dB below {floor}")
+    launches = {f.__name__: f.launches for f in counters}
+    log("[converge] launches " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    return launches
 
 
 def main() -> int:
@@ -500,19 +654,26 @@ def main() -> int:
     arrays = bench_arrays(N_GAUSSIANS, seed=0)
     cloud = cloud_from_numpy(arrays, "cuda")
     target_cloud = cloud_from_numpy(shifted_arrays(arrays), "cuda")
-    settings = CloudSettings()
     log(f"[scene] {len(cloud)} gaussians on {cloud.device} in {time.perf_counter() - t0:.2f} s")
 
-    results = {}
-    for width, height in SIZES:
-        res = phase_kernels(cloud, target_cloud, settings, width, height)
-        if (width, height) == SIZES[0]:
-            results = res
-    del target_cloud
-    torch.cuda.empty_cache()
-    phase_small()
-    serve = phase_main(cloud, settings, opts.profile)
-    train = phase_train(arrays, settings, opts.profile)
+    # per mode: the kernels' measurements at 512x512 and the launches of the
+    # paths driven in that mode (serving frames, then training steps)
+    results, launches = {}, {}
+    for settings in (CloudSettings(), CloudSettings(aabb=True)):
+        mode = "aabb" if settings.aabb else "obb"
+        for width, height in SIZES:
+            res = phase_kernels(cloud, target_cloud, settings, width, height)
+            if (width, height) == SIZES[0]:
+                results[mode] = res
+        phase_small(settings)
+        serve = phase_main(cloud, settings, opts.profile)
+        if settings.aabb:
+            train = phase_train_aabb(arrays, settings, opts.profile)
+            converge = phase_converge()
+            train = {k: v + converge[k] for k, v in train.items()}
+        else:
+            train = phase_train(arrays, settings, opts.profile)
+        launches[mode] = {k: serve.get(k, 0) + v for k, v in train.items()}
 
     kernels = []
     sources = {
@@ -525,15 +686,18 @@ def main() -> int:
         "segment_reduce": ("bevy_gaussian_splatting_tpu_torch/csrc/reduce.cu",
                            "bevy_gaussian_splatting_tpu/ops/pallas/reduce.py:39"),
     }
-    for name, (source, replaces) in sources.items():
-        # launches on the paths driven: serving frames, then training steps
-        launches = serve.get(name, 0) + train[name]
-        if launches <= 0:
-            raise AssertionError(f"{name} was never launched on the main path")
-        r = results[name]
+    # the four kernels in OBB mode, and the two compositors in AABB mode (the
+    # expansion and the reduce do not depend on the mode)
+    entries = [(name, "obb") for name in sources] + [("composite_tiles_raw", "aabb"), ("composite_backward", "aabb")]
+    for name, mode in entries:
+        source, replaces = sources[name]
+        n_launch = launches[mode][name]
+        if n_launch <= 0:
+            raise AssertionError(f"{name} ({mode}) was never launched on the main path")
+        r = results[mode][name]
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "name": name, "mode": mode, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n_launch, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })

@@ -1,6 +1,7 @@
-"""PyTorch port on the card: each CUDA kernel against its plain version,
-``render()`` on the card against the same call on the CPU, and the training
-gradients of every cloud field, card against CPU.
+"""PyTorch port on the card: each CUDA kernel against its plain version (the
+compositors in OBB and AABB mode), ``render()`` on the card against the same
+call on the CPU, and the training gradients of every cloud field, card
+against CPU.
 
 These skip without an NVIDIA card.  On one, run them without the JAX-side
 conftest: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -48,12 +49,11 @@ def _scene(kind, n, seed):
     return a
 
 
-def _inputs(arrays, width, height, device):
+def _inputs(arrays, width, height, device, settings=CloudSettings()):
     cloud = cloud_from_numpy(arrays, device)
     cam = Camera.create(eye=(0.0, 0.0, 60.0), width=width, height=height, device=device)
-    s = CloudSettings()
-    p_max = rt.pairs_budget(len(cloud), int(rt.pair_count(cloud, cam, s)))
-    return rt.project_for_binning(cloud, cam, s), p_max
+    p_max = rt.pairs_budget(len(cloud), int(rt.pair_count(cloud, cam, settings)))
+    return rt.project_for_binning(cloud, cam, settings), p_max
 
 
 @pytest.mark.parametrize("kind,n,height", [("bench", 20000, 256), ("occluded", 1000, 120)])
@@ -75,7 +75,7 @@ def test_expand_kernel_equals_plain(card, kind, n, height):
 def test_composite_kernel_matches_plain(card, kind, n, height, chunk):
     splats, p_max = _inputs(_scene(kind, n, 4), 256, height, card)
     bins = rt.tile_bins(splats, 256, height, p_max)
-    params = rt.pack_raster_params(splats, 256, height)[bins.g_s].contiguous()
+    params = rt.pack_raster_params(splats, CloudSettings(), 256, height)[bins.g_s].contiguous()
     start, count = bins.start, bins.count
     if chunk is None:
         chunk = tf.preferred_chunk(p_max, start.shape[0])
@@ -103,7 +103,7 @@ def test_render_card_matches_cpu(card, height):
 def test_backward_and_reduce_kernels_match_plain(card, kind, n, height, chunk):
     splats, p_max = _inputs(_scene(kind, n, 5), 256, height, card)
     bins = rt.tile_bins(splats, 256, height, p_max)
-    params = rt.pack_raster_params(splats, 256, height)[bins.g_s].contiguous()
+    params = rt.pack_raster_params(splats, CloudSettings(), 256, height)[bins.g_s].contiguous()
     if chunk is None:
         chunk = tf.preferred_chunk(p_max, bins.start.shape[0])
     raw = tf.composite_tiles_raw(params, bins.start, bins.count, 16, 256, height, chunk=chunk)
@@ -127,12 +127,12 @@ def test_backward_and_reduce_kernels_match_plain(card, kind, n, height, chunk):
     assert torch.equal(drank, rd.segment_reduce_plain(dslot, bins.cum, n_ranks))
 
 
-def _grads(arrays, camera, background, device):
+def _grads(arrays, camera, background, device, settings=CloudSettings()):
     with torch.no_grad():
         target = rt.render_tiled(cloud_from_numpy(shifted_arrays(arrays), device), camera.to(device),
-                                 CloudSettings(), background=background.to(device))
+                                 settings, background=background.to(device))
     model = TrainableCloud.from_numpy(arrays, device)
-    img = rt.render_tiled(model.cloud(), camera.to(device), CloudSettings(), background=background.to(device))
+    img = rt.render_tiled(model.cloud(), camera.to(device), settings, background=background.to(device))
     mse(img, target).backward()
     return {f: getattr(model, f).grad.cpu() for f in FIELDS}
 
@@ -150,3 +150,47 @@ def test_training_gradients_card_match_cpu(card, height):
     for f in FIELDS:
         assert bool(torch.isfinite(gpu[f]).all()), f
         assert float((gpu[f] - cpu[f]).abs().max()) <= GRAD_BAR * float(cpu[f].abs().max()), f
+
+
+@pytest.mark.parametrize("kind,n,height,chunk", [("bench", 20000, 256, None), ("occluded", 1000, 120, 128)])
+def test_aabb_compositor_kernels_match_plain(card, kind, n, height, chunk):
+    # chip_smoke.py's bars: forward within 2e-5, backward within 1e-4 of each
+    # column's largest |plain|, the radius column (5) exactly 0 in both
+    settings = CloudSettings(aabb=True)
+    splats, p_max = _inputs(_scene(kind, n, 8), 256, height, card, settings)
+    bins = rt.tile_bins(splats, 256, height, p_max)
+    params = rt.pack_raster_params(splats, settings, 256, height)[bins.g_s].contiguous()
+    if chunk is None:
+        chunk = tf.preferred_chunk(p_max, bins.start.shape[0])
+    args = (params, bins.start, bins.count, 16, 256, height)
+    before = (tf.composite_tiles_raw.launches, tb.composite_backward.launches)
+    raw = tf.composite_tiles_raw(*args, chunk=chunk, mode=tf.MODE_AABB)
+    ref = tf.composite_tiles_raw_plain(*args, chunk=chunk, mode=tf.MODE_AABB)
+    torch.cuda.synchronize()
+    assert float((raw - ref).abs().max()) <= 2e-5
+    cotangent = torch.randn(raw.shape, generator=torch.Generator().manual_seed(1)) * 1e-3
+    gbar = tb.pack_gbar(cotangent.to(card), raw)
+    bwd_args = (params, bins.start, bins.count, gbar, 16, 256, height)
+    got = tb.composite_backward(*bwd_args, chunk=chunk, mode=tb.MODE_AABB)
+    plain = tb.composite_backward_plain(*bwd_args, chunk=chunk, mode=tb.MODE_AABB)
+    torch.cuda.synchronize()
+    assert (tf.composite_tiles_raw.launches, tb.composite_backward.launches) == (before[0] + 1, before[1] + 1)
+    assert not bool(got[:, 5].any()) and not bool(plain[:, 5].any())
+    col_max = plain.abs().amax(dim=0)
+    assert bool(((got - plain).abs().amax(dim=0) <= GRAD_BAR * col_max).all())
+
+
+@pytest.mark.parametrize("height", [128, 120])
+def test_aabb_render_and_gradients_card_match_cpu(card, height):
+    settings = CloudSettings(aabb=True)
+    a = _scene("bench", 2000, 3)
+    bg = torch.tensor([0.2, 0.1, 0.4, 1.0])
+    cam = Camera.create(eye=(0.0, 0.0, 60.0), width=128, height=height, device="cpu")
+    cpu = render(cloud_from_numpy(a, "cpu"), cam, settings, background=bg, device="cpu")
+    gpu = render(cloud_from_numpy(a, card), cam.to(card), settings, background=bg.to(card))
+    assert float((gpu.cpu() - cpu).abs().max()) <= 2e-5
+    g_gpu = _grads(a, cam, bg, card, settings)
+    g_cpu = _grads(a, cam, bg, "cpu", settings)
+    for f in FIELDS:
+        assert bool(torch.isfinite(g_gpu[f]).all()), f
+        assert float((g_gpu[f] - g_cpu[f]).abs().max()) <= GRAD_BAR * float(g_cpu[f].abs().max()), f

@@ -39,7 +39,7 @@ def test_port_has_sources():
     for need in (
         "render/api.py", "ops/rasterize_tile.py", "ops/cuda/expand.py", "ops/cuda/tile_fwd.py",
         "ops/cuda/tile_bwd.py", "ops/cuda/reduce.py", "ops/cuda/core.py",
-        "train/__init__.py", "train/losses.py", "train/step.py",
+        "train/__init__.py", "train/losses.py", "train/step.py", "train/densify.py", "train/quality.py",
     ):
         assert need in names
     for source in ("expand", "tile_fwd", "tile_bwd", "reduce"):

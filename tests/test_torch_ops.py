@@ -166,7 +166,7 @@ def test_project_and_pack(case):
         # depth2 is ~3600: relative 1e-5 is its ulp scale
         np.testing.assert_allclose(ts[k].numpy()[m], np.asarray(js[k])[m], err_msg=k, **TOL)
     jcols = jpack(js, bgs.CloudSettings(), w, h)
-    tcols = tpack(ts, w, h)
+    tcols = tpack(ts, TSettings(), w, h)
     assert len(tcols) == len(jcols) == 10
     for i, (t, j) in enumerate(zip(tcols, jcols)):
         np.testing.assert_allclose(t.numpy()[m], np.asarray(j)[m], err_msg=f"col {i}", **TOL)
@@ -177,7 +177,8 @@ def test_project_rejects_other_modes():
     _, tc = cameras(32, 32)
     from bevy_gaussian_splatting_tpu_torch.models import settings as ts
 
-    for s in (ts.CloudSettings(aabb=True), ts.CloudSettings(rasterize_mode=ts.RasterizeMode.DEPTH),
+    for s in (ts.CloudSettings(gaussian_mode=ts.GaussianMode.GAUSSIAN_4D),
+              ts.CloudSettings(rasterize_mode=ts.RasterizeMode.DEPTH),
               ts.CloudSettings(gaussian_mode=ts.GaussianMode.GAUSSIAN_2D),
               ts.CloudSettings(visualize_bounding_box=True)):
         with pytest.raises(NotImplementedError, match="slice 3"):
