@@ -177,6 +177,31 @@ def random_gaussians_3d_seeded(
     return cloud_from_numpy(random_arrays_3d_seeded(n, seed, sh_degree), device)
 
 
+def surfel_grid_arrays(n_side: int = 4, seed: int = 5) -> dict:
+    """The 2DGS debug fixture as numpy arrays: an ``n_side`` x ``n_side``
+    grid of flat disks (scale z 1e-3) on the z = 0 plane, drawn as the JAX
+    package's ``tools/surfel_plane.py`` ``make_surfel_grid`` draws it (seen
+    there from eye (2.5, 2, 6))."""
+    rng = np.random.default_rng(seed)
+    n = n_side * n_side
+    xs, ys = np.meshgrid(np.linspace(-2, 2, n_side), np.linspace(-2, 2, n_side))
+    pos = np.stack([xs.ravel(), ys.ravel(), np.zeros(n)], axis=1).astype(np.float32)
+    sh = np.zeros((n, 48), np.float32)
+    sh[:, :3] = rng.uniform(-1.0, 1.5, (n, 3))
+    quat = rng.normal(size=(n, 4)).astype(np.float32)
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    so = np.concatenate(
+        [np.tile(np.array([[0.35, 0.35, 1e-3]], np.float32), (n, 1)), np.full((n, 1), 0.85, np.float32)],
+        axis=1,
+    )
+    return {
+        "position_visibility": np.concatenate([pos, np.ones((n, 1), np.float32)], axis=1),
+        "spherical_harmonic": sh,
+        "rotation": quat,
+        "scale_opacity": so,
+    }
+
+
 def test_model_3d(seed: Optional[int] = 42, device: DeviceLike = None) -> Gaussian3dCloud:
     """The deterministic 9-gaussian test cloud: the 8 cube corners at +-0.5
     plus a duplicate of the first corner (reference TestCloud::test_model,

@@ -133,11 +133,11 @@ class CloudSettings:
 def check_supported(settings: CloudSettings) -> None:
     """Raise ``NotImplementedError`` for settings outside the ported slice.
 
-    Ported: 3DGS with OBB or AABB bounds, COLOR mode, all gaussians drawn,
-    no bounding-box overlay.  2DGS, 4DGS, the overlay and the other raster
-    and draw modes arrive with slice 3 of the port."""
+    Ported: 3DGS with OBB or AABB bounds and 2DGS surfels, COLOR mode, all
+    gaussians drawn, no bounding-box overlay.  4DGS, the overlay and the
+    other raster and draw modes arrive with slice 3 of the port."""
     later = []
-    if settings.gaussian_mode != GaussianMode.GAUSSIAN_3D:
+    if settings.gaussian_mode == GaussianMode.GAUSSIAN_4D:
         later.append(f"gaussian_mode={settings.gaussian_mode.name}")
     if settings.visualize_bounding_box:
         later.append("visualize_bounding_box=True")
@@ -149,6 +149,6 @@ def check_supported(settings: CloudSettings) -> None:
         later.append(f"sort_mode={settings.sort_mode.name}")
     if later:
         raise NotImplementedError(
-            "the PyTorch port renders 3DGS / OBB or AABB / COLOR only so far; "
+            "the PyTorch port renders 3DGS (OBB or AABB) and 2DGS in COLOR mode only so far; "
             f"{', '.join(later)} arrives with slice 3 (other kernel modes)"
         )

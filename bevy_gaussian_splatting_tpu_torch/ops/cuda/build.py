@@ -10,6 +10,9 @@ The library lands in ``bevy_gaussian_splatting_tpu_torch/_build/`` (ignored
 by git), named by a hash of its source and flags, so an edited source is
 rebuilt and an unchanged one is reused.  Builds happen at first use, or all
 at once and in parallel through :func:`build_all`.  A failed build raises.
+ptxas reports each kernel's registers, shared memory and spills (``-Xptxas
+-v``); the report is kept beside the library and read by
+:func:`ptxas_usage`.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Per-source extra flags.  The compositor is built with --fmad=false: a
 # contracted multiply-add rounds once where the plain PyTorch version rounds
@@ -94,6 +98,7 @@ def _finish(name: str, started) -> None:
             f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n"
             + out.decode(errors="replace")
         )
+    final.with_suffix(".ptxas.txt").write_bytes(out)
     os.replace(tmp, final)
 
 
@@ -119,6 +124,26 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def ptxas_usage(name: str) -> list:
+    """(kernel, usage) for each kernel entry of ``csrc/<name>.cu`` as ptxas
+    reported it at the build: registers, shared and constant memory, and
+    the stack and spill line.  Empty if the library was not built here."""
+    log = library_path(name).with_suffix(".ptxas.txt")
+    if not log.exists():
+        return []
+    out, kernel, props = [], None, ""
+    for line in log.read_text(errors="replace").splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kernel = entry.group(1)
+        elif "bytes stack frame" in line:
+            props = line.split(":", 1)[-1].strip()
+        elif kernel and "Used" in line:
+            out.append((kernel, line.split(":", 1)[-1].strip() + "; " + props))
+            kernel, props = None, ""
+    return out
 
 
 def check(status: int, what: str) -> None:

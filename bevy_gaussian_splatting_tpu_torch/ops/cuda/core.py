@@ -70,8 +70,9 @@ def composite_core(
     chunk: int = MAX_CHUNK,
     mode: int = MODE_OBB,
 ) -> torch.Tensor:
-    """Raw compositor output [T, 4, 256], differentiable in ``params`` [N, 10]
-    (cloud order, ``mode``'s row layout) through the hand-derived backward.
+    """Raw compositor output [T, 4, 256], differentiable in ``params``
+    [N, param_width(mode)] (cloud order, ``mode``'s row layout: 10 columns,
+    16 for 2DGS) through the hand-derived backward.
 
     ``g_s`` [P]: cloud index of each tile-sorted pair; ``start``/``count``
     [T]: tile ranges; ``order`` [P]: expansion slot of each tile-sorted pair;

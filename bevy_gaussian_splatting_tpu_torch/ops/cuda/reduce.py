@@ -3,8 +3,9 @@
 Replaces the TPU kernel ``bevy_gaussian_splatting_tpu/ops/pallas/reduce.py``
 ``_reduce_kernel`` (``pallas_segment_reduce``) with ``csrc/reduce.cu``: one
 thread per (rank, column) sums that rank's contiguous slots in slot order.
-On the H100 it is bound by memory (each owned slot row read once, each rank
-row written once); see the source for the design.
+The row width is ``dslot``'s: 10 columns for OBB and AABB gradients, 16
+for 2DGS.  On the H100 it is bound by memory (each owned slot row read once,
+each rank row written once); see the source for the design.
 
 ``segment_reduce`` launches the kernel for CUDA tensors and runs the plain
 version, ``segment_reduce_plain``, for CPU tensors; both add in slot order,
@@ -19,9 +20,8 @@ import ctypes
 import torch
 
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
-from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import N_COLS
 
-_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
 
 
 def segment_bounds(cum: torch.Tensor):
@@ -35,8 +35,8 @@ def segment_bounds(cum: torch.Tensor):
 def _check_inputs(dslot, cum, n):
     if dslot.dtype != torch.float32:
         raise TypeError(f"dslot must be float32, got {dslot.dtype}")
-    if dslot.dim() != 2 or dslot.shape[1] != N_COLS:
-        raise ValueError(f"dslot must be [P, {N_COLS}], got {tuple(dslot.shape)}")
+    if dslot.dim() != 2 or dslot.shape[1] == 0:
+        raise ValueError(f"dslot must be [P, cols] with cols > 0, got {tuple(dslot.shape)}")
     if cum.dtype != torch.int32:
         raise TypeError(f"cum must be int32, got {cum.dtype}")
     if cum.dim() != 1 or cum.shape[0] != n:
@@ -50,7 +50,7 @@ def _check_inputs(dslot, cum, n):
 def segment_reduce_plain(dslot: torch.Tensor, cum: torch.Tensor, n: int) -> torch.Tensor:
     """Plain PyTorch version: step k adds every rank's k-th slot, so each
     rank's sum runs in slot order, as the kernel's does."""
-    out = dslot.new_zeros((n, N_COLS))
+    out = dslot.new_zeros((n, dslot.shape[1]))
     if n == 0:
         return out
     first, length = segment_bounds(cum)
@@ -61,7 +61,8 @@ def segment_reduce_plain(dslot: torch.Tensor, cum: torch.Tensor, n: int) -> torc
 
 
 def segment_reduce(dslot: torch.Tensor, cum: torch.Tensor, n: int) -> torch.Tensor:
-    """Per-rank gradient sums [n, 10] of slot-ordered rows ``dslot`` [P, 10].
+    """Per-rank gradient sums [n, cols] of slot-ordered rows ``dslot``
+    [P, cols] (``cols`` 10 for OBB and AABB, 16 for 2DGS).
 
     ``cum`` [n] int32 holds the inclusive pair counts in depth order,
     clamped at P: rank r owns slots [cum[r-1], cum[r]).  Ranks with no slots
@@ -72,7 +73,8 @@ def segment_reduce(dslot: torch.Tensor, cum: torch.Tensor, n: int) -> torch.Tens
     if dslot.device.type != "cuda":
         raise ValueError(f"unsupported device {dslot.device}")
     dev = dslot.device
-    drank = torch.empty((n, N_COLS), dtype=torch.float32, device=dev)
+    cols = dslot.shape[1]
+    drank = torch.empty((n, cols), dtype=torch.float32, device=dev)
     lib = build.load("reduce")
     fn = lib.bgs_segment_reduce
     if fn.argtypes is None:
@@ -80,7 +82,7 @@ def segment_reduce(dslot: torch.Tensor, cum: torch.Tensor, n: int) -> torch.Tens
         fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(dslot.data_ptr(), cum.data_ptr(), n, drank.data_ptr(), stream)
+        status = fn(dslot.data_ptr(), cum.data_ptr(), n, cols, drank.data_ptr(), stream)
     build.check(status, "segment_reduce")
     if n > 0:
         segment_reduce.launches += 1

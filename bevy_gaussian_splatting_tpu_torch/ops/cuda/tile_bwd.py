@@ -4,11 +4,12 @@ Replaces the TPU kernel ``bevy_gaussian_splatting_tpu/ops/pallas/tile_bwd.py``
 ``_backward_kernel`` (``pallas_composite_backward``) with
 ``csrc/tile_bwd.cu``: one block of 256 threads per 16x16 tile, one thread per
 pixel, re-walking the tile front to back with the forward's chunk grid and
-early exit, each pair's ten gradients summed over the pixels by warp shuffles
-and a fixed-order pass over the warps.  OBB and AABB modes, as the forward.
-On the H100 it is bound by FP32 operations (about 70 per pair and pixel
-inside the splat, plus one ``expf``, and 12 per pair and pixel outside it);
-see the source for the derivation and the design.
+early exit, each pair's gradients (10 columns, 16 for 2DGS) summed over the
+pixels by warp shuffles and a fixed-order pass over the warps.  OBB, AABB
+and 2DGS modes, as the forward.  On the H100 it is bound by FP32 operations
+(about 70 per pair and pixel inside an OBB splat, about 110 inside a surfel,
+plus one ``expf``, and 4-16 per pair and pixel outside it); see the source
+for the derivation and the design.
 
 ``composite_backward`` launches the kernel for CUDA tensors and runs the
 plain version, ``composite_backward_plain``, for CPU tensors.
@@ -26,13 +27,15 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
     ALPHA_CAP,
     MAX_CHUNK,
+    MODE_2D,
     MODE_AABB,
     MODE_OBB,
-    N_COLS,
     PIX,
     TRANS_EPS,
     _check_inputs,
     _coord_constants,
+    _surfel_constants,
+    rgb_row,
     splat_falloff,
     tile_pixel_coords,
 )
@@ -42,7 +45,7 @@ GBAR_ROWS = 8  # [ghat_r, ghat_g, ghat_b, ghat_T, total_r, total_g, total_b, T_f
 _ARGTYPES = (
     [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 2
-    + [ctypes.c_float] * 4
+    + [ctypes.c_float] * 7
     + [ctypes.c_int] * 3
     + [ctypes.c_float]
     + [ctypes.c_void_p] * 2
@@ -92,8 +95,10 @@ def composite_backward_plain(
     dev = params.device
     num_tiles = tile_start.shape[0]
     p = params.shape[0]
-    table = torch.cat([params, params.new_zeros((1, N_COLS))], dim=0)
-    dparams = params.new_zeros((p, N_COLS))
+    cols = params.shape[1]
+    table = torch.cat([params, params.new_zeros((1, cols))], dim=0)
+    dparams = params.new_zeros((p, cols))
+    ro = rgb_row(mode)
     lane = torch.arange(chunk, device=dev)
     for b0 in range(0, num_tiles, tile_batch):
         tids = torch.arange(b0, min(b0 + tile_batch, num_tiles), device=dev)
@@ -103,8 +108,8 @@ def composite_backward_plain(
         prefix = start - base
         total = count + prefix
         n_chunks = torch.where(count > 0, (total + chunk - 1) // chunk, torch.zeros_like(total))
-        px_vp, py_vp = tile_pixel_coords(tids, tx_count, width, full_height, y0)
-        px_vp, py_vp = px_vp[:, None, :], py_vp[:, None, :]
+        px, py = tile_pixel_coords(tids, tx_count, width, full_height, y0, mode)
+        px, py = px[:, None, :], py[:, None, :]
         gb = gbar[tids]  # [B, 8, 256]
         ghat = [gb[:, ch, None, :] for ch in range(3)]  # [B, 1, 256]
         q_total = gb[:, 0] * gb[:, 4] + gb[:, 1] * gb[:, 5] + gb[:, 2] * gb[:, 6]
@@ -123,9 +128,10 @@ def composite_backward_plain(
             lane_idx = c * chunk + lane[: span - c * chunk]
             in_rng = (lane_idx >= prefix[:, None]) & (lane_idx < total[:, None]) & running[:, None]
             idx = (base[:, None] + lane_idx).clamp(max=p)
-            q = table[idx]  # [B, chunk, 10]
-            _, _, c2, c3, c4, _, cr, cg, cb, op = (q[..., i : i + 1] for i in range(N_COLS))
-            g, inside, aux = splat_falloff(q, px_vp, py_vp, mode)
+            q = table[idx]  # [B, chunk, cols]
+            c2, c3, c4 = (q[..., i : i + 1] for i in range(2, 5))
+            cr, cg, cb, op = (q[..., ro + i : ro + i + 1] for i in range(4))
+            g, inside, aux = splat_falloff(q, px, py, mode, width, full_height)
             inside = inside & in_rng[..., None]
             if inside_count is not None:
                 inside_count[tids] += inside.sum(dim=(1, 2))
@@ -144,7 +150,28 @@ def composite_backward_plain(
             dalpha = torch.where(raw >= ALPHA_CAP, 0.0, dalpha)
             dag = dalpha * g
             dpower = dag * op
-            if mode == MODE_AABB:
+            if mode == MODE_2D:
+                # power = -0.5 min(s3d, d2x2), s3d = (qx^2 + qy^2) / qz^2 with
+                # q = dxn A + dyn B + C (tile_bwd.py:333-366); the radius only
+                # masks: no gradient
+                dxn, dyn, qz, inv_pz, us, vs, s3d, d2x2 = aux
+                take3d = s3d <= d2x2
+                ds3d = torch.where(take3d, -0.5 * dpower, 0.0)
+                dd2 = torch.where(take3d, 0.0, -dpower)
+                dus = ds3d * 2.0 * us
+                dvs = ds3d * 2.0 * vs
+                dq2 = -(dus * us + dvs * vs) * inv_pz
+                dq = (dus * inv_pz, dvs * inv_pz, torch.where(qz.abs() > 1e-12, dq2, 0.0))
+                w2 = float(width) * float(width)
+                ddxn = dd2 * 2.0 * w2 * dxn + (dq[0] * q[..., 3:4] + dq[1] * q[..., 4:5] + dq[2] * q[..., 5:6])
+                ddyn = dd2 * 2.0 * w2 * dyn + (dq[0] * q[..., 6:7] + dq[1] * q[..., 7:8] + dq[2] * q[..., 8:9])
+                head = (
+                    [torch.sum(-ddxn, dim=2), torch.sum(-ddyn, dim=2), torch.zeros_like(dpower[..., 0])]
+                    + [torch.sum(dq[k] * dxn, dim=2) for k in range(3)]
+                    + [torch.sum(dq[k] * dyn, dim=2) for k in range(3)]
+                    + [torch.sum(dq[k], dim=2) for k in range(3)]
+                )
+            elif mode == MODE_AABB:
                 # power = -0.5 (a dx^2 + c dy^2) + b dx dy with dx = cx - px
                 # (tile_bwd.py:320-332); the radius only masks: no gradient
                 dx, dy = aux
@@ -176,7 +203,7 @@ def composite_backward_plain(
                     torch.sum(dag, dim=2),
                 ],
                 dim=-1,
-            )  # [B, chunk, 10]
+            )  # [B, chunk, cols]
             dparams[idx[in_rng]] = grads[in_rng]
             q_acc = q_incl[:, -1, :]
             trans = trans * cum[:, -1, :]
@@ -195,13 +222,14 @@ def composite_backward(
     chunk: int = MAX_CHUNK,
     mode: int = MODE_OBB,
 ) -> torch.Tensor:
-    """Per-pair gradients [P, 10] of the tile blend, in the pair-sorted
-    layout of ``params``.
+    """Per-pair gradients [P, param_width(mode)] of the tile blend, in the
+    pair-sorted layout of ``params``.
 
     Takes the forward's inputs (``composite_tiles_raw``) and ``gbar`` [T, 8,
     256] from :func:`pack_gbar`.  Pairs the forward did not blend (past the
     clipped count or the early exit, or in no tile) get exact zeros, and so
-    does the AABB radius column (5), which only masks."""
+    do the columns that only mask: the AABB radius (5) and the 2DGS surfel
+    radius (2)."""
     _check_inputs(params, tile_start, tile_count, chunk, mode)
     _check_gbar(gbar, tile_start)
     if params.device.type == "cpu":
@@ -214,6 +242,7 @@ def composite_backward(
     num_tiles = tile_start.shape[0]
     dparams = torch.zeros_like(params)
     inv_w2, inv_h2 = _coord_constants(width, full_height)
+    inv_w, inv_h, two_w2 = _surfel_constants(width, full_height)
     lib = build.load("tile_bwd")
     fn = lib.bgs_composite_bwd
     if fn.argtypes is None:
@@ -224,7 +253,7 @@ def composite_backward(
         status = fn(
             params.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(), gbar.data_ptr(),
             num_tiles, tx_count, float(width), float(full_height), inv_w2, inv_h2,
-            int(y0), chunk, mode, TRANS_EPS, dparams.data_ptr(), stream,
+            inv_w, inv_h, two_w2, int(y0), chunk, mode, TRANS_EPS, dparams.data_ptr(), stream,
         )
     build.check(status, "composite_backward")
     if num_tiles > 0:

@@ -4,12 +4,14 @@ Replaces the TPU kernel ``bevy_gaussian_splatting_tpu/ops/pallas/tile_fwd.py``
 ``_composite_kernel`` (``pallas_forward_raw`` / ``pallas_composite_tiles``)
 with ``csrc/tile_fwd.cu``: one block of 256 threads per 16x16 tile, one
 thread per pixel, parameter rows staged chunk by chunk into shared memory and
-blended in sequence.  Two modes, as the TPU kernel's ``kernel_mode``: OBB
-(``MODE_OBB``, the eigen-rotated quad) and AABB (``MODE_AABB``, the conic
-quadratic form clipped to the radius square).  On the H100 it is bound by
-FP32 operations (about 25 per pair and pixel, plus one ``expf``); see the
-source for the design and for what it keeps of the TPU kernel (chunk grid,
-between-chunk early exit, pixel coordinates).
+blended in sequence.  Three modes, as the TPU kernel's ``kernel_mode``: OBB
+(``MODE_OBB``, the eigen-rotated quad), AABB (``MODE_AABB``, the conic
+quadratic form clipped to the radius square) and 2DGS (``MODE_2D``, the
+surfel's folded homography clipped to its square).  On the H100 it is bound
+by FP32 operations (about 25 per pair and pixel for OBB, plus one ``expf``;
+2DGS about 40 inside its square); see the source for the design and for what
+it keeps of the TPU kernel (chunk grid, between-chunk early exit, pixel
+coordinates).
 
 ``composite_tiles_raw`` launches the kernel for CUDA tensors and runs the
 plain version, ``composite_tiles_raw_plain``, for CPU tensors.
@@ -28,12 +30,14 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
 
 TILE = 16
 PIX = TILE * TILE  # 256
-# OBB rows [cx_vp, cy_vp, e1x, e1y, b1, b2, r, g, b, alpha];
-# AABB rows [cx_vp, cy_vp, conic.x, conic.y, conic.z, radius_vp, r, g, b, alpha]
-N_COLS = 10
+# Row layouts (tile_fwd.py:72-78):
+#   OBB  [cx_vp, cy_vp, e1x, e1y, b1, b2, r, g, b, alpha]
+#   AABB [cx_vp, cy_vp, conic.x, conic.y, conic.z, radius_vp, r, g, b, alpha]
+#   2DGS [cx_ndc, cy_ndc, mr, A.xyz, B.xyz, C.xyz, r, g, b, alpha]
 MODE_OBB = 0
 MODE_AABB = 1
-MODES = {MODE_OBB: "obb", MODE_AABB: "aabb"}
+MODE_2D = 2
+MODES = {MODE_OBB: "obb", MODE_AABB: "aabb", MODE_2D: "2d"}
 ALPHA_CAP = 0.999
 TRANS_EPS = float(np.float32(1.0 / 255.0))
 MAX_CHUNK = 512
@@ -41,11 +45,21 @@ MAX_CHUNK = 512
 _ARGTYPES = (
     [ctypes.c_void_p] * 3
     + [ctypes.c_int] * 2
-    + [ctypes.c_float] * 4
+    + [ctypes.c_float] * 7
     + [ctypes.c_int] * 3
     + [ctypes.c_float]
     + [ctypes.c_void_p] * 2
 )
+
+
+def param_width(mode: int) -> int:
+    """Columns of a parameter row in ``mode``: 16 for 2DGS, else 10."""
+    return 16 if mode == MODE_2D else 10
+
+
+def rgb_row(mode: int) -> int:
+    """Column of the first colour (alpha follows at +3)."""
+    return 12 if mode == MODE_2D else 6
 
 
 def preferred_chunk(p_max: int, num_tiles: int) -> int:
@@ -63,21 +77,43 @@ def _coord_constants(width: int, full_height: int):
     return float(np.float32(2.0 / width)), float(np.float32(2.0 / full_height))
 
 
-def tile_pixel_coords(tids, tx_count: int, width: int, full_height: int, y0: int = 0):
-    """vp-unit pixel centers of tiles ``tids`` [B] -> ([B, 256], [B, 256]),
-    the expressions of ``_tile_pixel_coords`` (tile_fwd.py:87-103) with the
+def _surfel_constants(width: int, full_height: int):
+    """f32 values of 1/width, 1/full_height and 2 width^2: the 2DGS branch's
+    radius scalings and its doubled-frame distance factor, as the TPU kernel's
+    weakly typed constants round them (tile_fwd.py:123-137)."""
+    return (
+        float(np.float32(1.0 / width)),
+        float(np.float32(1.0 / full_height)),
+        float(np.float32(2.0 * width * width)),
+    )
+
+
+def tile_pixel_coords(tids, tx_count: int, width: int, full_height: int, y0: int = 0, mode: int = MODE_OBB):
+    """Pixel centers of tiles ``tids`` [B] -> ([B, 256], [B, 256]) in the
+    frame ``mode``'s falloff evaluates in: vp units, or NDC for 2DGS.
+
+    The expressions of ``_tile_pixel_coords`` (tile_fwd.py:87-103) with the
     multiply-add fused, ``fma(px, 2/width, -1) * width``, as the compiled JAX
     kernel evaluates them (XLA contracts it) and as csrc/tile_fwd.cu does
     with ``fmaf``.  The float64 product and sum are exact here (at most 35
     significant bits), so rounding them once to float32 is the fused
-    result."""
+    result.  The 2DGS branch scales the vp value back by f32 1/width
+    (:120-121); compiled, XLA folds the two constants into one,
+    ``fma(...) * f32(width * f32(1/width))``, and so does the port.  The
+    folded factor is exactly 1 for most sizes (512, 1920, 120, 1080; not
+    656 or 121), so a 2DGS pixel is at the fused NDC coordinate itself: one
+    rounding less than the vp value scaled back, which the doubled-frame
+    distance (2 width^2 per NDC unit squared) would amplify to 1e-4 in g."""
     inv_w2, inv_h2 = _coord_constants(width, full_height)
     sub = torch.arange(PIX, device=tids.device)
     px = (tids % tx_count)[:, None] * TILE + (sub % TILE) + 0.5
     py = (tids // tx_count)[:, None] * TILE + (sub // TILE) + 0.5 + y0
-    px_vp = (px.double() * inv_w2 - 1.0).float() * float(width)
-    py_vp = (1.0 - py.double() * inv_h2).float() * float(full_height)
-    return px_vp, py_vp
+    x = (px.double() * inv_w2 - 1.0).float()
+    y = (1.0 - py.double() * inv_h2).float()
+    if mode == MODE_2D:
+        inv_w, inv_h, _ = _surfel_constants(width, full_height)
+        return x * float(np.float32(width * np.float32(inv_w))), y * float(np.float32(full_height * np.float32(inv_h)))
+    return x * float(width), y * float(full_height)
 
 
 def _check_inputs(params, tile_start, tile_count, chunk, mode):
@@ -85,8 +121,9 @@ def _check_inputs(params, tile_start, tile_count, chunk, mode):
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode}")
     if params.dtype != torch.float32:
         raise TypeError(f"params must be float32, got {params.dtype}")
-    if params.dim() != 2 or params.shape[1] != N_COLS:
-        raise ValueError(f"params must be [P, {N_COLS}], got {tuple(params.shape)}")
+    cols = param_width(mode)
+    if params.dim() != 2 or params.shape[1] != cols:
+        raise ValueError(f"params must be [P, {cols}] in mode {MODES[mode]}, got {tuple(params.shape)}")
     for name, t in (("tile_start", tile_start), ("tile_count", tile_count)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
@@ -102,23 +139,42 @@ def _check_inputs(params, tile_start, tile_count, chunk, mode):
         raise ValueError(f"chunk must be in (0, {MAX_CHUNK}], got {chunk}")
 
 
-def splat_falloff(q, px_vp, py_vp, mode: int):
-    """The Gaussian term g of rows ``q`` [..., 10] at pixels ``px_vp``,
-    ``py_vp`` (vp units), zero outside the splat's quad, in the kernel's
-    operation order (``_chunk_alpha``, tile_fwd.py:146-179).  Returns ``(g,
-    inside, aux)``; ``aux`` holds what the backward chains through: ``(dx,
-    dy)`` for AABB, ``(dx, dy, u, v, inv_b1, inv_b2)`` for OBB."""
+def splat_falloff(q, px, py, mode: int, width: int, full_height: int):
+    """The Gaussian term g of rows ``q`` [..., param_width(mode)] at pixels
+    ``px``, ``py`` (:func:`tile_pixel_coords` of ``mode``: vp units, or NDC
+    for 2DGS), zero outside the splat's quad, in the kernel's operation
+    order (``_chunk_alpha``, tile_fwd.py:106-179).  Returns ``(g, inside,
+    aux)``; ``aux`` holds what the backward chains through: ``(dx, dy)`` for
+    AABB, ``(dx, dy, u, v, inv_b1, inv_b2)`` for OBB, ``(dxn, dyn, qz,
+    inv_pz, us, vs, s3d, d2x2)`` for 2DGS."""
+    if mode == MODE_2D:
+        # NDC offsets, pixel minus centre; q = dxn A + dyn B + C; the clamp
+        # of q.z is not sign-preserving, as the TPU kernel's (:131)
+        inv_w, inv_h, two_w2 = _surfel_constants(width, full_height)
+        dxn = px - q[..., 0:1]
+        dyn = py - q[..., 1:2]
+        inside = (dxn.abs() <= q[..., 2:3] * inv_w) & (dyn.abs() <= q[..., 2:3] * inv_h)
+        qx, qy, qz = (dxn * q[..., 3 + k : 4 + k] + dyn * q[..., 6 + k : 7 + k] + q[..., 9 + k : 10 + k]
+                      for k in range(3))
+        inv_pz = 1.0 / torch.where(qz.abs() > 1e-12, qz, torch.full_like(qz, 1e-12))
+        us = qx * inv_pz
+        vs = qy * inv_pz
+        s3d = us * us + vs * vs
+        # doubled-frame quirk: both axes scale by the width
+        d2x2 = (dxn * dxn + dyn * dyn) * two_w2
+        g = torch.where(inside, torch.exp(-0.5 * torch.minimum(s3d, d2x2)), 0.0)
+        return g, inside, (dxn, dyn, qz, inv_pz, us, vs, s3d, d2x2)
     cx, cy, c2, c3, c4, c5 = (q[..., i : i + 1] for i in range(6))
     if mode == MODE_AABB:
         # conic quadratic form clipped to the radius square; the offset is
         # centre minus pixel, the opposite sign of OBB's
-        dx = cx - px_vp
-        dy = cy - py_vp
+        dx = cx - px
+        dy = cy - py
         power = -0.5 * (c2 * dx * dx + c4 * dy * dy) + c3 * dx * dy
         inside = (dx.abs() <= c5) & (dy.abs() <= c5) & (power <= 0.0)
         return torch.where(inside, torch.exp(power), 0.0), inside, (dx, dy)
-    dx = px_vp - cx
-    dy = py_vp - cy
+    dx = px - cx
+    dy = py - cy
     inv_b1 = 1.0 / torch.clamp(c4, min=1e-12)
     inv_b2 = 1.0 / torch.clamp(c5, min=1e-12)
     u = (dx * c2 + dy * c3) * inv_b1
@@ -151,7 +207,8 @@ def composite_tiles_raw_plain(
     num_tiles = tile_start.shape[0]
     p = params.shape[0]
     # one zero row past the end keeps every clamped gather in bounds
-    table = torch.cat([params, params.new_zeros((1, N_COLS))], dim=0)
+    table = torch.cat([params, params.new_zeros((1, params.shape[1]))], dim=0)
+    ro = rgb_row(mode)
     out = torch.empty((num_tiles, 4, PIX), dtype=torch.float32, device=dev)
     lane = torch.arange(chunk, device=dev)
     for b0 in range(0, num_tiles, tile_batch):
@@ -161,8 +218,8 @@ def composite_tiles_raw_plain(
         prefix = start - base
         total = tile_count[tids].to(torch.int64) + prefix
         n_chunks = (total + chunk - 1) // chunk
-        px_vp, py_vp = tile_pixel_coords(tids, tx_count, width, full_height, y0)
-        px_vp, py_vp = px_vp[:, None, :], py_vp[:, None, :]
+        px, py = tile_pixel_coords(tids, tx_count, width, full_height, y0, mode)
+        px, py = px[:, None, :], py[:, None, :]
         trans = torch.ones((tids.shape[0], PIX), dtype=torch.float32, device=dev)
         accum = torch.zeros((tids.shape[0], 3, PIX), dtype=torch.float32, device=dev)
         # lanes past the batch's longest range are masked in every tile:
@@ -183,15 +240,15 @@ def composite_tiles_raw_plain(
             if walked is not None:
                 walked[tids] += in_rng.sum(dim=1)
             idx = (base[:, None] + lane_idx).clamp(max=p)
-            q = table[idx]  # [B, chunk, 10]
-            g = splat_falloff(q, px_vp, py_vp, mode)[0]
-            alpha = torch.clamp(g * q[..., 9:10], max=ALPHA_CAP)
+            q = table[idx]  # [B, chunk, param_width(mode)]
+            g = splat_falloff(q, px, py, mode, width, full_height)[0]
+            alpha = torch.clamp(g * q[..., ro + 3 : ro + 4], max=ALPHA_CAP)
             alpha = torch.where(in_rng[..., None], alpha, 0.0)  # [B, chunk, 256]
             cum = torch.cumprod(1.0 - alpha, dim=1)
             excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
             w = alpha * excl * trans[:, None, :]
             for ch in range(3):
-                accum[:, ch] += torch.sum(w * q[..., 6 + ch : 7 + ch], dim=1)
+                accum[:, ch] += torch.sum(w * q[..., ro + ch : ro + ch + 1], dim=1)
             trans = trans * cum[:, -1]
         out[tids, :3] = accum
         out[tids, 3] = trans
@@ -212,7 +269,8 @@ def composite_tiles_raw(
     """Composite every tile -> raw [T, 4, 256]: rows 0-2 premultiplied rgb,
     row 3 final transmittance.
 
-    ``params`` [P, 10] f32: pair-sorted rows of ``mode``'s layout;
+    ``params`` [P, param_width(mode)] f32: pair-sorted rows of ``mode``'s
+    layout;
     ``tile_start`` / ``tile_count`` [T] int32: each tile's range in
     ``params`` (counts already clipped to the per-tile budget).
     ``full_height`` and ``y0`` place the tile grid in the full image (``y0``
@@ -228,6 +286,7 @@ def composite_tiles_raw(
     num_tiles = tile_start.shape[0]
     out = torch.empty((num_tiles, 4, PIX), dtype=torch.float32, device=dev)
     inv_w2, inv_h2 = _coord_constants(width, full_height)
+    inv_w, inv_h, two_w2 = _surfel_constants(width, full_height)
     lib = build.load("tile_fwd")
     fn = lib.bgs_composite_fwd
     if fn.argtypes is None:
@@ -238,7 +297,7 @@ def composite_tiles_raw(
         status = fn(
             params.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
             num_tiles, tx_count, float(width), float(full_height), inv_w2, inv_h2,
-            int(y0), chunk, mode, TRANS_EPS, out.data_ptr(), stream,
+            inv_w, inv_h, two_w2, int(y0), chunk, mode, TRANS_EPS, out.data_ptr(), stream,
         )
     build.check(status, "composite_tiles_raw")
     if num_tiles > 0:

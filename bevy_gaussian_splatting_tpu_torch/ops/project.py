@@ -1,11 +1,11 @@
 """Per-gaussian projection: cloud -> screen-space splat attributes.
 
 The counterpart of the JAX package's ``ops/project.py`` (the reference's
-vertex stage ``vs_points``, src/render/gaussian.wgsl:205-436), for 3DGS in
-COLOR mode with OBB or AABB bounds.
+vertex stage ``vs_points``, src/render/gaussian.wgsl:205-436), in COLOR mode
+for 3DGS with OBB or AABB bounds and for 2DGS surfels.
 
 Outputs ("splats" dict, all [N, ...]):
-  mask        bool     survives frustum culling
+  mask        bool     survives frustum culling (2DGS: and the surfel is valid)
   depth2      f32      squared distance to camera
   sort_key    int64    radix depth key (ops/sort.py), sentinel where culled
   center_ndc  [N, 2]   projected center in NDC
@@ -14,6 +14,9 @@ Outputs ("splats" dict, all [N, ...]):
   obb_axis    [N, 2]   unit major eigenvector                (OBB)
   conic       [N, 3]   inverse 2D covariance                 (AABB)
   radius_vp   f32      axis-aligned bounding radius, vp units (AABB)
+  surfel_t    [N, 3, 3] local-to-pixel homography             (2DGS)
+  mean_2d     [N, 2]   homography centre, true pixels         (2DGS)
+  surfel_radius f32    bounding radius, doubled pixel units    (2DGS)
   rgb         [N, 3]   SH colour (linear)
   alpha       f32      opacity * global_opacity
 """
@@ -29,9 +32,11 @@ from bevy_gaussian_splatting_tpu_torch.models.cloud import Gaussian3dCloud
 from bevy_gaussian_splatting_tpu_torch.models.settings import (
     CloudSettings,
     GaussianColorSpace,
+    GaussianMode,
     check_supported,
 )
 from bevy_gaussian_splatting_tpu_torch.ops import covariance as cov_ops
+from bevy_gaussian_splatting_tpu_torch.ops import gaussian_2d as g2d
 from bevy_gaussian_splatting_tpu_torch.ops import sh as sh_ops
 from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
 from bevy_gaussian_splatting_tpu_torch.ops.transforms import (
@@ -71,12 +76,6 @@ def project_gaussians(
     diff = world_pos - camera.world_position
     dist2 = sort_ops.squared_distance(diff)
     sort_key = sort_ops.depth_key(dist2, mask, settings.radix_sort_depth_bits.bits)
-    cov3 = cov_ops.compute_cov3d(
-        cloud.rotation, cloud.scale, settings.global_scale, model_transform
-    )
-    cov2 = cov_ops.cov2d(
-        world_pos, cov3, camera.view_from_world, camera.clip_from_view, viewport
-    )
 
     # COLOR mode (gaussian.wgsl:312-328): SH lookup along the view ray
     ray_dir = diff / torch.clamp(torch.sqrt(dist2)[..., None], min=1e-12)
@@ -94,6 +93,25 @@ def project_gaussians(
         "rgb": rgb,
         "alpha": opacity * settings.global_opacity,
     }
+    if settings.gaussian_mode == GaussianMode.GAUSSIAN_2D:
+        # the radix key above saw the frustum test only; an invalid surfel
+        # leaves the mask after it (render_tiled takes the key from
+        # radix_depth_key's own frustum test, rasterize_tile.py:1154-1174)
+        T, mean_2d, extent, valid = g2d.compute_cov2d_surfel(
+            world_pos, cloud.rotation, cloud.scale, settings.global_scale, model_transform,
+            camera.clip_from_world, camera.clip_from_view, viewport, cutoff,
+        )
+        splats["mask"] = mask & valid
+        splats["surfel_t"] = T
+        splats["mean_2d"] = mean_2d
+        splats["surfel_radius"] = g2d.surfel_bounding_radius(extent, cutoff)
+        return splats
+    cov3 = cov_ops.compute_cov3d(
+        cloud.rotation, cloud.scale, settings.global_scale, model_transform
+    )
+    cov2 = cov_ops.cov2d(
+        world_pos, cov3, camera.view_from_world, camera.clip_from_view, viewport
+    )
     if settings.aabb:
         splats["conic"] = cov_ops.conic_from_cov2d(cov2)
         splats["radius_vp"] = cov_ops.aabb_radius(cov2, cutoff)

@@ -1,12 +1,13 @@
 """Reference (oracle) rasterizer: exact, slow, plain PyTorch.
 
-The counterpart of the JAX package's ``ops/rasterize_ref.py`` for 3DGS /
-COLOR with OBB or AABB bounds: back-to-front painter blending over
-depth-sorted gaussians with premultiplied alpha, dst factor (1 - a)
-(src/render/mod.rs:914-982), OBB falloff power = -4.5 |uv|^2 in the
-eigen-rotated quad frame (src/render/gaussian.wgsl:489-497) or the AABB conic
-falloff clipped to the radius square (:455-470), alpha cap 0.999
-(:499-505).  It defines correctness for the tiled renderer.  Its cost is
+The counterpart of the JAX package's ``ops/rasterize_ref.py`` in COLOR mode
+for 3DGS with OBB or AABB bounds and for 2DGS surfels: back-to-front painter
+blending over depth-sorted gaussians with premultiplied alpha, dst factor
+(1 - a) (src/render/mod.rs:914-982), OBB falloff power = -4.5 |uv|^2 in the
+eigen-rotated quad frame (src/render/gaussian.wgsl:489-497), the AABB conic
+falloff clipped to the radius square (:455-470) or the surfel's
+min(3D ray-plane, 2x 2D) power (src/render/gaussian_2d.wgsl:134-156), alpha
+cap 0.999 (:499-505).  It defines correctness for the tiled renderer.  Its cost is
 O(N * H * W): small N only.
 """
 
@@ -20,6 +21,7 @@ import torch
 from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
 from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
 from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
+from bevy_gaussian_splatting_tpu_torch.ops.gaussian_2d import surfel_affine_coeffs, surfel_affine_power
 from bevy_gaussian_splatting_tpu_torch.ops.project import project_gaussians
 
 ALPHA_CAP = 0.999  # gaussian.wgsl:499
@@ -67,6 +69,20 @@ def _fragment_alpha_3d_aabb(cx, cy, conic, radius, px_vp, py_vp):
     return torch.where(inside, torch.exp(power), torch.zeros_like(power))
 
 
+def _fragment_alpha_2d(cx_ndc, cy_ndc, mr, A, B, C, px_ndc, py_ndc, width: int, height: int):
+    """2DGS surfel falloff in the reference's fragment frame
+    (rasterize_ref.py:92-129 of the JAX package): the folded affine form of
+    the homography intersection, clipped to the surfel's square, whose
+    half-sides are ``mr`` scaled by f32 1/width and 1/height."""
+    inv_w = np.float32(1.0) / np.float32(width)
+    inv_h = np.float32(1.0) / np.float32(height)
+    dx_ndc = px_ndc - cx_ndc
+    dy_ndc = py_ndc - cy_ndc
+    inside = (dx_ndc.abs() <= mr * float(inv_w)) & (dy_ndc.abs() <= mr * float(inv_h))
+    power = surfel_affine_power(A, B, C, dx_ndc, dy_ndc, width)
+    return torch.where(inside, torch.exp(power), torch.zeros_like(power))
+
+
 def composite_splats(
     splats: dict,
     order: torch.Tensor,
@@ -76,7 +92,8 @@ def composite_splats(
 ) -> torch.Tensor:
     """Painter-blend splats over the image in ``order`` (back-to-front).
     Returns [H, W, 4] premultiplied linear RGBA.  Splats that carry
-    ``radius_vp`` (an AABB projection) take the AABB falloff."""
+    ``surfel_t`` (a 2DGS projection) take the surfel falloff, those that
+    carry ``radius_vp`` (an AABB projection) the AABB falloff."""
     dev = splats["rgb"].device
     px_ndc, py_ndc = pixel_grid_ndc(width, height, dev)
     px_vp = px_ndc * float(width)
@@ -86,19 +103,30 @@ def composite_splats(
     image = background.to(torch.float32).expand(height, width, 4).clone()
 
     center = splats["center_ndc"][order]
-    cx_all = center[:, 0] * float(width)
-    cy_all = center[:, 1] * float(height)
-    if "radius_vp" in splats:
-        shape_a, shape_b = splats["conic"][order], splats["radius_vp"][order]
-        falloff = _fragment_alpha_3d_aabb
+    if "surfel_t" in splats:
+        mr = splats["surfel_radius"][order]
+        A, B, C = surfel_affine_coeffs(splats["surfel_t"][order], splats["mean_2d"][order], width)
+
+        def falloff(i):
+            return _fragment_alpha_2d(center[i, 0], center[i, 1], mr[i], A[i], B[i], C[i],
+                                      px_ndc, py_ndc, width, height)
     else:
-        shape_a, shape_b = splats["obb_axis"][order], splats["obb_bounds"][order]
-        falloff = _fragment_alpha_3d_obb
+        cx_all = center[:, 0] * float(width)
+        cy_all = center[:, 1] * float(height)
+        if "radius_vp" in splats:
+            shape_a, shape_b = splats["conic"][order], splats["radius_vp"][order]
+            falloff_3d = _fragment_alpha_3d_aabb
+        else:
+            shape_a, shape_b = splats["obb_axis"][order], splats["obb_bounds"][order]
+            falloff_3d = _fragment_alpha_3d_obb
+
+        def falloff(i):
+            return falloff_3d(cx_all[i], cy_all[i], shape_a[i], shape_b[i], px_vp, py_vp)
     rgb = splats["rgb"][order]
     alpha_s = splats["alpha"][order]
     mask = splats["mask"][order]
     for i in range(order.shape[0]):
-        g = falloff(cx_all[i], cy_all[i], shape_a[i], shape_b[i], px_vp, py_vp)
+        g = falloff(i)
         alpha = torch.clamp(g * alpha_s[i], max=ALPHA_CAP)
         alpha = torch.where(mask[i], alpha, torch.zeros_like(alpha))
         src_rgb = rgb[i][None, None, :] * alpha[..., None]

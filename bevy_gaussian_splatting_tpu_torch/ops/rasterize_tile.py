@@ -1,13 +1,13 @@
 """Tile-binned renderer: binning, parameter packing and the pipeline.
 
 The counterpart of the JAX package's ``ops/rasterize_tile.py``
-``render_tiled(..., compositor="pallas")`` for 3DGS in COLOR mode with OBB
-or AABB bounds, serving and training alike.  It reproduces that path's
-integer artifacts exactly:
+``render_tiled(..., compositor="pallas")`` in COLOR mode for 3DGS with OBB
+or AABB bounds and for 2DGS surfels, serving and training alike.  It
+reproduces that path's integer artifacts exactly:
 
   1. project every gaussian (ops/project.py) and take its radix depth key;
   2. each splat's clipped tile rectangle from its OBB screen extent, or the
-     square of its AABB radius;
+     square of its AABB or surfel radius;
   3. a stable depth pre-sort, front to back, inactive gaussians first;
   4. inclusive pair counts, capped at the budget ``p_max`` (the farthest
      pairs drop when the cap binds);
@@ -32,16 +32,18 @@ from typing import NamedTuple, Optional
 import torch
 
 from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
-from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
+from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode
 from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.core import composite_core
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
+    MODE_2D,
     MODE_AABB,
     MODE_OBB,
     composite_epilogue,
     preferred_chunk,
 )
+from bevy_gaussian_splatting_tpu_torch.ops.gaussian_2d import surfel_affine_coeffs
 from bevy_gaussian_splatting_tpu_torch.ops.project import project_gaussians
 
 TILE = 16  # pixels per tile side
@@ -86,13 +88,14 @@ def project_for_binning(cloud, camera: Camera, settings: CloudSettings, model_tr
 
 def _pixel_extents(splats: dict, width: int, height: int):
     """Per-splat centre (cx, cy) and half-extents (rx, ry) in pixels: the
-    square of the AABB radius where the projection gave one, else the OBB's
-    rotated rectangle (rasterize_tile.py:166-183)."""
+    square of the surfel or AABB radius where the projection gave one, else
+    the OBB's rotated rectangle (rasterize_tile.py:166-183)."""
     cx_px = (splats["center_ndc"][:, 0] + 1.0) * 0.5 * width
     cy_px = (1.0 - splats["center_ndc"][:, 1]) * 0.5 * height
-    if "radius_vp" in splats:
-        r = splats["radius_vp"] * 0.5  # vp -> px
-        return cx_px, cy_px, r, r
+    for key in ("surfel_radius", "radius_vp"):
+        if key in splats:
+            r = splats[key] * 0.5  # doubled / vp units -> px
+            return cx_px, cy_px, r, r
     e1 = splats["obb_axis"]
     b = splats["obb_bounds"]
     # rotated-rect bbox: |e1|*b1 + |e2|*b2 with e2 = (e1.y, -e1.x)
@@ -200,19 +203,28 @@ def tile_ranges(pair_tile: torch.Tensor, num_tiles: int):
 
 def kernel_mode(settings: CloudSettings) -> int:
     """The compositing kernels' mode for ``settings`` (tile_fwd.py:81-84)."""
+    if settings.gaussian_mode == GaussianMode.GAUSSIAN_2D:
+        return MODE_2D
     return MODE_AABB if settings.aabb else MODE_OBB
 
 
 def pack_raster_param_cols(splats: dict, settings: CloudSettings, width: int, height: int) -> list:
     """Per-splat compositor parameters as a list of columns, in the kernel's
-    order (rasterize_tile.py:850-858): ``[cx_vp, cy_vp, e1x, e1y, b1, b2, r,
+    order (rasterize_tile.py:812-858): ``[cx_vp, cy_vp, e1x, e1y, b1, b2, r,
     g, b, alpha]`` for OBB, ``[cx_vp, cy_vp, conic.x, conic.y, conic.z,
-    radius_vp, r, g, b, alpha]`` for AABB."""
+    radius_vp, r, g, b, alpha]`` for AABB, and for 2DGS the slim surfel
+    ``[cx_ndc, cy_ndc, surfel_radius, A.xyz, B.xyz, C.xyz, r, g, b, alpha]``
+    with the homography folded into q = dxn A + dyn B + C
+    (``gaussian_2d.surfel_affine_coeffs``); the 2DGS centre stays in NDC."""
     cx_vp = splats["center_ndc"][:, 0] * width
     cy_vp = splats["center_ndc"][:, 1] * height
     rgb = splats["rgb"]
     alpha = splats["alpha"] * splats["mask"].to(torch.float32)
-    if settings.aabb:
+    if settings.gaussian_mode == GaussianMode.GAUSSIAN_2D:
+        A, B, C = surfel_affine_coeffs(splats["surfel_t"], splats["mean_2d"], width)
+        cols = [splats["center_ndc"][:, 0], splats["center_ndc"][:, 1], splats["surfel_radius"]]
+        cols += [v[:, k] for v in (A, B, C) for k in range(3)]
+    elif settings.aabb:
         conic = splats["conic"]
         cols = [cx_vp, cy_vp, conic[:, 0], conic[:, 1], conic[:, 2], splats["radius_vp"]]
     else:
@@ -223,7 +235,8 @@ def pack_raster_param_cols(splats: dict, settings: CloudSettings, width: int, he
 
 
 def pack_raster_params(splats: dict, settings: CloudSettings, width: int, height: int) -> torch.Tensor:
-    """[N, 10] packed per-splat parameters for the compositor."""
+    """[N, param_width] packed per-splat parameters for the compositor (10
+    columns, 16 for 2DGS)."""
     return torch.stack(pack_raster_param_cols(splats, settings, width, height), dim=-1)
 
 

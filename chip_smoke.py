@@ -11,23 +11,30 @@ NVIDIA card.
 
 Phases, each of which raises on failure (nothing is caught).  Phases 3-6 run
 with OBB bounds (``CloudSettings()``), then phases 3-5 and 7 with AABB bounds
-(``CloudSettings(aabb=True)``), then phase 8:
+(``CloudSettings(aabb=True)``), then phase 8, then phases 3-6 with 2DGS
+surfels (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``):
 
   1. build   every kernel under bevy_gaussian_splatting_tpu_torch/csrc with
-             nvcc for sm_90a, one nvcc per source, all started together;
+             nvcc for sm_90a, one nvcc per source, all started together,
+             and print what ptxas reports for each kernel (registers,
+             shared memory, spills);
   2. scene   the repo's benchmark scene: 1,000,000 gaussians from
              ``random_gaussians_3d_seeded(n, seed=0)``, positions scaled by
              (1, 1, 0.25), scales by 0.05 (bench.py), camera at (0, 0, 60);
   3. kernels each kernel against its plain PyTorch version on the scene's
              real inputs at 512x512 and 1920x1080: expansion array-equal,
-             compositing within 2e-5, the backward compositor within 1e-4 of
-             each gradient column's largest magnitude (its cotangent taken
-             from a real loss; the AABB radius column exactly 0 in both),
-             the segmented reduce array-equal;
-  4. small   ``render()`` on the card against the port's oracle (3e-5) and
-             against the same call on the CPU (2e-5), and the gradients of
-             every cloud field, card against CPU (1e-4 of the field's
-             largest magnitude), at 128x128 and 128x120;
+             compositing within 2e-5 (2DGS 1e-4, the JAX package's 2DGS
+             bar), the backward compositor within 1e-4 of each gradient
+             column's largest magnitude (its cotangent taken from a real
+             loss; the AABB radius column and the 2DGS surfel radius column
+             exactly 0 in both), the segmented reduce array-equal (16
+             columns for 2DGS);
+  4. small   ``render()`` on the card against the port's oracle (3e-5; 2DGS
+             1e-4) and against the same call on the CPU (2e-5; 2DGS 1e-4),
+             and the gradients of every cloud field, card against CPU (1e-4
+             of the field's largest magnitude), at 128x128 and 128x120; for
+             2DGS on the bench-style cloud and on the surfel grid of
+             ``tools/surfel_plane.py``;
   5. main    ``render()`` at four orbit poses at 512x512, then 1920x1080,
              with the launch counters set to 0 just before and read after;
              every frame must launch both forward kernels, neither backward
@@ -40,7 +47,9 @@ with OBB bounds (``CloudSettings()``), then phases 3-5 and 7 with AABB bounds
              ``gaussian_splatting_loss`` steps at 512x512, then a warm-up
              and 2 timed steps at 1920x1080.  Every step must launch all
              four kernels and give a finite loss and finite gradients; the
-             last bench-objective loss must be below the first;
+             last bench-objective loss must be below the first (2DGS: 5
+             timed steps at 512x512, 2 at 1920x1080, no
+             ``gaussian_splatting_loss`` steps);
   7. train   (AABB) the training loop's pieces on the scene: a warm-up and 5
              Adam steps at 512x512, a warm-up and 2 at 1920x1080, with
              ``accumulate_stats`` after every step, then one
@@ -52,8 +61,8 @@ with OBB bounds (``CloudSettings()``), then phases 3-5 and 7 with AABB bounds
              its 16.41 dB less 0.5) and at its CPU test protocol (60 steps,
              192 gaussians, 48x48; at least 17.28 dB).
 
-It prints the kernels line (one entry per kernel and mode), the card's name
-and power limit, and as its last line ``{"ok": true, "device": {...}}``.
+It prints the kernels line (one entry per kernel and mode: nine), the card's
+name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 Without a card it exits non-zero and prints no result.
 """
 
@@ -88,19 +97,28 @@ FP32_NO_FMA_OPS_PER_S = FP32_OPS_PER_S / 2
 INT32_OPS_PER_S = FP32_OPS_PER_S / 4
 # Operations per (pair, pixel) evaluation of each mode, counted from the
 # sources (csrc/tile_fwd.cu, csrc/tile_bwd.cu).  Forward: OBB 25 FP32
-# operations and one expf, AABB 27 and one expf.  Backward, per walked
-# evaluation: OBB 12 (offsets, u, v, the inside test), AABB 16 (offsets, the
-# quadratic form, the clip); inside the splat 59 more and one expf for OBB
-# (alpha, transmittance, the gradient chain and one add into each of the ten
-# pixel sums), 50 more and one expf for AABB (nine sums).
-COMPOSITE_OPS_PER_EVAL = {"obb": 26, "aabb": 28}
-BACKWARD_OPS_PER_EVAL = {"obb": 12, "aabb": 16}
-BACKWARD_OPS_PER_INSIDE = {"obb": 60, "aabb": 51}
+# operations and one expf, AABB 27 and one expf, every walked evaluation;
+# 2DGS 4 per walked evaluation (offsets, the square clip) and, inside the
+# square only, 37 more and one expf (the homography, the reciprocal, the
+# distances, alpha and the blend).  Backward, per walked evaluation: OBB 12
+# (offsets, u, v, the inside test), AABB 16 (offsets, the quadratic form, the
+# clip), 2DGS 4; inside the splat 59 more and one expf for OBB (alpha,
+# transmittance, the gradient chain and one add into each of the ten pixel
+# sums), 50 more and one expf for AABB (nine sums), 104 more and one expf for
+# 2DGS (the recompute, the chain, fifteen sums).
+COMPOSITE_OPS_PER_EVAL = {"obb": 26, "aabb": 28, "2d": 4}
+COMPOSITE_OPS_PER_INSIDE = {"obb": 0, "aabb": 0, "2d": 38}
+BACKWARD_OPS_PER_EVAL = {"obb": 12, "aabb": 16, "2d": 4}
+BACKWARD_OPS_PER_INSIDE = {"obb": 60, "aabb": 51, "2d": 105}
+IMAGE_BAR = {"obb": 2e-5, "aabb": 2e-5, "2d": 1e-4}  # kernel vs plain, card vs CPU
+ORACLE_BAR = {"obb": 3e-5, "aabb": 3e-5, "2d": 1e-4}  # card vs the port's oracle
 GRAD_BAR = 1e-4  # kernel vs plain (and card vs CPU), per gradient column
 TRAIN_LR = 1e-3
-TRAIN_STEPS = 10  # timed bench-objective steps at 512x512
-TRAIN_STEPS_1080 = 2  # timed steps at 1920x1080, after one warm-up
-AABB_TRAIN_STEPS = {SIZES[0]: 5, SIZES[1]: 2}  # Adam steps after one warm-up
+# timed bench-objective Adam steps per size, each after one warm-up step
+TRAIN_STEPS = {SIZES[0]: 10, SIZES[1]: 2}
+AABB_TRAIN_STEPS = {SIZES[0]: 5, SIZES[1]: 2}
+SURFEL_TRAIN_STEPS = {SIZES[0]: 5, SIZES[1]: 2}
+SURFEL_EYE = (2.5, 2.0, 6.0)  # tools/surfel_plane.py's camera
 AABB_AFTER_DENSIFY = 2  # steps after densify_and_prune
 # convergence_psnr: (steps, n, size, floor in dB).  The bench protocol's floor
 # is the JAX package's 16.41 dB (BENCH_r05.json) less the 0.5 dB its own test
@@ -150,6 +168,9 @@ def phase_build() -> None:
     build.build_all()
     seconds = time.perf_counter() - t0
     log(f"[build] {', '.join(build.SOURCES)} built for sm_90a in {seconds:.2f} s")
+    for name in build.SOURCES:
+        for kernel, usage in build.ptxas_usage(name):
+            log(f"[build] ptxas {name}.cu {kernel}: {usage}")
 
 
 def bound(nbytes: float, nops: float, ops_per_s: float):
@@ -180,8 +201,8 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     tx_count = width // rt.TILE
     num_tiles = tx_count * (rt.pad_to_tile(height) // rt.TILE)
 
-    if not settings.aabb:
-        # radix keys (the same in both modes): the card's against the CPU's,
+    if kmode == tf.MODE_OBB:
+        # radix keys (the same in every mode): the card's against the CPU's,
         # counted (ROADMAP Queue 3)
         keys_card = splats["sort_key"].cpu()
         cpu_cloud, cpu_cam = cloud.to("cpu"), orbit_camera(0.0, width, height, "cpu")
@@ -203,7 +224,7 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     exp_bytes = sum(t.numel() * 4 for t in table) + 3 * 4 * p_max
     exp_ops = p_max * (2 * math.ceil(math.log2(n + 1)) + 12)  # search + tile arithmetic
 
-    # ---- compositor: within 2e-5 ----
+    # ---- compositor: within 2e-5 (2DGS 1e-4) ----
     bins = rt.tile_bins(splats, width, height, p_max)
     params = rt.pack_raster_params(splats, settings, width, height)[bins.g_s].contiguous()
     start, count = bins.start, bins.count
@@ -213,15 +234,18 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     walked = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
     raw_plain = tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, mode=kmode, tile_batch=512, walked=walked)
     comp_err = float((raw - raw_plain).abs().max())
-    if not comp_err <= 2e-5:
-        raise AssertionError(f"composite_tiles_raw {label}: max |kernel - plain| = {comp_err:.3e} > 2e-5")
+    if not comp_err <= IMAGE_BAR[mode]:
+        raise AssertionError(f"composite_tiles_raw {label}: max |kernel - plain| = {comp_err:.3e} > {IMAGE_BAR[mode]}")
     comp_ms = cuda_ms(lambda: tf.composite_tiles_raw(*comp_args, chunk=chunk, mode=kmode), 20)
     comp_plain_ms = cuda_ms(
         lambda: tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, mode=kmode, tile_batch=512), 2
     )
-    evals = int(walked.sum()) * tf.PIX
-    comp_bytes = params.numel() * 4 + 2 * 4 * num_tiles + raw.numel() * 4
-    comp_ops = evals * COMPOSITE_OPS_PER_EVAL[mode]
+    n_walked = int(walked.sum())
+    evals = n_walked * tf.PIX
+    # the bytes this frame needs: the rows of the walked pairs (the rest of
+    # the p_max rows no tile reads), the tile ranges, the output written once
+    row_bytes = params.shape[1] * 4
+    comp_bytes = n_walked * row_bytes + 2 * 4 * num_tiles + raw.numel() * 4
 
     # ---- backward compositor: per column within GRAD_BAR of its largest |plain| ----
     # the cotangent of a real loss: the bench objective against a render of
@@ -247,17 +271,22 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
             f"composite_backward {label}: per-column |kernel - plain| / max|plain| "
             f"{[f'{r:.2e}' for r in col_rel]} above {GRAD_BAR}"
         )
-    if settings.aabb and (bool(dsorted[:, 5].any()) or bool(dsorted_plain[:, 5].any())):
-        raise AssertionError(f"composite_backward {label}: the radius column (5) has a gradient")
+    mask_col = {"aabb": 5, "2d": 2}.get(mode)  # the radius only masks
+    if mask_col is not None and (bool(dsorted[:, mask_col].any()) or bool(dsorted_plain[:, mask_col].any())):
+        raise AssertionError(f"composite_backward {label}: the radius column ({mask_col}) has a gradient")
     bwd_ms = cuda_ms(lambda: tb.composite_backward(*bwd_args, chunk=chunk, mode=kmode), 10)
     bwd_plain_ms = cuda_ms(
         lambda: tb.composite_backward_plain(*bwd_args, chunk=chunk, mode=kmode, tile_batch=512), 1
     )
     n_inside = int(inside.sum())
-    bwd_bytes = params.numel() * 4 + 2 * 4 * num_tiles + gbar.numel() * 4 + dsorted.numel() * 4
+    # the backward walks the forward's pairs; its output is all p_max rows
+    bwd_bytes = n_walked * row_bytes + 2 * 4 * num_tiles + gbar.numel() * 4 + dsorted.numel() * 4
     bwd_ops = evals * BACKWARD_OPS_PER_EVAL[mode] + n_inside * BACKWARD_OPS_PER_INSIDE[mode]
+    # the forward walks the same pairs with the same inside test
+    comp_ops = evals * COMPOSITE_OPS_PER_EVAL[mode] + n_inside * COMPOSITE_OPS_PER_INSIDE[mode]
 
-    # ---- segmented reduce: array-equal ----
+    # ---- segmented reduce: array-equal, at the mode's row width ----
+    cols = tf.param_width(kmode)
     dslot = torch.empty_like(dsorted)
     dslot[bins.order] = dsorted
     drank = rd.segment_reduce(dslot, bins.cum, n)
@@ -274,8 +303,8 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     lib = torch.segment_reduce(owned_rows, "sum", lengths=lengths, axis=0)
     lib_err = float((lib - drank).abs().max())
     red_lib_ms = cuda_ms(lambda: torch.segment_reduce(owned_rows, "sum", lengths=lengths, axis=0), 20)
-    red_bytes = owned * tf.N_COLS * 4 + n * 4 + n * tf.N_COLS * 4
-    red_ops = owned * tf.N_COLS
+    red_bytes = owned * cols * 4 + n * 4 + n * cols * 4
+    red_ops = owned * cols
 
     eb, eby = bound(exp_bytes, exp_ops, INT32_OPS_PER_S)
     cb, cby = bound(comp_bytes, comp_ops, FP32_NO_FMA_OPS_PER_S)
@@ -285,13 +314,13 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
         f"[kernels {label}] pairs {total} p_max {p_max} chunk {chunk} | "
         f"expand equal, {exp_ms:.4f} ms (plain {exp_plain_ms:.4f}, bound {eb:.4f} by {eby}) | "
         f"composite max_abs_err {comp_err:.3e}, {comp_ms:.4f} ms (plain {comp_plain_ms:.4f}, "
-        f"bound {cb:.4f} by {cby}), pairs walked {int(walked.sum())} of {int(count.sum())}"
+        f"bound {cb:.4f} by {cby}), pairs walked {n_walked} of {int(count.sum())}"
     )
     log(
         f"[kernels {label}] composite_backward per-column |kernel - plain| / max|plain| "
         f"{' '.join(f'{r:.2e}' for r in col_rel)} (bar {GRAD_BAR}), max_abs_err {bwd_err:.3e}, "
         f"{bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}, bound {bb:.4f} by {bby}), (pair, pixel) inside "
-        f"{n_inside} of {evals} | segment_reduce equal over {n} ranks, {owned} slots, {red_ms:.4f} ms "
+        f"{n_inside} of {evals} | segment_reduce equal over {n} ranks, {owned} slots x {cols} columns, {red_ms:.4f} ms "
         f"(plain {red_plain_ms:.4f}, bound {rb:.4f} by {rby}, torch.segment_reduce {red_lib_ms:.4f}, "
         f"differs by {lib_err:.3e})"
     )
@@ -325,36 +354,49 @@ def small_grads(arrays: dict, camera, background, settings, device) -> dict:
 
 def phase_small(settings) -> None:
     """Small inputs: card against the oracle and against the CPU, images and
-    gradients."""
-    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
+    gradients; for 2DGS also on the surfel grid."""
+    from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy, surfel_grid_arrays
+    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import kernel_mode
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODE_2D, MODES
     from bevy_gaussian_splatting_tpu_torch.render.api import render
 
-    a = bench_arrays(2000, seed=3)
     bg = torch.tensor([0.2, 0.1, 0.4, 1.0])
-    mode = "aabb" if settings.aabb else "obb"
-    for width, height in ((128, 128), (128, 120)):
-        label = f"{mode} {width}x{height}"
-        cam = orbit_camera(0.0, width, height, "cpu")
-        cpu = render(cloud_from_numpy(a, "cpu"), cam, settings, background=bg, device="cpu")
-        gpu = render(cloud_from_numpy(a, "cuda"), cam.to("cuda"), settings, background=bg.cuda())
-        oracle = render(cloud_from_numpy(a, "cuda"), cam.to("cuda"), settings, background=bg.cuda(), impl="oracle")
-        e_cpu = float((gpu.cpu() - cpu).abs().max())
-        e_oracle = float((gpu - oracle).abs().max())
-        log(f"[small {label}] card vs cpu {e_cpu:.3e} (bar 2e-5), card vs oracle {e_oracle:.3e} (bar 3e-5)")
-        if not (e_cpu <= 2e-5 and e_oracle <= 3e-5):
-            raise AssertionError(f"small render {label} disagrees: cpu {e_cpu:.3e}, oracle {e_oracle:.3e}")
-        g_cpu = small_grads(a, cam, bg, settings, "cpu")
-        g_card = small_grads(a, cam, bg, settings, "cuda")
-        rel = {}
-        for name in FIELDS:
-            if not bool(torch.isfinite(g_card[name]).all()):
-                raise AssertionError(f"small gradients {label}: {name} not finite on the card")
-            scale = float(g_cpu[name].abs().max())
-            rel[name] = float((g_card[name] - g_cpu[name]).abs().max()) / max(scale, 1e-30)
-        log(f"[small {label}] gradients card vs cpu, max |diff| / max |cpu| per field: "
-            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (bar {GRAD_BAR})")
-        if not all(v <= GRAD_BAR for v in rel.values()):
-            raise AssertionError(f"small gradients {label} disagree card vs cpu: {rel}")
+    mode = MODES[kernel_mode(settings)]
+    scenes = [("bench2000", bench_arrays(2000, seed=3), None)]
+    if kernel_mode(settings) == MODE_2D:
+        scenes.append(("surfels", surfel_grid_arrays(), SURFEL_EYE))
+    for scene, a, eye in scenes:
+        for width, height in ((128, 128), (128, 120)):
+            label = f"{mode} {scene} {width}x{height}"
+            if eye is None:
+                cam = orbit_camera(0.0, width, height, "cpu")
+            else:
+                cam = Camera.create(eye=eye, target=(0.0, 0.0, 0.0), width=width, height=height, device="cpu")
+            cpu = render(cloud_from_numpy(a, "cpu"), cam, settings, background=bg, device="cpu")
+            gpu = render(cloud_from_numpy(a, "cuda"), cam.to("cuda"), settings, background=bg.cuda())
+            oracle = render(cloud_from_numpy(a, "cuda"), cam.to("cuda"), settings, background=bg.cuda(),
+                            impl="oracle")
+            e_cpu = float((gpu.cpu() - cpu).abs().max())
+            e_oracle = float((gpu - oracle).abs().max())
+            log(f"[small {label}] card vs cpu {e_cpu:.3e} (bar {IMAGE_BAR[mode]}), card vs oracle {e_oracle:.3e} "
+                f"(bar {ORACLE_BAR[mode]})")
+            if not (e_cpu <= IMAGE_BAR[mode] and e_oracle <= ORACLE_BAR[mode]):
+                raise AssertionError(f"small render {label} disagrees: cpu {e_cpu:.3e}, oracle {e_oracle:.3e}")
+            g_cpu = small_grads(a, cam, bg, settings, "cpu")
+            g_card = small_grads(a, cam, bg, settings, "cuda")
+            rel = {}
+            for name in FIELDS:
+                if not bool(torch.isfinite(g_card[name]).all()):
+                    raise AssertionError(f"small gradients {label}: {name} not finite on the card")
+                scale = float(g_cpu[name].abs().max())
+                rel[name] = float((g_card[name] - g_cpu[name]).abs().max()) / max(scale, 1e-30)
+            log(f"[small {label}] gradients card vs cpu, max |diff| / max |cpu| per field: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (bar {GRAD_BAR})")
+            if not all(v <= GRAD_BAR for v in rel.values()):
+                raise AssertionError(f"small gradients {label} disagree card vs cpu: {rel}")
+            if mode == "2d" and (bool(g_card["scale_opacity"][:, 2].any()) or bool(g_cpu["scale_opacity"][:, 2].any())):
+                raise AssertionError(f"small gradients {label}: the flat surfel's scale z has a gradient")
 
 
 def phase_main(cloud, settings, profile: bool) -> dict:
@@ -363,11 +405,11 @@ def phase_main(cloud, settings, profile: bool) -> dict:
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.reduce import segment_reduce
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_bwd import composite_backward
-    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import composite_tiles_raw
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODES, composite_tiles_raw
     from bevy_gaussian_splatting_tpu_torch.render import api
 
     dev = cloud.device
-    mode = "aabb" if settings.aabb else "obb"
+    mode = MODES[rt.kernel_mode(settings)]
     counters = (expand_pairs, composite_tiles_raw)
     idle = (composite_backward, segment_reduce)  # serving runs no backward
     launches = {f.__name__: 0 for f in counters}
@@ -489,12 +531,18 @@ def train_target(model, target_cloud, settings, width: int, height: int):
     return camera, p_max, pairs, target
 
 
-def phase_train(arrays: dict, settings, profile: bool) -> dict:
-    """The training path through ``train_step``; counters read per step."""
+def phase_train(arrays: dict, settings, steps: dict, gs_loss: bool, profile: bool) -> dict:
+    """The training path through ``train_step``; counters read per step.
+    ``steps`` timed Adam steps per size, each size after one warm-up;
+    ``gs_loss`` adds two ``gaussian_splatting_loss`` steps at the first
+    size."""
     from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODES
+    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import kernel_mode
     from bevy_gaussian_splatting_tpu_torch.train.losses import gaussian_splatting_loss, mse
     from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, adam, shifted_arrays, train_step
 
+    mode = MODES[kernel_mode(settings)]
     counters = train_counters()
     model = TrainableCloud.from_numpy(arrays, "cuda")
     target_cloud = cloud_from_numpy(shifted_arrays(arrays), "cuda")
@@ -503,13 +551,13 @@ def phase_train(arrays: dict, settings, profile: bool) -> dict:
         f.launches = 0
 
     def step(camera, target, p_max, loss_fn, label):
-        return checked_step(model, optimizer, camera, target, settings, loss_fn, p_max, label)
+        return checked_step(model, optimizer, camera, target, settings, loss_fn, p_max, f"{mode} {label}")
 
     for width, height in SIZES:
-        camera, p_max, _, target = train_target(model, target_cloud, settings, width, height)
+        camera, p_max, pairs, target = train_target(model, target_cloud, settings, width, height)
         size = f"{width}x{height}"
         first, warm_ms = step(camera, target, p_max, mse, f"{size} warm-up step")
-        timed = TRAIN_STEPS if (width, height) == SIZES[0] else TRAIN_STEPS_1080
+        timed = steps[(width, height)]
         losses, times = [], []
         for i in range(timed):
             value, dt = step(camera, target, p_max, mse, f"{size} step {i}")
@@ -517,22 +565,23 @@ def phase_train(arrays: dict, settings, profile: bool) -> dict:
             times.append(dt)
         median = statistics.median(times)
         line = (
-            f"[train obb {size}] p_max {p_max} | warm-up {warm_ms:.3f} ms, median {median:.3f} ms/step over "
-            f"{timed} Adam steps (min {min(times):.3f}, max {max(times):.3f}) | mse loss {first:.6e} -> "
+            f"[train {mode} {size}] pairs {pairs} p_max {p_max} | warm-up {warm_ms:.3f} ms, median {median:.3f} "
+            f"ms/step over {timed} Adam steps (min {min(times):.3f}, max {max(times):.3f}) | mse loss {first:.6e} -> "
             f"{losses[-1]:.6e}"
         )
         if (width, height) == SIZES[0]:
             if not losses[-1] < first:
-                raise AssertionError(f"train {size}: the loss did not fall ({first:.6e} -> {losses[-1]:.6e})")
-            # two steps: the first call of the SSIM convolutions sets cuDNN up
-            gs = [step(camera, target, p_max, gaussian_splatting_loss, f"{size} gaussian_splatting_loss step")
-                  for _ in range(2)]
-            line += (f" | gaussian_splatting_loss steps {gs[0][1]:.3f}, {gs[1][1]:.3f} ms, "
-                     f"loss {gs[0][0]:.6e} -> {gs[1][0]:.6e}")
+                raise AssertionError(f"train {mode} {size}: the loss did not fall ({first:.6e} -> {losses[-1]:.6e})")
+            if gs_loss:
+                # two steps: the first call of the SSIM convolutions sets cuDNN up
+                gs = [step(camera, target, p_max, gaussian_splatting_loss, f"{size} gaussian_splatting_loss step")
+                      for _ in range(2)]
+                line += (f" | gaussian_splatting_loss steps {gs[0][1]:.3f}, {gs[1][1]:.3f} ms, "
+                         f"loss {gs[0][0]:.6e} -> {gs[1][0]:.6e}")
         log(line + " | launches " + ", ".join(f"{f.__name__} {f.launches}" for f in counters))
         if profile:
             profile_call(lambda: train_step(model, optimizer, camera, target, settings, mse, pairs_max=p_max),
-                         f"train_obb_{size}", median)
+                         f"train_{mode}_{size}", median)
     return {f.__name__: f.launches for f in counters}
 
 
@@ -640,7 +689,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
-    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODES
+    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import kernel_mode
     from bevy_gaussian_splatting_tpu_torch.train.step import shifted_arrays
 
     t_start = time.perf_counter()
@@ -659,20 +710,23 @@ def main() -> int:
     # per mode: the kernels' measurements at 512x512 and the launches of the
     # paths driven in that mode (serving frames, then training steps)
     results, launches = {}, {}
-    for settings in (CloudSettings(), CloudSettings(aabb=True)):
-        mode = "aabb" if settings.aabb else "obb"
+    modes = (CloudSettings(), CloudSettings(aabb=True), CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_2D))
+    for settings in modes:
+        mode = MODES[kernel_mode(settings)]
         for width, height in SIZES:
             res = phase_kernels(cloud, target_cloud, settings, width, height)
             if (width, height) == SIZES[0]:
                 results[mode] = res
         phase_small(settings)
         serve = phase_main(cloud, settings, opts.profile)
-        if settings.aabb:
+        if mode == "aabb":
             train = phase_train_aabb(arrays, settings, opts.profile)
             converge = phase_converge()
             train = {k: v + converge[k] for k, v in train.items()}
+        elif mode == "2d":
+            train = phase_train(arrays, settings, SURFEL_TRAIN_STEPS, False, opts.profile)
         else:
-            train = phase_train(arrays, settings, opts.profile)
+            train = phase_train(arrays, settings, TRAIN_STEPS, True, opts.profile)
         launches[mode] = {k: serve.get(k, 0) + v for k, v in train.items()}
 
     kernels = []
@@ -686,9 +740,14 @@ def main() -> int:
         "segment_reduce": ("bevy_gaussian_splatting_tpu_torch/csrc/reduce.cu",
                            "bevy_gaussian_splatting_tpu/ops/pallas/reduce.py:39"),
     }
-    # the four kernels in OBB mode, and the two compositors in AABB mode (the
-    # expansion and the reduce do not depend on the mode)
-    entries = [(name, "obb") for name in sources] + [("composite_tiles_raw", "aabb"), ("composite_backward", "aabb")]
+    # the four kernels in OBB mode, the two compositors in AABB mode, and the
+    # two compositors and the reduce (at 16 columns) in 2DGS mode (the
+    # expansion does not depend on the mode, nor the reduce on OBB or AABB)
+    entries = (
+        [(name, "obb") for name in sources]
+        + [("composite_tiles_raw", "aabb"), ("composite_backward", "aabb")]
+        + [("composite_tiles_raw", "2d"), ("composite_backward", "2d"), ("segment_reduce", "2d")]
+    )
     for name, mode in entries:
         source, replaces = sources[name]
         n_launch = launches[mode][name]

@@ -153,22 +153,23 @@ def test_plain_backward_stops_where_the_forward_stops():
         assert not tail.any(), f"tile {t} has gradients past its early exit"
 
 
-@pytest.mark.parametrize("p_max", [None, 1000], ids=["budget", "cap-binds"])
-def test_plain_reduce_matches_pallas(p_max):
+# the row width: 10 columns for OBB and AABB gradients, 16 for 2DGS
+@pytest.mark.parametrize("p_max,cols", [(None, 10), (1000, 10), (None, 16)], ids=["budget", "cap-binds", "budget-2dgs"])
+def test_plain_reduce_matches_pallas(p_max, cols):
     shared, p_max, bins, _ = _jax_bins("wide", 400, 1, 128, 128, p_max)
     n = shared["mask"].shape[0]
     total = int(bins[3])
     _, table, g0s = bins[4], bins[5], bins[6]
     rng = np.random.default_rng(7)
-    dslot = rng.normal(0.0, 1.0, (p_max, 10)).astype(np.float32)
+    dslot = rng.normal(0.0, 1.0, (p_max, cols)).astype(np.float32)
     dslot[min(total, p_max):] = 0.0  # invalid pairs carry zero gradients
-    dslot_t = np.concatenate([dslot.T, np.zeros((6, p_max), np.float32)])
+    dslot_t = np.concatenate([dslot.T, np.zeros((16 - cols, p_max), np.float32)])
     ref = np.asarray(pallas_segment_reduce(
         jnp.asarray(dslot_t), jnp.asarray(table), jnp.asarray(g0s), n, interpret=True
-    ))[:10].T
+    ))[:cols].T
     cum = trt.bin_gaussians(shared, 128, 128, p_max)[6]
     got = tred.segment_reduce(torch.from_numpy(dslot), cum, n).numpy()
-    assert got.shape == (n, 10)
+    assert got.shape == (n, cols)
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
     empty = np.diff(np.concatenate([[0], cum.numpy()])) == 0
     assert empty.any() and not got[empty].any()
@@ -267,4 +268,6 @@ def test_backward_checks_inputs():
         tred.segment_reduce(p, s.long(), 4)
     with pytest.raises(ValueError):
         tred.segment_reduce(p, s, 5)
+    with pytest.raises(ValueError):
+        tred.segment_reduce(p[:, :0], s, 4)
     assert tbwd.composite_backward(p, s, s, g, 2, 32, 32).abs().sum() == 0

@@ -1,7 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain version (the
-compositors in OBB and AABB mode), ``render()`` on the card against the same
-call on the CPU, and the training gradients of every cloud field, card
-against CPU.
+compositors in OBB, AABB and 2DGS mode, the reduce at 10 and 16 columns),
+``render()`` on the card against the same call on the CPU, and the training
+gradients of every cloud field, card against CPU.
 
 These skip without an NVIDIA card.  On one, run them without the JAX-side
 conftest: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -12,8 +12,8 @@ import pytest
 import torch
 
 from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
-from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy, random_arrays_3d_seeded
-from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
+from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy, random_arrays_3d_seeded, surfel_grid_arrays
+from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode
 from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import expand as ex
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import reduce as rd
@@ -25,6 +25,8 @@ from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, shifted
 
 FIELDS = ("position_visibility", "spherical_harmonic", "rotation", "scale_opacity")
 GRAD_BAR = 1e-4  # chip_smoke.py's bar: per column or field, of its largest |plain|
+SURFELS = CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_2D)
+SURFEL_BAR = 1e-4  # chip_smoke.py's 2DGS image bar (the JAX package's)
 
 pytestmark = pytest.mark.cuda
 
@@ -49,9 +51,9 @@ def _scene(kind, n, seed):
     return a
 
 
-def _inputs(arrays, width, height, device, settings=CloudSettings()):
+def _inputs(arrays, width, height, device, settings=CloudSettings(), eye=(0.0, 0.0, 60.0)):
     cloud = cloud_from_numpy(arrays, device)
-    cam = Camera.create(eye=(0.0, 0.0, 60.0), width=width, height=height, device=device)
+    cam = Camera.create(eye=eye, width=width, height=height, device=device)
     p_max = rt.pairs_budget(len(cloud), int(rt.pair_count(cloud, cam, settings)))
     return rt.project_for_binning(cloud, cam, settings), p_max
 
@@ -194,3 +196,59 @@ def test_aabb_render_and_gradients_card_match_cpu(card, height):
     for f in FIELDS:
         assert bool(torch.isfinite(g_gpu[f]).all()), f
         assert float((g_gpu[f] - g_cpu[f]).abs().max()) <= GRAD_BAR * float(g_cpu[f].abs().max()), f
+
+
+@pytest.mark.parametrize("kind,n,height,chunk", [("bench", 20000, 256, None), ("occluded", 1000, 120, 128),
+                                                 ("surfels", 16, 120, None)])
+def test_2dgs_kernels_match_plain(card, kind, n, height, chunk):
+    # chip_smoke.py's bars: forward within 1e-4, backward within 1e-4 of each
+    # column's largest |plain| with the surfel radius column (2) exactly 0 in
+    # both, the reduce at 16 columns equal
+    if kind == "surfels":
+        splats, p_max = _inputs(surfel_grid_arrays(), 256, height, card, SURFELS, eye=(2.5, 2.0, 6.0))
+    else:
+        splats, p_max = _inputs(_scene(kind, n, 9), 256, height, card, SURFELS)
+    bins = rt.tile_bins(splats, 256, height, p_max)
+    params = rt.pack_raster_params(splats, SURFELS, 256, height)[bins.g_s].contiguous()
+    assert params.shape[1] == 16
+    if chunk is None:
+        chunk = tf.preferred_chunk(p_max, bins.start.shape[0])
+    args = (params, bins.start, bins.count, 16, 256, height)
+    before = (tf.composite_tiles_raw.launches, tb.composite_backward.launches, rd.segment_reduce.launches)
+    raw = tf.composite_tiles_raw(*args, chunk=chunk, mode=tf.MODE_2D)
+    ref = tf.composite_tiles_raw_plain(*args, chunk=chunk, mode=tf.MODE_2D)
+    torch.cuda.synchronize()
+    assert float((raw - ref).abs().max()) <= SURFEL_BAR
+    assert float((ref[:, 3] < 0.99).sum()) > 100  # the surfels cover part of the frame
+    cotangent = torch.randn(raw.shape, generator=torch.Generator().manual_seed(2)) * 1e-3
+    gbar = tb.pack_gbar(cotangent.to(card), raw)
+    bwd_args = (params, bins.start, bins.count, gbar, 16, 256, height)
+    got = tb.composite_backward(*bwd_args, chunk=chunk, mode=tf.MODE_2D)
+    plain = tb.composite_backward_plain(*bwd_args, chunk=chunk, mode=tf.MODE_2D)
+    torch.cuda.synchronize()
+    assert not bool(got[:, 2].any()) and not bool(plain[:, 2].any())
+    col_max = plain.abs().amax(dim=0)
+    assert bool(((got - plain).abs().amax(dim=0) <= GRAD_BAR * col_max).all())
+    dslot = torch.empty_like(got)
+    dslot[bins.order] = got
+    n_ranks = bins.cum.shape[0]
+    drank = rd.segment_reduce(dslot, bins.cum, n_ranks)
+    assert torch.equal(drank, rd.segment_reduce_plain(dslot, bins.cum, n_ranks))
+    after = (tf.composite_tiles_raw.launches, tb.composite_backward.launches, rd.segment_reduce.launches)
+    assert after == tuple(b + 1 for b in before)
+
+
+@pytest.mark.parametrize("height", [128, 120])
+def test_2dgs_render_and_gradients_card_match_cpu(card, height):
+    a = _scene("bench", 2000, 3)
+    bg = torch.tensor([0.2, 0.1, 0.4, 1.0])
+    cam = Camera.create(eye=(0.0, 0.0, 60.0), width=128, height=height, device="cpu")
+    cpu = render(cloud_from_numpy(a, "cpu"), cam, SURFELS, background=bg, device="cpu")
+    gpu = render(cloud_from_numpy(a, card), cam.to(card), SURFELS, background=bg.to(card))
+    assert float((gpu.cpu() - cpu).abs().max()) <= SURFEL_BAR
+    g_gpu = _grads(a, cam, bg, card, SURFELS)
+    g_cpu = _grads(a, cam, bg, "cpu", SURFELS)
+    for f in FIELDS:
+        assert bool(torch.isfinite(g_gpu[f]).all()), f
+        assert float((g_gpu[f] - g_cpu[f]).abs().max()) <= GRAD_BAR * float(g_cpu[f].abs().max()), f
+    assert not bool(g_gpu["scale_opacity"][:, 2].any())  # the flat surfel's scale z

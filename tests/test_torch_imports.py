@@ -37,7 +37,7 @@ SOURCES = sorted(PORT.rglob("*.py")) + [CHIP_SMOKE]
 def test_port_has_sources():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for need in (
-        "render/api.py", "ops/rasterize_tile.py", "ops/cuda/expand.py", "ops/cuda/tile_fwd.py",
+        "render/api.py", "ops/rasterize_tile.py", "ops/gaussian_2d.py", "ops/cuda/expand.py", "ops/cuda/tile_fwd.py",
         "ops/cuda/tile_bwd.py", "ops/cuda/reduce.py", "ops/cuda/core.py",
         "train/__init__.py", "train/losses.py", "train/step.py", "train/densify.py", "train/quality.py",
     ):

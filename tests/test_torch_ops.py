@@ -179,7 +179,7 @@ def test_project_rejects_other_modes():
 
     for s in (ts.CloudSettings(gaussian_mode=ts.GaussianMode.GAUSSIAN_4D),
               ts.CloudSettings(rasterize_mode=ts.RasterizeMode.DEPTH),
-              ts.CloudSettings(gaussian_mode=ts.GaussianMode.GAUSSIAN_2D),
+              ts.CloudSettings(gaussian_mode=ts.GaussianMode.GAUSSIAN_2D, visualize_bounding_box=True),
               ts.CloudSettings(visualize_bounding_box=True)):
         with pytest.raises(NotImplementedError, match="slice 3"):
             tproject(torch_cloud(a), tc, s)

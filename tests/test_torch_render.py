@@ -85,7 +85,7 @@ def test_render_rejects_what_later_slices_bring():
     cloud = torch_cloud(a)
     _, tc = cameras(32, 32)
     with pytest.raises(NotImplementedError, match="slice 3"):
-        api.render(cloud, tc, tsettings.CloudSettings(gaussian_mode=tsettings.GaussianMode.GAUSSIAN_2D), device="cpu")
+        api.render(cloud, tc, tsettings.CloudSettings(gaussian_mode=tsettings.GaussianMode.GAUSSIAN_4D), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 3"):
         api.render(cloud, tc, background=torch.zeros(32, 32, 4), device="cpu")
     with pytest.raises(ValueError, match="impl"):

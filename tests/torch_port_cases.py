@@ -6,13 +6,17 @@ CPU.  The rule is the JAX package's ``_random_3d``; the "bench" cases apply
 bench.py's squash (positions * (1, 1, 0.25), scales * 0.05), the "wide"
 cases keep the raw draw (large splats spanning many tiles), and "occluded"
 is a denser form of test_pallas.py's heavy-occlusion scene (many opaque
-overlapping splats; scales * 3 so whole tiles saturate).
+overlapping splats; scales * 3 so whole tiles saturate).  The 2DGS cases add
+the surfel grid of ``tools/surfel_plane.py`` (the port's numpy copy of
+``make_surfel_grid`` is ``models/cloud.py`` ``surfel_grid_arrays``) seen from
+its camera eye, ``SURFEL_EYE``.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 import bevy_gaussian_splatting_tpu as bgs
 from bevy_gaussian_splatting_tpu_torch.models.camera import Camera as TCamera
@@ -21,7 +25,17 @@ from bevy_gaussian_splatting_tpu_torch.models.cloud import (
     random_arrays_3d_seeded,
 )
 
+# The suite runs in several pytest-xdist workers at once, and every worker
+# imports this module while collecting.  PyTorch's default intra-op pool, one
+# thread per core in each worker, oversubscribes the cores: a test that takes
+# 15 s alone took 590 s in a six-worker run
+# (test_backward_matches_autograd_through_oracle[bench2000-128x120-bg]).  The
+# port's test tensors gain nothing from more threads (that test takes 15 s
+# alone with one thread or eight), so each worker keeps one.
+torch.set_num_threads(1)
+
 EYE = (0.0, 0.0, 60.0)
+SURFEL_EYE = (2.5, 2.0, 6.0)  # tools/surfel_plane.py
 
 
 def cloud_arrays(kind: str, n: int, seed: int) -> dict:
