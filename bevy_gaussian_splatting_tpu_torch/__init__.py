@@ -7,12 +7,13 @@ on the card (``cuda``) unless the caller passes ``device="cpu"``; there the
 hand-written kernels under ``csrc/`` give way to their plain PyTorch
 versions, which the tests hold against the JAX package.
 
-Ported so far, for 3DGS in COLOR mode with OBB or AABB bounds: the serving
-forward render, ``render.api.render``, the training step,
-``train.step.train_step`` (``ops.rasterize_tile.render_tiled`` is
-differentiable in the cloud's tensors), and the training loop's pieces:
-densification (``train.densify``) and the convergence benchmark,
-``train.quality.convergence_psnr``.
+Ported so far, for 3DGS with OBB or AABB bounds and for 2DGS surfels, in
+every rasterize mode but VELOCITY, every draw and sort mode, with or without
+the bounding-box overlay: the serving forward render,
+``render.api.render``, the training step, ``train.step.train_step``
+(``ops.rasterize_tile.render_tiled`` is differentiable in the cloud's
+tensors), and the training loop's pieces: densification (``train.densify``)
+and the convergence benchmark, ``train.quality.convergence_psnr``.
 """
 
 __version__ = "0.1.0"

@@ -61,6 +61,26 @@
 // shared memory) and skips its homography where the pixel is outside the
 // surfel's square: 4 operations per evaluation, and 37 more and one expf
 // inside it.
+//
+// The bounding-box overlay (the TPU kernel's bbox=True branch,
+// tile_fwd.py:140-145, :158-162, :180-185, :289-312) is a second
+// instantiation of the same body (kBbox), so the non-overlay instantiations
+// compile as before.  Its edge band, before the gate on the opacity:
+//  * OBB: inside the quad and max(|u|, |v|) > band.  Rows with b1 <= 0 stay
+//    folded into opacity 0 with u = v = 0: no edge, as JAX's inside & b1 > 0;
+//  * AABB: inside the radius square (|dx|, |dy| <= r, not the power <= 0
+//    test that gates g) and max(|dx|, |dy|) / max(r, 1e-12) > band, a true
+//    IEEE divide as in the TPU kernel;
+//  * 2DGS: inside the surfel's square and max(|dxn| width, |dyn|
+//    full_height) / max(mr, 1e-12) > band.  The raw mr is staged as an 18th
+//    column (36,864 B of static shared memory at 512 pairs).
+// The edge holds only where the packed alpha column is > 0; there a = 1
+// (above the 0.999 cap, so T becomes exactly 0) and the colour is the
+// overlay's green (0.3, 1, 0.1).  The blend and the exit vote are unchanged.
+// The band 1 - 2 * 0.08 comes from the host rounded to f32, as the TPU
+// kernel's weakly typed constant is.  About 4 more operations per walked
+// evaluation (OBB, AABB: the abs, max and compare, AABB's divide) and 6
+// inside a 2DGS square.
 
 #include <cuda_runtime.h>
 
@@ -75,21 +95,23 @@ constexpr int kMode2d = 2;
 
 // columns of a parameter row, and of a staged pair: OBB / AABB stage cx, cy,
 // columns 2-5, r, g, b, alpha; 2DGS stages cx, cy, mr/width, mr/full_height,
-// A.xyz, B.xyz, C.xyz, r, g, b, alpha.  The colours and alpha are the last
-// four in both.
+// A.xyz, B.xyz, C.xyz, (with the overlay: mr,) r, g, b, alpha.  The colours
+// and alpha are the last four in all.
 template <int kMode>
 constexpr int kRowCols = kMode == kMode2d ? 16 : 10;
-template <int kMode>
-constexpr int kStaged = kMode == kMode2d ? 17 : 10;
+template <int kMode, bool kBbox>
+constexpr int kStaged = kMode == kMode2d ? (kBbox ? 18 : 17) : 10;
+constexpr int kMrCol = 13;  // 2DGS with the overlay: the raw mr
 
-template <int kMode>
+template <int kMode, bool kBbox>
 __global__ void __launch_bounds__(kPix)
 composite_fwd_kernel(const float* __restrict__ params, const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count, int tx_count, float width_f,
                      float full_height_f, float inv_w2, float inv_h2, float inv_w, float inv_h,
-                     float two_w2, int y0, int chunk, float trans_eps, float* __restrict__ out) {
+                     float two_w2, int y0, int chunk, float trans_eps, float band,
+                     float* __restrict__ out) {
   constexpr int kRow = kRowCols<kMode>;
-  constexpr int kCol = kStaged<kMode>;
+  constexpr int kCol = kStaged<kMode, kBbox>;
   constexpr int kR = kCol - 4;  // staged r; g, b, alpha follow
   // OBB columns 2-5: e1x, e1y, 1/b1, 1/b2; AABB conic.x, conic.y, conic.z, r
   __shared__ float s[kCol][kMaxChunk];
@@ -151,11 +173,13 @@ composite_fwd_kernel(const float* __restrict__ params, const int* __restrict__ t
         s[3][j] = row[2] * inv_h;
 #pragma unroll
         for (int k = 0; k < 9; ++k) s[4 + k][j] = row[3 + k];
+        if constexpr (kBbox) s[kMrCol][j] = row[2];
       }
     }
     __syncthreads();
     for (int j = 0; j < m; ++j) {
       float g = 0.0f;
+      bool edge = false;  // the overlay's edge band (kBbox only)
       if constexpr (kMode == kModeObb) {
         const float dx = px_vp - s[0][j];
         const float dy = py_vp - s[1][j];
@@ -163,13 +187,18 @@ composite_fwd_kernel(const float* __restrict__ params, const int* __restrict__ t
         const float e1y = s[3][j];
         const float u = (dx * e1x + dy * e1y) * s[4][j];
         const float v = (dx * e1y - dy * e1x) * s[5][j];
-        if (fabsf(u) <= 1.0f && fabsf(v) <= 1.0f) g = expf(-4.5f * (u * u + v * v));
+        if (fabsf(u) <= 1.0f && fabsf(v) <= 1.0f) {
+          g = expf(-4.5f * (u * u + v * v));
+          if constexpr (kBbox) edge = fmaxf(fabsf(u), fabsf(v)) > band;
+        }
       } else if constexpr (kMode == kModeAabb) {
         const float dx = s[0][j] - px_vp;
         const float dy = s[1][j] - py_vp;
         const float r = s[5][j];
         const float power = -0.5f * (s[2][j] * dx * dx + s[4][j] * dy * dy) + s[3][j] * dx * dy;
-        if (fabsf(dx) <= r && fabsf(dy) <= r && power <= 0.0f) g = expf(power);
+        const bool in_quad = fabsf(dx) <= r && fabsf(dy) <= r;
+        if (in_quad && power <= 0.0f) g = expf(power);
+        if constexpr (kBbox) edge = in_quad && fmaxf(fabsf(dx), fabsf(dy)) / fmaxf(r, 1e-12f) > band;
       } else {
         const float dxn = px_ndc - s[0][j];
         const float dyn = py_ndc - s[1][j];
@@ -183,13 +212,28 @@ composite_fwd_kernel(const float* __restrict__ params, const int* __restrict__ t
           const float s3d = us * us + vs * vs;
           const float d2x2 = (dxn * dxn + dyn * dyn) * two_w2;
           g = expf(-0.5f * fminf(s3d, d2x2));
+          if constexpr (kBbox) {
+            edge = fmaxf(fabsf(dxn) * width_f, fabsf(dyn) * full_height_f) / fmaxf(s[kMrCol][j], 1e-12f) > band;
+          }
         }
       }
-      const float a = fminf(g * s[kR + 3][j], 0.999f);
+      float a, wr, wg, wb;
+      if constexpr (kBbox) {
+        edge = edge && s[kR + 3][j] > 0.0f;
+        a = edge ? 1.0f : fminf(g * s[kR + 3][j], 0.999f);
+        wr = edge ? 0.3f : s[kR][j];
+        wg = edge ? 1.0f : s[kR + 1][j];
+        wb = edge ? 0.1f : s[kR + 2][j];
+      } else {
+        a = fminf(g * s[kR + 3][j], 0.999f);
+        wr = s[kR][j];
+        wg = s[kR + 1][j];
+        wb = s[kR + 2][j];
+      }
       const float w = a * T;
-      cr += w * s[kR][j];
-      cg += w * s[kR + 1][j];
-      cb += w * s[kR + 2][j];
+      cr += w * wr;
+      cg += w * wg;
+      cb += w * wb;
       T *= 1.0f - a;
     }
   }
@@ -206,17 +250,22 @@ extern "C" int bgs_composite_fwd(const void* params, const void* tile_start,
                                  const void* tile_count, int num_tiles, int tx_count,
                                  float width_f, float full_height_f, float inv_w2,
                                  float inv_h2, float inv_w, float inv_h, float two_w2, int y0,
-                                 int chunk, int mode, float trans_eps, void* out,
-                                 void* stream) {
+                                 int chunk, int mode, int bbox, float trans_eps, float band,
+                                 void* out, void* stream) {
   if (chunk <= 0 || chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
   if (mode != kModeObb && mode != kModeAabb && mode != kMode2d) return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
-    auto kernel = mode == kModeObb    ? composite_fwd_kernel<kModeObb>
-                  : mode == kModeAabb ? composite_fwd_kernel<kModeAabb>
-                                      : composite_fwd_kernel<kMode2d>;
+    auto kernel = mode == kModeObb    ? composite_fwd_kernel<kModeObb, false>
+                  : mode == kModeAabb ? composite_fwd_kernel<kModeAabb, false>
+                                      : composite_fwd_kernel<kMode2d, false>;
+    if (bbox) {
+      kernel = mode == kModeObb    ? composite_fwd_kernel<kModeObb, true>
+               : mode == kModeAabb ? composite_fwd_kernel<kModeAabb, true>
+                                   : composite_fwd_kernel<kMode2d, true>;
+    }
     kernel<<<num_tiles, kPix, 0, (cudaStream_t)stream>>>(
         (const float*)params, (const int*)tile_start, (const int*)tile_count, tx_count,
-        width_f, full_height_f, inv_w2, inv_h2, inv_w, inv_h, two_w2, y0, chunk, trans_eps,
+        width_f, full_height_f, inv_w2, inv_h2, inv_w, inv_h, two_w2, y0, chunk, trans_eps, band,
         (float*)out);
   }
   return (int)cudaGetLastError();

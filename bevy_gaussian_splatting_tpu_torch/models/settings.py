@@ -131,24 +131,17 @@ class CloudSettings:
 
 
 def check_supported(settings: CloudSettings) -> None:
-    """Raise ``NotImplementedError`` for settings outside the ported slice.
+    """Raise for settings outside the ported slices.
 
-    Ported: 3DGS with OBB or AABB bounds and 2DGS surfels, COLOR mode, all
-    gaussians drawn, no bounding-box overlay.  4DGS, the overlay and the
-    other raster and draw modes arrive with slice 3 of the port."""
-    later = []
+    Ported: 3DGS with OBB or AABB bounds and 2DGS surfels, every rasterize
+    mode but VELOCITY, every draw and sort mode, and the bounding-box
+    overlay.  4DGS (and with it VELOCITY) raises ``NotImplementedError``;
+    VELOCITY without 4DGS raises ``ValueError``, as the JAX package's
+    projection does (ops/project.py:242-243)."""
     if settings.gaussian_mode == GaussianMode.GAUSSIAN_4D:
-        later.append(f"gaussian_mode={settings.gaussian_mode.name}")
-    if settings.visualize_bounding_box:
-        later.append("visualize_bounding_box=True")
-    if settings.rasterize_mode != RasterizeMode.COLOR:
-        later.append(f"rasterize_mode={settings.rasterize_mode.name}")
-    if settings.draw_mode != DrawMode.ALL:
-        later.append(f"draw_mode={settings.draw_mode.name}")
-    if settings.sort_mode not in (SortMode.RADIX, SortMode.NONE):
-        later.append(f"sort_mode={settings.sort_mode.name}")
-    if later:
         raise NotImplementedError(
-            "the PyTorch port renders 3DGS (OBB or AABB) and 2DGS in COLOR mode only so far; "
-            f"{', '.join(later)} arrives with slice 3 (other kernel modes)"
+            "the PyTorch port renders 3DGS (OBB or AABB) and 2DGS so far; "
+            f"gaussian_mode={settings.gaussian_mode.name} arrives with slice 3 (other kernel modes)"
         )
+    if settings.rasterize_mode == RasterizeMode.VELOCITY:
+        raise ValueError("RasterizeMode.VELOCITY requires GaussianMode.GAUSSIAN_4D")

@@ -44,9 +44,17 @@ class CompositeCore(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_raw):
+        *geometry, bbox = ctx.geometry
+        if bbox:
+            # the JAX package trains the overlay through XLA autodiff of its
+            # plain compositor, not this core (rasterize_tile.py:1178-1181)
+            raise NotImplementedError(
+                "the bounding-box overlay has no backward kernel: render it with "
+                "render_tiled(..., differentiable=True) to train through it"
+            )
         params_sorted, start, count, order, cum, perm, out_raw = ctx.saved_tensors
         gbar = pack_gbar(grad_raw, out_raw)
-        dsorted = composite_backward(params_sorted, start, count, gbar, *ctx.geometry)
+        dsorted = composite_backward(params_sorted, start, count, gbar, *geometry)
         dslot = torch.empty_like(dsorted)
         dslot[order] = dsorted
         drank = segment_reduce(dslot, cum, perm.shape[0])
@@ -69,15 +77,17 @@ def composite_core(
     y0: int = 0,
     chunk: int = MAX_CHUNK,
     mode: int = MODE_OBB,
+    bbox: bool = False,
 ) -> torch.Tensor:
     """Raw compositor output [T, 4, 256], differentiable in ``params``
     [N, param_width(mode)] (cloud order, ``mode``'s row layout: 10 columns,
-    16 for 2DGS) through the hand-derived backward.
+    16 for 2DGS) through the hand-derived backward.  ``bbox`` draws the
+    bounding-box overlay, for serving only: its backward raises.
 
     ``g_s`` [P]: cloud index of each tile-sorted pair; ``start``/``count``
     [T]: tile ranges; ``order`` [P]: expansion slot of each tile-sorted pair;
     ``cum`` [N]: clamped inclusive pair counts in depth order; ``perm`` [N]:
     cloud index of each depth rank (``rasterize_tile.tile_bins``)."""
     return CompositeCore.apply(
-        params, g_s, start, count, order, cum, perm, (tx_count, width, full_height, y0, chunk, mode)
+        params, g_s, start, count, order, cum, perm, (tx_count, width, full_height, y0, chunk, mode, bbox)
     )

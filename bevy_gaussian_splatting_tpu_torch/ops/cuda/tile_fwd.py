@@ -13,9 +13,15 @@ by FP32 operations (about 25 per pair and pixel for OBB, plus one ``expf``;
 it keeps of the TPU kernel (chunk grid, between-chunk early exit, pixel
 coordinates).
 
+The bounding-box overlay (``CloudSettings.visualize_bounding_box``, the TPU
+kernel's ``bbox=True`` branch: opaque green edge bands, tile_fwd.py:140-145,
+:158-162, :180-185, :289-312) is a second instantiation of the kernel in
+each mode.
+
 ``composite_tiles_raw`` launches the kernel for CUDA tensors and runs the
 plain version, ``composite_tiles_raw_plain``, for CPU tensors.
-``composite_tiles_raw.launches`` counts kernel launches.
+``composite_tiles_raw.launches`` counts kernel launches, and
+``composite_tiles_raw.instances`` counts them per (mode, overlay).
 """
 
 from __future__ import annotations
@@ -41,13 +47,17 @@ MODES = {MODE_OBB: "obb", MODE_AABB: "aabb", MODE_2D: "2d"}
 ALPHA_CAP = 0.999
 TRANS_EPS = float(np.float32(1.0 / 255.0))
 MAX_CHUNK = 512
+BBOX_GREEN = (0.3, 1.0, 0.1)  # bounding-box overlay colour (tile_fwd.py:68)
+# the overlay's edge band 1 - 2 * 0.08 (tile_fwd.py:69), rounded to float32
+# as the TPU kernel's weakly typed constant is in its float32 comparisons
+EDGE_BAND = float(np.float32(1.0 - 2.0 * 0.08))
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 3
     + [ctypes.c_int] * 2
     + [ctypes.c_float] * 7
-    + [ctypes.c_int] * 3
-    + [ctypes.c_float]
+    + [ctypes.c_int] * 4
+    + [ctypes.c_float] * 2
     + [ctypes.c_void_p] * 2
 )
 
@@ -88,28 +98,35 @@ def _surfel_constants(width: int, full_height: int):
     )
 
 
-def tile_pixel_coords(tids, tx_count: int, width: int, full_height: int, y0: int = 0, mode: int = MODE_OBB):
-    """Pixel centers of tiles ``tids`` [B] -> ([B, 256], [B, 256]) in the
-    frame ``mode``'s falloff evaluates in: vp units, or NDC for 2DGS.
+def tile_ndc(tids, tx_count: int, width: int, full_height: int, y0: int = 0):
+    """NDC pixel centres of tiles ``tids`` [B] -> ([B, 256], [B, 256]).
 
     The expressions of ``_tile_pixel_coords`` (tile_fwd.py:87-103) with the
-    multiply-add fused, ``fma(px, 2/width, -1) * width``, as the compiled JAX
-    kernel evaluates them (XLA contracts it) and as csrc/tile_fwd.cu does
-    with ``fmaf``.  The float64 product and sum are exact here (at most 35
+    multiply-add fused, ``fma(px, 2/width, -1)``, as the compiled JAX kernel
+    evaluates them (XLA contracts it) and as csrc/tile_fwd.cu does with
+    ``fmaf``.  The float64 product and sum are exact here (at most 35
     significant bits), so rounding them once to float32 is the fused
-    result.  The 2DGS branch scales the vp value back by f32 1/width
-    (:120-121); compiled, XLA folds the two constants into one,
-    ``fma(...) * f32(width * f32(1/width))``, and so does the port.  The
-    folded factor is exactly 1 for most sizes (512, 1920, 120, 1080; not
-    656 or 121), so a 2DGS pixel is at the fused NDC coordinate itself: one
-    rounding less than the vp value scaled back, which the doubled-frame
-    distance (2 width^2 per NDC unit squared) would amplify to 1e-4 in g."""
+    result."""
     inv_w2, inv_h2 = _coord_constants(width, full_height)
     sub = torch.arange(PIX, device=tids.device)
     px = (tids % tx_count)[:, None] * TILE + (sub % TILE) + 0.5
     py = (tids // tx_count)[:, None] * TILE + (sub // TILE) + 0.5 + y0
-    x = (px.double() * inv_w2 - 1.0).float()
-    y = (1.0 - py.double() * inv_h2).float()
+    return (px.double() * inv_w2 - 1.0).float(), (1.0 - py.double() * inv_h2).float()
+
+
+def tile_pixel_coords(tids, tx_count: int, width: int, full_height: int, y0: int = 0, mode: int = MODE_OBB):
+    """Pixel centers of tiles ``tids`` [B] -> ([B, 256], [B, 256]) in the
+    frame ``mode``'s falloff evaluates in: vp units (:func:`tile_ndc` times
+    the width or the full height), or NDC for 2DGS.
+
+    The 2DGS branch scales the vp value back by f32 1/width (:120-121);
+    compiled, XLA folds the two constants into one, ``fma(...) * f32(width
+    * f32(1/width))``, and so does the port.  The folded factor is exactly 1
+    for most sizes (512, 1920, 120, 1080; not 656 or 121), so a 2DGS pixel
+    is at the fused NDC coordinate itself: one rounding less than the vp
+    value scaled back, which the doubled-frame distance (2 width^2 per NDC
+    unit squared) would amplify to 1e-4 in g."""
+    x, y = tile_ndc(tids, tx_count, width, full_height, y0)
     if mode == MODE_2D:
         inv_w, inv_h, _ = _surfel_constants(width, full_height)
         return x * float(np.float32(width * np.float32(inv_w))), y * float(np.float32(full_height * np.float32(inv_h)))
@@ -139,21 +156,27 @@ def _check_inputs(params, tile_start, tile_count, chunk, mode):
         raise ValueError(f"chunk must be in (0, {MAX_CHUNK}], got {chunk}")
 
 
-def splat_falloff(q, px, py, mode: int, width: int, full_height: int):
+def splat_falloff(q, px, py, mode: int, width: int, full_height: int, with_edge: bool = False):
     """The Gaussian term g of rows ``q`` [..., param_width(mode)] at pixels
     ``px``, ``py`` (:func:`tile_pixel_coords` of ``mode``: vp units, or NDC
     for 2DGS), zero outside the splat's quad, in the kernel's operation
     order (``_chunk_alpha``, tile_fwd.py:106-179).  Returns ``(g, inside,
     aux)``; ``aux`` holds what the backward chains through: ``(dx, dy)`` for
     AABB, ``(dx, dy, u, v, inv_b1, inv_b2)`` for OBB, ``(dxn, dyn, qz,
-    inv_pz, us, vs, s3d, d2x2)`` for 2DGS."""
+    inv_pz, us, vs, s3d, d2x2)`` for 2DGS.  ``with_edge`` appends the
+    bounding-box overlay's edge band (``_chunk_alpha(with_edge=True)``),
+    before its gate on the opacity: OBB ``max(|u|, |v|)``, AABB
+    ``max(|dx|, |dy|) / max(r, 1e-12)`` in the radius square (whatever the
+    falloff there), 2DGS ``max(|dxn| width, |dyn| full_height) / max(mr,
+    1e-12)`` in the surfel's square, each above ``EDGE_BAND``."""
     if mode == MODE_2D:
         # NDC offsets, pixel minus centre; q = dxn A + dyn B + C; the clamp
         # of q.z is not sign-preserving, as the TPU kernel's (:131)
         inv_w, inv_h, two_w2 = _surfel_constants(width, full_height)
         dxn = px - q[..., 0:1]
         dyn = py - q[..., 1:2]
-        inside = (dxn.abs() <= q[..., 2:3] * inv_w) & (dyn.abs() <= q[..., 2:3] * inv_h)
+        mr = q[..., 2:3]
+        inside = (dxn.abs() <= mr * inv_w) & (dyn.abs() <= mr * inv_h)
         qx, qy, qz = (dxn * q[..., 3 + k : 4 + k] + dyn * q[..., 6 + k : 7 + k] + q[..., 9 + k : 10 + k]
                       for k in range(3))
         inv_pz = 1.0 / torch.where(qz.abs() > 1e-12, qz, torch.full_like(qz, 1e-12))
@@ -163,7 +186,11 @@ def splat_falloff(q, px, py, mode: int, width: int, full_height: int):
         # doubled-frame quirk: both axes scale by the width
         d2x2 = (dxn * dxn + dyn * dyn) * two_w2
         g = torch.where(inside, torch.exp(-0.5 * torch.minimum(s3d, d2x2)), 0.0)
-        return g, inside, (dxn, dyn, qz, inv_pz, us, vs, s3d, d2x2)
+        out = g, inside, (dxn, dyn, qz, inv_pz, us, vs, s3d, d2x2)
+        if with_edge:
+            uvm = torch.maximum(dxn.abs() * float(width), dyn.abs() * float(full_height)) / torch.clamp(mr, min=1e-12)
+            out += (inside & (uvm > EDGE_BAND),)
+        return out
     cx, cy, c2, c3, c4, c5 = (q[..., i : i + 1] for i in range(6))
     if mode == MODE_AABB:
         # conic quadratic form clipped to the radius square; the offset is
@@ -171,8 +198,12 @@ def splat_falloff(q, px, py, mode: int, width: int, full_height: int):
         dx = cx - px
         dy = cy - py
         power = -0.5 * (c2 * dx * dx + c4 * dy * dy) + c3 * dx * dy
-        inside = (dx.abs() <= c5) & (dy.abs() <= c5) & (power <= 0.0)
-        return torch.where(inside, torch.exp(power), 0.0), inside, (dx, dy)
+        in_quad = (dx.abs() <= c5) & (dy.abs() <= c5)
+        inside = in_quad & (power <= 0.0)
+        out = torch.where(inside, torch.exp(power), 0.0), inside, (dx, dy)
+        if with_edge:
+            out += (in_quad & (torch.maximum(dx.abs(), dy.abs()) / torch.clamp(c5, min=1e-12) > EDGE_BAND),)
+        return out
     dx = px - cx
     dy = py - cy
     inv_b1 = 1.0 / torch.clamp(c4, min=1e-12)
@@ -181,7 +212,32 @@ def splat_falloff(q, px, py, mode: int, width: int, full_height: int):
     v = (dx * c3 - dy * c2) * inv_b2
     inside = (u.abs() <= 1.0) & (v.abs() <= 1.0) & (c4 > 0.0)
     g = torch.where(inside, torch.exp(-4.5 * (u * u + v * v)), 0.0)
-    return g, inside, (dx, dy, u, v, inv_b1, inv_b2)
+    out = g, inside, (dx, dy, u, v, inv_b1, inv_b2)
+    if with_edge:
+        out += (inside & (torch.maximum(u.abs(), v.abs()) > EDGE_BAND),)
+    return out
+
+
+def overlay_alpha(g, edge, q, mode: int):
+    """Alpha of rows ``q`` for the Gaussian term ``g`` with the bounding-box
+    overlay's ``edge`` (``None`` without it) -> (alpha, edge): the edge gated
+    by the packed alpha column > 0, where it holds alpha exactly 1, above
+    ``ALPHA_CAP``, so T becomes exactly 0 (tile_fwd.py:180-185, :289-291)."""
+    ro = rgb_row(mode)
+    opacity = q[..., ro + 3 : ro + 4]
+    alpha = torch.clamp(g * opacity, max=ALPHA_CAP)
+    if edge is None:
+        return alpha, None
+    edge = edge & (opacity > 0.0)
+    return torch.where(edge, 1.0, alpha), edge
+
+
+def overlay_rgb(q, edge, mode: int, ch: int):
+    """Colour channel ``ch`` of rows ``q``: the overlay's green where
+    ``edge`` holds (``None``: no overlay)."""
+    ro = rgb_row(mode)
+    rgb = q[..., ro + ch : ro + ch + 1]
+    return rgb if edge is None else torch.where(edge, BBOX_GREEN[ch], rgb)
 
 
 def composite_tiles_raw_plain(
@@ -196,19 +252,22 @@ def composite_tiles_raw_plain(
     mode: int = MODE_OBB,
     tile_batch: int = 128,
     walked: Optional[torch.Tensor] = None,
+    bbox: bool = False,
+    inside_count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version, vectorized over [tiles, chunk, 256] in batches
     of ``tile_batch`` tiles, with the kernel's chunk grid and exit rule.
-    Within a chunk the blend is an exclusive ``cumprod``.
+    Within a chunk the blend is an exclusive ``cumprod``.  ``bbox`` draws
+    the bounding-box overlay (:func:`overlay_alpha`).
 
     ``walked``, if given ([T] int64), receives the number of in-range pairs
-    each tile evaluated before its early exit."""
+    each tile evaluated before its early exit, and ``inside_count`` the
+    number of those (pair, pixel) evaluations inside the splat's quad."""
     dev = params.device
     num_tiles = tile_start.shape[0]
     p = params.shape[0]
     # one zero row past the end keeps every clamped gather in bounds
     table = torch.cat([params, params.new_zeros((1, params.shape[1]))], dim=0)
-    ro = rgb_row(mode)
     out = torch.empty((num_tiles, 4, PIX), dtype=torch.float32, device=dev)
     lane = torch.arange(chunk, device=dev)
     for b0 in range(0, num_tiles, tile_batch):
@@ -241,14 +300,16 @@ def composite_tiles_raw_plain(
                 walked[tids] += in_rng.sum(dim=1)
             idx = (base[:, None] + lane_idx).clamp(max=p)
             q = table[idx]  # [B, chunk, param_width(mode)]
-            g = splat_falloff(q, px, py, mode, width, full_height)[0]
-            alpha = torch.clamp(g * q[..., ro + 3 : ro + 4], max=ALPHA_CAP)
+            falloff = splat_falloff(q, px, py, mode, width, full_height, with_edge=bbox)
+            alpha, edge = overlay_alpha(falloff[0], falloff[3] if bbox else None, q, mode)
+            if inside_count is not None:
+                inside_count[tids] += (falloff[1] & in_rng[..., None]).sum(dim=(1, 2))
             alpha = torch.where(in_rng[..., None], alpha, 0.0)  # [B, chunk, 256]
             cum = torch.cumprod(1.0 - alpha, dim=1)
             excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
             w = alpha * excl * trans[:, None, :]
             for ch in range(3):
-                accum[:, ch] += torch.sum(w * q[..., ro + ch : ro + ch + 1], dim=1)
+                accum[:, ch] += torch.sum(w * overlay_rgb(q, edge, mode, ch), dim=1)
             trans = trans * cum[:, -1]
         out[tids, :3] = accum
         out[tids, 3] = trans
@@ -265,6 +326,7 @@ def composite_tiles_raw(
     y0: int = 0,
     chunk: int = MAX_CHUNK,
     mode: int = MODE_OBB,
+    bbox: bool = False,
 ) -> torch.Tensor:
     """Composite every tile -> raw [T, 4, 256]: rows 0-2 premultiplied rgb,
     row 3 final transmittance.
@@ -274,11 +336,13 @@ def composite_tiles_raw(
     ``tile_start`` / ``tile_count`` [T] int32: each tile's range in
     ``params`` (counts already clipped to the per-tile budget).
     ``full_height`` and ``y0`` place the tile grid in the full image (``y0``
-    = 0 for one device)."""
+    = 0 for one device).  ``bbox`` draws the bounding-box overlay, a
+    separate instantiation of the kernel; ``composite_tiles_raw.instances``
+    counts the launches of each (mode name, bbox)."""
     _check_inputs(params, tile_start, tile_count, chunk, mode)
     if params.device.type == "cpu":
         return composite_tiles_raw_plain(
-            params, tile_start, tile_count, tx_count, width, full_height, y0, chunk, mode
+            params, tile_start, tile_count, tx_count, width, full_height, y0, chunk, mode, bbox=bbox
         )
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
@@ -297,15 +361,19 @@ def composite_tiles_raw(
         status = fn(
             params.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
             num_tiles, tx_count, float(width), float(full_height), inv_w2, inv_h2,
-            inv_w, inv_h, two_w2, int(y0), chunk, mode, TRANS_EPS, out.data_ptr(), stream,
+            inv_w, inv_h, two_w2, int(y0), chunk, mode, int(bbox), TRANS_EPS, EDGE_BAND,
+            out.data_ptr(), stream,
         )
     build.check(status, "composite_tiles_raw")
     if num_tiles > 0:
         composite_tiles_raw.launches += 1
+        key = (MODES[mode], bool(bbox))
+        composite_tiles_raw.instances[key] = composite_tiles_raw.instances.get(key, 0) + 1
     return out
 
 
 composite_tiles_raw.launches = 0
+composite_tiles_raw.instances = {}
 
 
 def composite_epilogue(out_raw: torch.Tensor, background, width: int, height: int) -> torch.Tensor:

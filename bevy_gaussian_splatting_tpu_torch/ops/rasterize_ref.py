@@ -1,14 +1,14 @@
 """Reference (oracle) rasterizer: exact, slow, plain PyTorch.
 
-The counterpart of the JAX package's ``ops/rasterize_ref.py`` in COLOR mode
-for 3DGS with OBB or AABB bounds and for 2DGS surfels: back-to-front painter
-blending over depth-sorted gaussians with premultiplied alpha, dst factor
-(1 - a) (src/render/mod.rs:914-982), OBB falloff power = -4.5 |uv|^2 in the
+The counterpart of the JAX package's ``ops/rasterize_ref.py`` for 3DGS with
+OBB or AABB bounds and for 2DGS surfels: back-to-front painter blending over
+depth-sorted gaussians with premultiplied alpha, dst factor (1 - a)
+(src/render/mod.rs:914-982), OBB falloff power = -4.5 |uv|^2 in the
 eigen-rotated quad frame (src/render/gaussian.wgsl:489-497), the AABB conic
 falloff clipped to the radius square (:455-470) or the surfel's
 min(3D ray-plane, 2x 2D) power (src/render/gaussian_2d.wgsl:134-156), alpha
-cap 0.999 (:499-505).  It defines correctness for the tiled renderer.  Its cost is
-O(N * H * W): small N only.
+cap 0.999 (:499-505), and the bounding-box overlay (:486-495).  It defines
+correctness for the tiled renderer.  Its cost is O(N * H * W): small N only.
 """
 
 from __future__ import annotations
@@ -19,10 +19,12 @@ import numpy as np
 import torch
 
 from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
-from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
+from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, SortMode
 from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import BBOX_GREEN, EDGE_BAND
 from bevy_gaussian_splatting_tpu_torch.ops.gaussian_2d import surfel_affine_coeffs, surfel_affine_power
 from bevy_gaussian_splatting_tpu_torch.ops.project import project_gaussians
+from bevy_gaussian_splatting_tpu_torch.ops.transforms import apply_transform
 
 ALPHA_CAP = 0.999  # gaussian.wgsl:499
 
@@ -46,7 +48,9 @@ def pixel_grid_ndc(width: int, height: int, device=None):
 
 def _fragment_alpha_3d_obb(cx, cy, e1, bounds, px_vp, py_vp):
     """OBB quad falloff (gaussian.wgsl:489-497; helpers.wgsl:88-120), in the
-    single-reciprocal form every evaluator of the JAX package shares."""
+    single-reciprocal form every evaluator of the JAX package shares ->
+    (g, edge): the edge band is where max(|u|, |v|) passes EDGE_BAND inside
+    the quad (gaussian.wgsl:486-495)."""
     dx = px_vp - cx
     dy = py_vp - cy
     e2x, e2y = e1[1], -e1[0]  # eigvec2 = (e1.y, -e1.x)
@@ -56,31 +60,38 @@ def _fragment_alpha_3d_obb(cx, cy, e1, bounds, px_vp, py_vp):
     v = (dx * e2x + dy * e2y) * inv2
     inside = (u.abs() <= 1.0) & (v.abs() <= 1.0) & (bounds[0] > 0.0)
     power = -4.5 * (u * u + v * v)
-    return torch.where(inside, torch.exp(power), torch.zeros_like(power))
+    edge = inside & (torch.maximum(u.abs(), v.abs()) > EDGE_BAND)
+    return torch.where(inside, torch.exp(power), torch.zeros_like(power)), edge
 
 
 def _fragment_alpha_3d_aabb(cx, cy, conic, radius, px_vp, py_vp):
     """AABB conic falloff clipped to the radius square (gaussian.wgsl:455-470;
-    rasterize_ref.py:48-69 of the JAX package)."""
+    rasterize_ref.py:48-69 of the JAX package) -> (g, edge); the edge band
+    is measured in the square, whatever the falloff there."""
     dx = cx - px_vp
     dy = cy - py_vp
     power = -0.5 * (conic[0] * dx * dx + conic[2] * dy * dy) + conic[1] * dx * dy
-    inside = (dx.abs() <= radius) & (dy.abs() <= radius) & (power <= 0.0)
-    return torch.where(inside, torch.exp(power), torch.zeros_like(power))
+    in_quad = (dx.abs() <= radius) & (dy.abs() <= radius)
+    inside = in_quad & (power <= 0.0)
+    edge = in_quad & (torch.maximum(dx.abs(), dy.abs()) / torch.clamp(radius, min=1e-12) > EDGE_BAND)
+    return torch.where(inside, torch.exp(power), torch.zeros_like(power)), edge
 
 
 def _fragment_alpha_2d(cx_ndc, cy_ndc, mr, A, B, C, px_ndc, py_ndc, width: int, height: int):
     """2DGS surfel falloff in the reference's fragment frame
     (rasterize_ref.py:92-129 of the JAX package): the folded affine form of
     the homography intersection, clipped to the surfel's square, whose
-    half-sides are ``mr`` scaled by f32 1/width and 1/height."""
+    half-sides are ``mr`` scaled by f32 1/width and 1/height -> (g, edge),
+    the edge band measured in doubled pixels against ``mr``."""
     inv_w = np.float32(1.0) / np.float32(width)
     inv_h = np.float32(1.0) / np.float32(height)
     dx_ndc = px_ndc - cx_ndc
     dy_ndc = py_ndc - cy_ndc
     inside = (dx_ndc.abs() <= mr * float(inv_w)) & (dy_ndc.abs() <= mr * float(inv_h))
     power = surfel_affine_power(A, B, C, dx_ndc, dy_ndc, width)
-    return torch.where(inside, torch.exp(power), torch.zeros_like(power))
+    uv = torch.maximum(dx_ndc.abs() * float(width), dy_ndc.abs() * float(height)) / torch.clamp(mr, min=1e-12)
+    edge = inside & (uv > EDGE_BAND)
+    return torch.where(inside, torch.exp(power), torch.zeros_like(power)), edge
 
 
 def composite_splats(
@@ -89,11 +100,14 @@ def composite_splats(
     width: int,
     height: int,
     background: Optional[torch.Tensor] = None,
+    bbox: bool = False,
 ) -> torch.Tensor:
     """Painter-blend splats over the image in ``order`` (back-to-front).
     Returns [H, W, 4] premultiplied linear RGBA.  Splats that carry
     ``surfel_t`` (a 2DGS projection) take the surfel falloff, those that
-    carry ``radius_vp`` (an AABB projection) the AABB falloff."""
+    carry ``radius_vp`` (an AABB projection) the AABB falloff.  ``bbox``
+    draws the bounding-box overlay: opaque green edges of every splat in the
+    mask, whatever its opacity (gaussian.wgsl:486-495)."""
     dev = splats["rgb"].device
     px_ndc, py_ndc = pixel_grid_ndc(width, height, dev)
     px_vp = px_ndc * float(width)
@@ -101,6 +115,7 @@ def composite_splats(
     if background is None:
         background = torch.zeros((4,), dtype=torch.float32, device=dev)
     image = background.to(torch.float32).expand(height, width, 4).clone()
+    green = torch.tensor(BBOX_GREEN, dtype=torch.float32, device=dev)
 
     center = splats["center_ndc"][order]
     if "surfel_t" in splats:
@@ -126,10 +141,16 @@ def composite_splats(
     alpha_s = splats["alpha"][order]
     mask = splats["mask"][order]
     for i in range(order.shape[0]):
-        g = falloff(i)
+        g, edge = falloff(i)
         alpha = torch.clamp(g * alpha_s[i], max=ALPHA_CAP)
         alpha = torch.where(mask[i], alpha, torch.zeros_like(alpha))
         src_rgb = rgb[i][None, None, :] * alpha[..., None]
+        if bbox:
+            # the edge is gated by the mask, not by the opacity: a splat of
+            # opacity 0 gets a box here and none from the tiled renderer
+            edge = edge & mask[i]
+            alpha = torch.where(edge, torch.ones_like(alpha), alpha)
+            src_rgb = torch.where(edge[..., None], green, src_rgb)
         src = torch.cat([src_rgb, alpha[..., None]], dim=-1)
         image = src + image * (1.0 - alpha[..., None])
     return image
@@ -142,9 +163,33 @@ def render_oracle(
     model_transform: Optional[torch.Tensor] = None,
     background: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Full oracle render: sort + project + composite -> [H, W, 4] linear RGBA."""
-    splats = project_gaussians(cloud, camera, settings, model_transform)
-    back_key = splats["sort_key"]
-    _, order = sort_ops.sort_entries(back_key)
-    splats["mask"] = splats["mask"] & (back_key != sort_ops.SENTINEL_KEY)
-    return composite_splats(splats, order, camera.width, camera.height, background)
+    """Full oracle render: sort + project + composite -> [H, W, 4] linear RGBA.
+
+    RADIX and NONE sort by the radix key and cull its sentinels; STD and
+    RAYON take the host sort's order and cull nothing.  The DEPTH ramp's
+    (min, max) are the camera distances of sorted entries ``n - 1`` and
+    ``min(1, n - 1)``, the reference's quirk (gaussian.wgsl:329-347)."""
+    dev = cloud.device
+    if model_transform is None:
+        model_transform = torch.eye(4, dtype=torch.float32, device=dev)
+    if settings.sort_mode in (SortMode.RADIX, SortMode.NONE):
+        back_key = sort_ops.radix_depth_key(
+            cloud.position, model_transform, camera.clip_from_world, camera.world_position,
+            settings.radix_sort_depth_bits.bits,
+        )
+        _, order = sort_ops.sort_entries(back_key)
+        sentinel_mask = back_key != sort_ops.SENTINEL_KEY
+    else:
+        order = torch.from_numpy(sort_ops.sort_gaussians_host(
+            cloud.position.detach().cpu().numpy(), model_transform.cpu().numpy(),
+            camera.world_position.cpu().numpy(),
+        ).astype(np.int64)).to(dev)
+        sentinel_mask = torch.ones(len(cloud), dtype=torch.bool, device=dev)
+    n = len(cloud)
+    wp = apply_transform(model_transform, cloud.position)
+    max_d = torch.linalg.norm(wp[order[min(1, n - 1)]] - camera.world_position)
+    min_d = torch.linalg.norm(wp[order[n - 1]] - camera.world_position)
+    splats = project_gaussians(cloud, camera, settings, model_transform, depth_minmax=(min_d, max_d))
+    splats["mask"] = splats["mask"] & sentinel_mask
+    return composite_splats(splats, order, camera.width, camera.height, background,
+                            bbox=settings.visualize_bounding_box)

@@ -1,9 +1,11 @@
 """Tile-binned renderer: binning, parameter packing and the pipeline.
 
 The counterpart of the JAX package's ``ops/rasterize_tile.py``
-``render_tiled(..., compositor="pallas")`` in COLOR mode for 3DGS with OBB
-or AABB bounds and for 2DGS surfels, serving and training alike.  It
-reproduces that path's integer artifacts exactly:
+``render_tiled(..., compositor="pallas")`` for 3DGS with OBB or AABB bounds
+and for 2DGS surfels, in every rasterize, draw and sort mode the port has
+(the DEPTH ramp's range from the sorted-entry quirk, :func:`depth_range`),
+serving and training alike.  It reproduces that path's integer artifacts
+exactly:
 
   1. project every gaussian (ops/project.py) and take its radix depth key;
   2. each splat's clipped tile rectangle from its OBB screen extent, or the
@@ -19,7 +21,10 @@ reproduces that path's integer artifacts exactly:
 The image is differentiable in the cloud's tensors: compositing runs inside
 ``ops/cuda/core.py``'s autograd Function, whose backward is the backward
 compositor and segmented reduce kernels; autograd carries the per-gaussian
-gradients on through packing and projection.
+gradients on through packing and projection.  The bounding-box overlay has
+no backward kernel: trained (``differentiable=True``), it composites with
+:func:`composite_tiles`, plain PyTorch under autograd, as the JAX package
+moves it to its XLA compositor; served, it runs the kernel.
 
 Heights that are not a multiple of 16 render on a padded tile grid with
 fragments in the true frame (``full_height``); the pad rows are cropped.
@@ -30,9 +35,10 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
-from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode
+from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode, RasterizeMode
 from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.core import composite_core
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
@@ -40,14 +46,21 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
     MODE_2D,
     MODE_AABB,
     MODE_OBB,
+    PIX,
     composite_epilogue,
+    overlay_alpha,
+    overlay_rgb,
     preferred_chunk,
+    splat_falloff,
+    tile_ndc,
 )
 from bevy_gaussian_splatting_tpu_torch.ops.gaussian_2d import surfel_affine_coeffs
 from bevy_gaussian_splatting_tpu_torch.ops.project import project_gaussians
+from bevy_gaussian_splatting_tpu_torch.ops.transforms import apply_transform
 
 TILE = 16  # pixels per tile side
 PAIRS_HEADROOM = 1.25  # budget over a measured pair count
+XLA_CHUNK = 64  # pairs per chunk of composite_tiles (rasterize_tile.py:1115)
 
 
 def pairs_budget(n: int, hint: Optional[int] = None) -> int:
@@ -78,10 +91,12 @@ def tile_budget(n: int) -> int:
     return int(min(max(2 * n, 1 << 10), 1 << 13))
 
 
-def project_for_binning(cloud, camera: Camera, settings: CloudSettings, model_transform=None) -> dict:
+def project_for_binning(
+    cloud, camera: Camera, settings: CloudSettings, model_transform=None, depth_minmax=None
+) -> dict:
     """``project_gaussians`` with the sentinel cull of its radix key
     (``sort_key``) folded into ``mask``, as ``render_tiled`` prepares them."""
-    splats = project_gaussians(cloud, camera, settings, model_transform)
+    splats = project_gaussians(cloud, camera, settings, model_transform, depth_minmax=depth_minmax)
     splats["mask"] = splats["mask"] & (splats["sort_key"] != sort_ops.SENTINEL_KEY)
     return splats
 
@@ -261,6 +276,91 @@ def tile_bins(splats: dict, width: int, height: int, p_max: int) -> TileBins:
     return TileBins(g_s, start, count, order, cum, perm)
 
 
+def depth_range(cloud, camera: Camera, settings: CloudSettings, model_transform=None):
+    """(min, max) camera distance of the DEPTH ramp, the reference's quirk
+    (gaussian.wgsl:329-347): the distances of back-sorted entries ``n - 1``
+    and ``min(1, n - 1)``, sentinels included, found by reductions
+    (``sort.back_sorted_entry_indices``), as the JAX package's
+    ``render_tiled`` finds them (rasterize_tile.py:1150-1164)."""
+    if model_transform is None:
+        model_transform = torch.eye(4, dtype=torch.float32, device=cloud.device)
+    back_key = sort_ops.radix_depth_key(
+        cloud.position, model_transform, camera.clip_from_world, camera.world_position,
+        settings.radix_sort_depth_bits.bits,
+    )
+    first, last = sort_ops.back_sorted_entry_indices(back_key)
+    wp = apply_transform(model_transform, cloud.position)
+    return (
+        torch.linalg.norm(wp[last] - camera.world_position),
+        torch.linalg.norm(wp[first] - camera.world_position),
+    )
+
+
+def composite_tiles(
+    params_sorted: torch.Tensor,
+    pair_valid: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    tx_count: int,
+    width: int,
+    full_height: int,
+    k_max: int,
+    mode: int = MODE_OBB,
+) -> torch.Tensor:
+    """Front-to-back compositing with the bounding-box overlay in plain
+    PyTorch, differentiable by autograd -> raw [T, 4, 256] (rows 0-2
+    premultiplied rgb, row 3 final transmittance, as
+    ``composite_tiles_raw``).
+
+    The JAX package's XLA compositor in its ``differentiable=True`` form
+    (rasterize_tile.py:946-1100), its route for training the bounding-box
+    overlay, which has no backward kernel (:1178-1181): the pair rows
+    ``params_sorted`` [P, param_width(mode)] zeroed where ``pair_valid`` is
+    false, one zero pad row for the lanes past a tile's ``tile_count``
+    (clipped at ``k_max``), chunks of ``XLA_CHUNK`` pairs from each tile's start
+    blended by an exclusive ``cumprod``, and no early exit; each chunk is
+    recomputed in the backward (``torch.utils.checkpoint``), as JAX remats
+    it.  The chunks past every tile's count blend nothing (alpha 0 adds 0
+    and multiplies T by 1, exactly), so the loop stops after the last
+    chunk that some tile reaches instead of at ``ceil(k_max / chunk)``."""
+    num_tiles = tile_start.shape[0]
+    p_max, cols = params_sorted.shape
+    dev = params_sorted.device
+    padded = torch.cat(
+        [params_sorted * pair_valid[:, None].to(params_sorted.dtype), params_sorted.new_zeros((1, cols))]
+    )
+    x, y = tile_ndc(torch.arange(num_tiles, device=dev), tx_count, width, full_height)
+    if mode != MODE_2D:  # vp units; the 2DGS falloff works in NDC
+        x, y = x * float(width), y * float(full_height)
+    px, py = x[:, None, :], y[:, None, :]
+    count = torch.clamp(tile_count.to(torch.int64), max=k_max)
+    chunk = XLA_CHUNK
+    lane = torch.arange(chunk, device=dev)
+    start = tile_start.to(torch.int64)[:, None]
+
+    def blend(padded, accum, trans, c: int):
+        in_range = lane[None, :] + c * chunk < count[:, None]
+        idx = torch.where(in_range, start + c * chunk + lane, p_max)
+        q = padded[idx]  # [T, chunk, cols]
+        g, _, _, edge = splat_falloff(q, px, py, mode, width, full_height, with_edge=True)
+        alpha, edge = overlay_alpha(g, edge, q, mode)
+        cum = torch.cumprod(1.0 - alpha, dim=1)
+        excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
+        w = alpha * excl * trans[:, None, :]
+        accum = accum + torch.stack([torch.sum(w * overlay_rgb(q, edge, mode, ch), dim=1) for ch in range(3)], dim=1)
+        return accum, trans * cum[:, -1]
+
+    accum = torch.zeros((num_tiles, 3, PIX), dtype=torch.float32, device=dev)
+    trans = torch.ones((num_tiles, PIX), dtype=torch.float32, device=dev)
+    n_chunks = -(-min(k_max, int(count.max()) if num_tiles else 0) // chunk)
+    for c in range(n_chunks):
+        if padded.requires_grad:
+            accum, trans = checkpoint(blend, padded, accum, trans, c, use_reentrant=False)
+        else:
+            accum, trans = blend(padded, accum, trans, c)
+    return torch.cat([accum, trans[:, None, :]], dim=1)
+
+
 def render_tiled(
     cloud,
     camera: Camera,
@@ -268,11 +368,18 @@ def render_tiled(
     model_transform: Optional[torch.Tensor] = None,
     background: Optional[torch.Tensor] = None,
     pairs_max: Optional[int] = None,
+    differentiable: bool = True,
 ) -> torch.Tensor:
     """Render -> [H, W, 4] linear premultiplied RGBA on the cloud's device,
     differentiable in the cloud's tensors where they require grad.
     ``background`` is None or a solid [4] RGBA; ``pairs_max`` is the pair
-    budget (default: ``pairs_budget(N)``, the 6N cap)."""
+    budget (default: ``pairs_budget(N)``, the 6N cap).
+
+    Compositing runs the kernels (``composite_core``), except for the
+    bounding-box overlay with ``differentiable=True``: there, as in the JAX
+    package, the plain ``composite_tiles`` that autograd differentiates.
+    ``render()`` serves with ``differentiable=False``, ``train_step``
+    trains with the default."""
     width, height = camera.width, camera.height
     if width % TILE:
         raise ValueError(f"image width must be a multiple of {TILE}")
@@ -282,14 +389,27 @@ def render_tiled(
         )
     h_pad = pad_to_tile(height)
     tx_count = width // TILE
-    p_max = pairs_max if pairs_max is not None else pairs_budget(len(cloud))
+    n = len(cloud)
+    p_max = pairs_max if pairs_max is not None else pairs_budget(n)
 
-    splats = project_for_binning(cloud, camera, settings, model_transform)
-    bins = tile_bins(splats, width, height, p_max)
-    out_raw = composite_core(
-        pack_raster_params(splats, settings, width, height), *bins,
-        tx_count=tx_count, width=width, full_height=height,
-        chunk=preferred_chunk(p_max, bins.start.shape[0]), mode=kernel_mode(settings),
-    )
+    depth_minmax = None
+    if settings.rasterize_mode == RasterizeMode.DEPTH:
+        depth_minmax = depth_range(cloud, camera, settings, model_transform)
+    splats = project_for_binning(cloud, camera, settings, model_transform, depth_minmax)
+    params = pack_raster_params(splats, settings, width, height)
+    mode = kernel_mode(settings)
+    if settings.visualize_bounding_box and differentiable:
+        g_s, tile_s, valid_s = bin_gaussians(splats, width, height, p_max)[:3]
+        start, end = tile_ranges(tile_s, tx_count * (h_pad // TILE))
+        out_raw = composite_tiles(
+            params[g_s], valid_s, start, end - start, tx_count, width, height, tile_budget(n), mode
+        )
+    else:
+        bins = tile_bins(splats, width, height, p_max)
+        out_raw = composite_core(
+            params, *bins, tx_count=tx_count, width=width, full_height=height,
+            chunk=preferred_chunk(p_max, bins.start.shape[0]), mode=mode,
+            bbox=settings.visualize_bounding_box,
+        )
     img = composite_epilogue(out_raw, background, width, h_pad)
     return img[:height] if h_pad != height else img

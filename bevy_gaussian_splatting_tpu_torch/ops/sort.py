@@ -12,6 +12,7 @@ so the unsigned 32-bit keys are carried in int64 tensors, masked to 32 bits.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from bevy_gaussian_splatting_tpu_torch.ops.transforms import (
@@ -57,3 +58,38 @@ def sort_entries(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Stable ascending sort -> (sorted_keys, sorted_indices): the
     ``SortedEntries`` {key, index} pairs (src/sort/mod.rs:324-339)."""
     return torch.sort(keys, stable=True)
+
+
+def sort_gaussians_host(
+    position: np.ndarray,
+    model_transform: np.ndarray,
+    camera_position: np.ndarray,
+) -> np.ndarray:
+    """Host sort of SortMode.STD / SortMode.RAYON (src/sort/std_sort.rs:27-130;
+    the JAX package's ``ops/sort.py`` ``sort_gaussians_host``): squared
+    distance to the camera, descending (back to front), stable, in numpy.
+    The host paths cull nothing."""
+    mt = np.asarray(model_transform)
+    world = position @ mt[:3, :3].T + mt[:3, 3]
+    diff = world - np.asarray(camera_position)
+    dist2 = np.sum(diff * diff, axis=-1)
+    return np.argsort(-dist2, kind="stable").astype(np.uint32)
+
+
+def back_sorted_entry_indices(back_key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cloud indices of the back-to-front sorted entries ``min(1, n-1)`` and
+    ``n-1``, which the reference's depth min/max quirk reads
+    (gaussian.wgsl:329-347), by reductions instead of a sort (the JAX
+    package's ``rasterize_tile.py`` ``back_sorted_entry_indices``).  Back
+    order is key ascending, index ascending, sentinels included."""
+    n = back_key.shape[0]
+    idx = torch.arange(n, device=back_key.device)
+    last = torch.where(back_key == back_key.max(), idx, -1).max()
+    if n == 1:
+        return torch.zeros_like(last), last
+    kmin = back_key.min()
+    i0 = torch.where(back_key == kmin, idx, n).min()
+    is_first = (back_key == kmin) & (idx == i0)
+    key2 = torch.where(is_first, torch.full_like(back_key, SENTINEL_KEY), back_key)
+    first = torch.where((key2 == key2.min()) & ~is_first, idx, n).min()
+    return first, last

@@ -82,6 +82,8 @@ def render(
     if adaptive_budget:
         key = (impl, settings.static_key(), width, height, len(cloud), str(dev))
         bucket = _current_bucket(key, settings, cloud, camera, model_transform)
+    # a serving call, as the JAX package's render() builds its pipeline
+    # (make_tiled_pipeline's differentiable=False): the overlay runs the kernel
     return rt.render_tiled(
-        cloud, camera, settings, model_transform, background, pairs_max=bucket
+        cloud, camera, settings, model_transform, background, pairs_max=bucket, differentiable=False
     )

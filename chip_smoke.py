@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (bevy_gaussian_splatting_tpu_torch) on one
 NVIDIA card.
 
-    python3 chip_smoke.py            # the whole run (35-50 s of script time on
+    python3 chip_smoke.py            # the whole run (50-95 s of script time on
                                      # "NVIDIA H100 80GB HBM3, 700.00 W")
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one
                                      # frame per size and mode and of one
@@ -24,7 +24,9 @@ surfels (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``):
   3. kernels each kernel against its plain PyTorch version on the scene's
              real inputs at 512x512 and 1920x1080: expansion array-equal,
              compositing within 2e-5 (2DGS 1e-4, the JAX package's 2DGS
-             bar), the backward compositor within 1e-4 of each gradient
+             bar), also in its bounding-box overlay instantiation (with the
+             pixels an edge closed, which must be some), the backward
+             compositor within 1e-4 of each gradient
              column's largest magnitude (its cotangent taken from a real
              loss; the AABB radius column and the 2DGS surfel radius column
              exactly 0 in both), the segmented reduce array-equal (16
@@ -34,12 +36,20 @@ surfels (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``):
              and the gradients of every cloud field, card against CPU (1e-4
              of the field's largest magnitude), at 128x128 and 128x120; for
              2DGS on the bench-style cloud and on the surfel grid of
-             ``tools/surfel_plane.py``;
+             ``tools/surfel_plane.py``; then ``render()`` with the overlay.
+             With OBB also each rasterize mode beside COLOR (but VELOCITY)
+             and each draw mode, the STD and RAYON sorts (against the
+             oracle), the gradients of the overlay's training route (card
+             against CPU) and, with opacity-0 gaussians, the count of
+             pixels where the oracle's boxes and the tiled path's differ;
   5. main    ``render()`` at four orbit poses at 512x512, then 1920x1080,
              with the launch counters set to 0 just before and read after;
-             every frame must launch both forward kernels, neither backward
-             kernel, and give a finite image with at least a quarter of its
-             pixels lit;
+             every frame must launch the expansion and the compositor's
+             instantiation of its (mode, overlay), no other compositor
+             instantiation and no backward kernel, and give a finite image
+             with at least a quarter of its pixels lit.  Then the same with
+             the overlay (8 frames per size), and with OBB one frame per
+             size in each rasterize mode beside COLOR;
   6. train   Adam steps (``train/step.py``) on the scene as a
              ``TrainableCloud`` towards a render of the same cloud moved by
              (0.25, -0.15, 0.1): a warm-up and 10 timed steps on the bench
@@ -49,7 +59,8 @@ surfels (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``):
              four kernels and give a finite loss and finite gradients; the
              last bench-objective loss must be below the first (2DGS: 5
              timed steps at 512x512, 2 at 1920x1080, no
-             ``gaussian_splatting_loss`` steps);
+             ``gaussian_splatting_loss`` steps).  With OBB then a warm-up and
+             2 steps in NORMAL mode at 512x512, with the same checks;
   7. train   (AABB) the training loop's pieces on the scene: a warm-up and 5
              Adam steps at 512x512, a warm-up and 2 at 1920x1080, with
              ``accumulate_stats`` after every step, then one
@@ -61,9 +72,10 @@ surfels (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``):
              its 16.41 dB less 0.5) and at its CPU test protocol (60 steps,
              192 gaussians, 48x48; at least 17.28 dB).
 
-It prints the kernels line (one entry per kernel and mode: nine), the card's
-name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
-Without a card it exits non-zero and prints no result.
+It prints the kernels line (one entry per kernel and mode: twelve, the
+overlay's with the mode "<mode>+bbox"), the card's name and power limit, and
+as its last line ``{"ok": true, "device": {...}}``.  Without a card it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -108,6 +120,14 @@ INT32_OPS_PER_S = FP32_OPS_PER_S / 4
 # 2DGS (the recompute, the chain, fifteen sums).
 COMPOSITE_OPS_PER_EVAL = {"obb": 26, "aabb": 28, "2d": 4}
 COMPOSITE_OPS_PER_INSIDE = {"obb": 0, "aabb": 0, "2d": 38}
+# The overlay instantiation (kBbox) adds, per walked evaluation, the gate on
+# the opacity (a compare and an and) and four selects (alpha, r, g, b), and
+# the edge test: OBB the max and the compare (the absolute values are the
+# inside test's), AABB those two, max(r, 1e-12) and the divide (counted as
+# one); 2DGS, inside the square only, two products, the max,
+# max(mr, 1e-12), the divide and the compare.
+BBOX_OPS_PER_EVAL = {"obb": 8, "aabb": 10, "2d": 6}
+BBOX_OPS_PER_INSIDE = {"obb": 0, "aabb": 0, "2d": 6}
 BACKWARD_OPS_PER_EVAL = {"obb": 12, "aabb": 16, "2d": 4}
 BACKWARD_OPS_PER_INSIDE = {"obb": 60, "aabb": 51, "2d": 105}
 IMAGE_BAR = {"obb": 2e-5, "aabb": 2e-5, "2d": 1e-4}  # kernel vs plain, card vs CPU
@@ -125,10 +145,21 @@ AABB_AFTER_DENSIFY = 2  # steps after densify_and_prune
 # allows (tests/test_train.py); the test protocol's floor is that test's.
 CONVERGE = ((120, 512, 128, 15.91), (60, 192, 48, 17.28))
 FIELDS = ("position_visibility", "spherical_harmonic", "rotation", "scale_opacity")
+# the rasterize modes beside COLOR (VELOCITY needs 4DGS), by name
+VIEW_RASTER_MODES_NAMES = ("DEPTH", "NORMAL", "POSITION", "OPTICAL_FLOW", "CLASSIFICATION")
+NORMAL_TRAIN_STEPS = 2  # timed Adam steps in NORMAL mode at 512x512, after a warm-up
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, with its wall time logged."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"[time] {name} {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -247,6 +278,35 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     row_bytes = params.shape[1] * 4
     comp_bytes = n_walked * row_bytes + 2 * 4 * num_tiles + raw.numel() * 4
 
+    # ---- the overlay instantiation against the plain overlay ----
+    raw_b = tf.composite_tiles_raw(*comp_args, chunk=chunk, mode=kmode, bbox=True)
+    walked_b = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
+    inside_b = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
+    raw_b_plain = tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, mode=kmode, tile_batch=512, walked=walked_b,
+                                               bbox=True, inside_count=inside_b)
+    bbox_err = float((raw_b - raw_b_plain).abs().max())
+    if not bbox_err <= IMAGE_BAR[mode]:
+        raise AssertionError(f"composite_tiles_raw bbox {label}: max |kernel - plain| = {bbox_err:.3e} > {IMAGE_BAR[mode]}")
+    closed = int((raw_b[:, 3] == 0.0).sum())  # an edge sets T to exactly 0
+    green = int(((raw_b[:, :3] - torch.tensor(tf.BBOX_GREEN, device=dev)[None, :, None]).abs().amax(dim=1) < 1e-6).sum())
+    if closed <= 0 or green <= 0:
+        raise AssertionError(f"composite_tiles_raw bbox {label}: no edge pixel ({closed} closed, {green} green)")
+    bbox_ms = cuda_ms(lambda: tf.composite_tiles_raw(*comp_args, chunk=chunk, mode=kmode, bbox=True), 20)
+    bbox_plain_ms = cuda_ms(
+        lambda: tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, mode=kmode, tile_batch=512, bbox=True), 2
+    )
+    n_walked_b = int(walked_b.sum())
+    bbox_bytes = n_walked_b * params.shape[1] * 4 + 2 * 4 * num_tiles + raw_b.numel() * 4
+    bbox_ops = (n_walked_b * tf.PIX * (COMPOSITE_OPS_PER_EVAL[mode] + BBOX_OPS_PER_EVAL[mode])
+                + int(inside_b.sum()) * (COMPOSITE_OPS_PER_INSIDE[mode] + BBOX_OPS_PER_INSIDE[mode]))
+    xb, xby = bound(bbox_bytes, bbox_ops, FP32_NO_FMA_OPS_PER_S)
+    bbox_line = (
+        f"[kernels {label} bbox] composite max_abs_err {bbox_err:.3e} (bar {IMAGE_BAR[mode]}), {bbox_ms:.4f} ms "
+        f"(plain {bbox_plain_ms:.4f}, bound {xb:.4f} by {xby}; without the overlay {comp_ms:.4f}), pairs walked "
+        f"{n_walked_b} of {int(count.sum())} (without the overlay {n_walked}), pixels closed by an edge (T = 0) "
+        f"{closed}, pure green {green} of {num_tiles * tf.PIX}"
+    )
+
     # ---- backward compositor: per column within GRAD_BAR of its largest |plain| ----
     # the cotangent of a real loss: the bench objective against a render of
     # the moved cloud, through the epilogue
@@ -324,6 +384,7 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
         f"(plain {red_plain_ms:.4f}, bound {rb:.4f} by {rby}, torch.segment_reduce {red_lib_ms:.4f}, "
         f"differs by {lib_err:.3e})"
     )
+    log(bbox_line)
     return {
         "expand_pairs": dict(max_abs_err=exp_err, ms=exp_ms, plain_ms=exp_plain_ms, bound_ms=eb, bound_by=eby,
                              library_ms=None),
@@ -333,6 +394,8 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
                                    library_ms=None),
         "segment_reduce": dict(max_abs_err=red_err, ms=red_ms, plain_ms=red_plain_ms, bound_ms=rb, bound_by=rby,
                                library_ms=red_lib_ms),
+        "composite_tiles_raw+bbox": dict(max_abs_err=bbox_err, ms=bbox_ms, plain_ms=bbox_plain_ms, bound_ms=xb,
+                                         bound_by=xby, library_ms=None),
     }
 
 
@@ -352,14 +415,40 @@ def small_grads(arrays: dict, camera, background, settings, device) -> dict:
     return {name: getattr(model, name).grad.cpu() for name in FIELDS}
 
 
+def compare_small(label: str, arrays: dict, cam, settings, bg, oracle_only: bool = False):
+    """``render()`` on the card against the port's oracle on the card (3e-5;
+    2DGS 1e-4) and, unless ``oracle_only``, against the same call on the
+    CPU (2e-5; 2DGS 1e-4) -> the card's image."""
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODES
+    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import kernel_mode
+    from bevy_gaussian_splatting_tpu_torch.render.api import render
+
+    mode = MODES[kernel_mode(settings)]
+    card = cloud_from_numpy(arrays, "cuda")
+    gpu = render(card, cam.to("cuda"), settings, background=bg.cuda())
+    oracle = render(card, cam.to("cuda"), settings, background=bg.cuda(), impl="oracle")
+    e_oracle = float((gpu - oracle).abs().max())
+    line = f"[small {label}] card vs oracle {e_oracle:.3e} (bar {ORACLE_BAR[mode]})"
+    e_cpu = 0.0
+    if not oracle_only:
+        cpu = render(cloud_from_numpy(arrays, "cpu"), cam, settings, background=bg, device="cpu")
+        e_cpu = float((gpu.cpu() - cpu).abs().max())
+        line += f", card vs cpu {e_cpu:.3e} (bar {IMAGE_BAR[mode]})"
+    log(line)
+    if not (e_cpu <= IMAGE_BAR[mode] and e_oracle <= ORACLE_BAR[mode]):
+        raise AssertionError(f"small render {label} disagrees: cpu {e_cpu:.3e}, oracle {e_oracle:.3e}")
+    return gpu
+
+
 def phase_small(settings) -> None:
     """Small inputs: card against the oracle and against the CPU, images and
-    gradients; for 2DGS also on the surfel grid."""
+    gradients; for 2DGS also on the surfel grid; then ``render()`` with the
+    overlay."""
     from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
-    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy, surfel_grid_arrays
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import surfel_grid_arrays
     from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import kernel_mode
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODE_2D, MODES
-    from bevy_gaussian_splatting_tpu_torch.render.api import render
 
     bg = torch.tensor([0.2, 0.1, 0.4, 1.0])
     mode = MODES[kernel_mode(settings)]
@@ -373,34 +462,99 @@ def phase_small(settings) -> None:
                 cam = orbit_camera(0.0, width, height, "cpu")
             else:
                 cam = Camera.create(eye=eye, target=(0.0, 0.0, 0.0), width=width, height=height, device="cpu")
-            cpu = render(cloud_from_numpy(a, "cpu"), cam, settings, background=bg, device="cpu")
-            gpu = render(cloud_from_numpy(a, "cuda"), cam.to("cuda"), settings, background=bg.cuda())
-            oracle = render(cloud_from_numpy(a, "cuda"), cam.to("cuda"), settings, background=bg.cuda(),
-                            impl="oracle")
-            e_cpu = float((gpu.cpu() - cpu).abs().max())
-            e_oracle = float((gpu - oracle).abs().max())
-            log(f"[small {label}] card vs cpu {e_cpu:.3e} (bar {IMAGE_BAR[mode]}), card vs oracle {e_oracle:.3e} "
-                f"(bar {ORACLE_BAR[mode]})")
-            if not (e_cpu <= IMAGE_BAR[mode] and e_oracle <= ORACLE_BAR[mode]):
-                raise AssertionError(f"small render {label} disagrees: cpu {e_cpu:.3e}, oracle {e_oracle:.3e}")
+            compare_small(label, a, cam, settings, bg)
             g_cpu = small_grads(a, cam, bg, settings, "cpu")
             g_card = small_grads(a, cam, bg, settings, "cuda")
-            rel = {}
-            for name in FIELDS:
-                if not bool(torch.isfinite(g_card[name]).all()):
-                    raise AssertionError(f"small gradients {label}: {name} not finite on the card")
-                scale = float(g_cpu[name].abs().max())
-                rel[name] = float((g_card[name] - g_cpu[name]).abs().max()) / max(scale, 1e-30)
+            rel = grads_rel(g_card, g_cpu, label)
             log(f"[small {label}] gradients card vs cpu, max |diff| / max |cpu| per field: "
                 + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (bar {GRAD_BAR})")
-            if not all(v <= GRAD_BAR for v in rel.values()):
-                raise AssertionError(f"small gradients {label} disagree card vs cpu: {rel}")
             if mode == "2d" and (bool(g_card["scale_opacity"][:, 2].any()) or bool(g_cpu["scale_opacity"][:, 2].any())):
                 raise AssertionError(f"small gradients {label}: the flat surfel's scale z has a gradient")
+    # the overlay, served, on a cloud with no opacity 0 (edges are gated by
+    # the opacity on the tiled path and by the mask in the oracle)
+    a = scenes[0][1]
+    if not float(a["scale_opacity"][:, 3].min()) > 0.0:
+        raise AssertionError("the overlay's small cloud has an opacity of 0")
+    compare_small(f"{mode} bench2000 128x120 bbox", a, orbit_camera(0.0, 128, 120, "cpu"),
+                  settings.replace(visualize_bounding_box=True), bg)
 
 
-def phase_main(cloud, settings, profile: bool) -> dict:
-    """The serving path through ``render()``; counters read per frame."""
+def grads_rel(g_card: dict, g_cpu: dict, label: str) -> dict:
+    """Per field max |card - cpu| / max |cpu|; raises above GRAD_BAR or on a
+    non-finite card gradient."""
+    rel = {}
+    for name in FIELDS:
+        if not bool(torch.isfinite(g_card[name]).all()):
+            raise AssertionError(f"small gradients {label}: {name} not finite on the card")
+        scale = float(g_cpu[name].abs().max())
+        rel[name] = float((g_card[name] - g_cpu[name]).abs().max()) / max(scale, 1e-30)
+    if not all(v <= GRAD_BAR for v in rel.values()):
+        raise AssertionError(f"small gradients {label} disagree card vs cpu: {rel}")
+    return rel
+
+
+def view_modes():
+    """(label, settings) of each rasterize and draw mode beside COLOR/ALL."""
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, DrawMode, RasterizeMode
+
+    out = [(m.lower(), CloudSettings(rasterize_mode=RasterizeMode[m], num_classes=4)) for m in VIEW_RASTER_MODES_NAMES]
+    return out + [(d.name.lower(), CloudSettings(draw_mode=d)) for d in (DrawMode.SELECTED, DrawMode.HIGHLIGHT_SELECTED)]
+
+
+def phase_small_views() -> None:
+    """OBB on small inputs: each rasterize and draw mode, card against the
+    CPU and the oracle; the STD and RAYON sorts against the oracle; the
+    overlay's training route (gradients card against CPU); and the overlay on
+    a cloud with opacity-0 gaussians, whose boxes only the oracle draws."""
+    from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, SortMode
+    from bevy_gaussian_splatting_tpu_torch.render.api import render
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
+
+    bg = torch.tensor([0.2, 0.1, 0.4, 1.0])
+    width, height = 128, 120
+    a = bench_arrays(2000, seed=3)
+    # visibilities over [0, 5]: the draw modes select at 0.5, classes start at 2
+    levels = np.array([0.0, 0.25, 0.5, 0.75, 1.0, 2.0, 3.0, 4.0, 5.0], np.float32)
+    a["position_visibility"][:, 3] = np.random.default_rng(11).choice(levels, len(a["position_visibility"]))
+    # the optical flow's previous view: a neighbouring eye
+    prev = orbit_camera(0.02, width, height, "cpu")
+    cam = Camera.create(eye=(0.0, 0.0, 60.0), width=width, height=height, device="cpu",
+                        prev_clip_from_world=prev.clip_from_world.numpy())
+    for name, settings in view_modes():
+        compare_small(f"obb {name} {width}x{height}", a, cam, settings, bg)
+    for sort_mode in (SortMode.STD, SortMode.RAYON):
+        compare_small(f"obb sort {sort_mode.name} {width}x{height}", a, cam, CloudSettings(sort_mode=sort_mode), bg,
+                      oracle_only=True)
+
+    # the overlay's training route: plain compositing under autograd
+    overlay = CloudSettings(visualize_bounding_box=True)
+    square = orbit_camera(0.0, 128, 128, "cpu")
+    g_cpu = small_grads(a, square, bg, overlay, "cpu")
+    g_card = small_grads(a, square, bg, overlay, "cuda")
+    rel = grads_rel(g_card, g_cpu, "obb bbox training 128x128")
+    log("[small obb bbox training 128x128] gradients card vs cpu, max |diff| / max |cpu| per field: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (bar {GRAD_BAR})")
+
+    # opacity 0 in the mask (cutoff 3, so the quad keeps its size): the
+    # oracle boxes it, the tiled path does not (ROADMAP Queue 3)
+    z = bench_arrays(2000, seed=3)
+    z["scale_opacity"][::4, 3] = 0.0
+    zero = CloudSettings(visualize_bounding_box=True, opacity_adaptive_radius=False)
+    tiled = render(cloud_from_numpy(z, "cuda"), square.to("cuda"), zero)
+    cpu = render(cloud_from_numpy(z, "cpu"), square, zero, device="cpu")
+    oracle = render(cloud_from_numpy(z, "cuda"), square.to("cuda"), zero, impl="oracle")
+    e_cpu = float((tiled.cpu() - cpu).abs().max())
+    differ = int(((tiled - oracle).abs().amax(dim=-1) > 1e-3).sum())
+    log(f"[small obb opacity-0 bbox 128x128] card vs cpu {e_cpu:.3e} (bar {IMAGE_BAR['obb']}); pixels where the "
+        f"oracle and the tiled path differ by > 1e-3: {differ} of {128 * 128}")
+    if not e_cpu <= IMAGE_BAR["obb"]:
+        raise AssertionError(f"opacity-0 overlay card vs cpu {e_cpu:.3e}")
+
+
+def phase_main(cloud, settings, profile: bool, rounds: int = TIMED_ROUNDS) -> dict:
+    """The serving path through ``render()``; counters read per frame.  The
+    compositor's launches are counted per instantiation (mode, overlay)."""
     from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.reduce import segment_reduce
@@ -410,29 +564,35 @@ def phase_main(cloud, settings, profile: bool) -> dict:
 
     dev = cloud.device
     mode = MODES[rt.kernel_mode(settings)]
-    counters = (expand_pairs, composite_tiles_raw)
+    bbox = settings.visualize_bounding_box
+    label0 = mode + ("+bbox" if bbox else "")
+    instance = (mode, bbox)
+
+    def counts():
+        return expand_pairs.launches, composite_tiles_raw.instances.get(instance, 0)
+
     idle = (composite_backward, segment_reduce)  # serving runs no backward
-    launches = {f.__name__: 0 for f in counters}
+    launches = {"expand_pairs": 0, "composite_tiles_raw": 0}
     for f in idle:
         f.launches = 0
     for width, height in SIZES:
-        label = f"{mode} {width}x{height}"
+        label = f"{label0} {width}x{height}"
         cams = [orbit_camera(az, width, height, dev) for az in ORBIT_AZ]
         pairs = [int(rt.pair_count(cloud, c, settings)) for c in cams]
         times = []
-        for f in counters:
-            f.launches = 0
-        for rnd in range(TIMED_ROUNDS + 1):  # round 0 warms up
+        expand_pairs.launches = 0
+        composite_tiles_raw.instances.clear()
+        for rnd in range(rounds + 1):  # round 0 warms up
             for cam in cams:
-                before = [f.launches for f in counters]
+                before = counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 img = api.render(cloud, cam, settings)
                 torch.cuda.synchronize()
                 dt = (time.perf_counter() - t0) * 1e3
-                for f, b in zip(counters, before):
-                    if f.launches <= b:
-                        raise AssertionError(f"{f.__name__} did not launch in a {label} frame")
+                for name, b, a in zip(launches, before, counts()):
+                    if a <= b:
+                        raise AssertionError(f"{name} {instance} did not launch in a {label} frame")
                 if img.shape != (height, width, 4) or not bool(torch.isfinite(img).all()):
                     raise AssertionError(f"bad image {tuple(img.shape)} at {label}")
                 lit = int((img[..., :3].abs().amax(dim=-1) > 1.0 / 255.0).sum())
@@ -440,21 +600,52 @@ def phase_main(cloud, settings, profile: bool) -> dict:
                     raise AssertionError(f"only {lit} lit pixels at {label}")
                 if rnd:
                     times.append(dt)
-        for f in counters:
-            launches[f.__name__] += f.launches
+        for name, n in zip(launches, counts()):
+            launches[name] += n
         if any(f.launches for f in idle):
             raise AssertionError(f"a backward kernel launched while serving at {label}")
+        if set(composite_tiles_raw.instances) != {instance}:
+            raise AssertionError(f"{label}: compositor instantiations {composite_tiles_raw.instances} launched")
         bucket = api._BUDGET_STATE[("auto", settings.static_key(), width, height, len(cloud), str(dev))][0]
         log(
             f"[main {label}] pairs per pose {pairs} p_max {bucket} "
             f"lit {lit} | median {statistics.median(times):.3f} ms/frame over {len(times)} frames "
-            f"(min {min(times):.3f}, max {max(times):.3f}) | launches "
-            + ", ".join(f"{f.__name__} {f.launches}" for f in counters)
+            f"(min {min(times):.3f}, max {max(times):.3f}) | launches expand_pairs {counts()[0]}, "
+            f"composite_tiles_raw{list(instance)} {counts()[1]}"
         )
         if profile:
-            profile_call(lambda: api.render(cloud, cams[0], settings), f"{mode}_{width}x{height}",
+            profile_call(lambda: api.render(cloud, cams[0], settings), f"{label0}_{width}x{height}",
                          statistics.median(times))
     return launches
+
+
+def phase_main_views(cloud) -> None:
+    """One ``render()`` frame per rasterize mode beside COLOR and per size
+    (OBB): finite, lit, through both forward kernels."""
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, RasterizeMode
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import composite_tiles_raw
+    from bevy_gaussian_splatting_tpu_torch.render import api
+
+    for width, height in SIZES:
+        cam = orbit_camera(0.0, width, height, cloud.device)
+        parts = []
+        for name in VIEW_RASTER_MODES_NAMES:
+            settings = CloudSettings(rasterize_mode=RasterizeMode[name])
+            before = (expand_pairs.launches, composite_tiles_raw.instances.get(("obb", False), 0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = api.render(cloud, cam, settings)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            after = (expand_pairs.launches, composite_tiles_raw.instances.get(("obb", False), 0))
+            if not all(a > b for a, b in zip(after, before)):
+                raise AssertionError(f"{name} {width}x{height}: a forward kernel did not launch")
+            lit = int((img[..., :3].abs().amax(dim=-1) > 1.0 / 255.0).sum())
+            if img.shape != (height, width, 4) or not bool(torch.isfinite(img).all()) or lit < LIT_FLOOR * width * height:
+                raise AssertionError(f"bad {name} image at {width}x{height} ({lit} lit pixels)")
+            parts.append(f"{name.lower()} lit {lit}, {dt:.3f} ms")
+        log(f"[main views obb {width}x{height}] one frame each (the first of its pipeline key): " + "; ".join(parts))
 
 
 def profile_call(fn, label: str, wall_ms: float) -> None:
@@ -512,7 +703,9 @@ def checked_step(model, optimizer, camera, target, settings, loss_fn, p_max, lab
         if f.launches <= b:
             raise AssertionError(f"{f.__name__} did not launch in the {label}")
     value = float(loss)
-    bad = [name for name in FIELDS if not bool(torch.isfinite(getattr(model, name).grad).all())]
+    # a field the loss does not read has no gradient (NORMAL mode reads no SH)
+    grads = {name: getattr(model, name).grad for name in FIELDS}
+    bad = [name for name, g in grads.items() if g is not None and not bool(torch.isfinite(g).all())]
     if not math.isfinite(value) or bad:
         raise AssertionError(f"{label}: loss {value}, non-finite gradients in {bad}")
     return value, dt
@@ -655,6 +848,34 @@ def phase_train_aabb(arrays: dict, settings, profile: bool) -> dict:
     return {f.__name__: f.launches for f in counters}
 
 
+def phase_train_normal(arrays: dict) -> dict:
+    """Training in NORMAL mode, whose colour depends on rotation and scale:
+    a warm-up and ``NORMAL_TRAIN_STEPS`` Adam steps at the first size; every
+    step through all four kernels, finite."""
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, RasterizeMode
+    from bevy_gaussian_splatting_tpu_torch.train.losses import mse
+    from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, adam, shifted_arrays
+
+    settings = CloudSettings(rasterize_mode=RasterizeMode.NORMAL)
+    counters = train_counters()
+    model = TrainableCloud.from_numpy(arrays, "cuda")
+    target_cloud = cloud_from_numpy(shifted_arrays(arrays), "cuda")
+    optimizer = adam(model, TRAIN_LR)
+    for f in counters:
+        f.launches = 0
+    camera, p_max, pairs, target = train_target(model, target_cloud, settings, *SIZES[0])
+    size = f"{SIZES[0][0]}x{SIZES[0][1]}"
+    steps = [checked_step(model, optimizer, camera, target, settings, mse, p_max, f"normal {size} step {i}")
+             for i in range(NORMAL_TRAIN_STEPS + 1)]
+    log(
+        f"[train normal {size}] pairs {pairs} p_max {p_max} | warm-up {steps[0][1]:.3f} ms, steps "
+        f"{', '.join(f'{dt:.3f}' for _, dt in steps[1:])} ms | mse loss {steps[0][0]:.6e} -> {steps[-1][0]:.6e} | "
+        "launches " + ", ".join(f"{f.__name__} {f.launches}" for f in counters)
+    )
+    return {f.__name__: f.launches for f in counters}
+
+
 def phase_converge() -> dict:
     """``convergence_psnr`` on the card at the bench and test protocols."""
     from bevy_gaussian_splatting_tpu_torch.train.quality import convergence_psnr
@@ -708,25 +929,34 @@ def main() -> int:
     log(f"[scene] {len(cloud)} gaussians on {cloud.device} in {time.perf_counter() - t0:.2f} s")
 
     # per mode: the kernels' measurements at 512x512 and the launches of the
-    # paths driven in that mode (serving frames, then training steps)
+    # paths driven in that mode (serving frames, then training steps); the
+    # overlay's ("<mode>+bbox") from its own serving frames
     results, launches = {}, {}
     modes = (CloudSettings(), CloudSettings(aabb=True), CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_2D))
     for settings in modes:
         mode = MODES[kernel_mode(settings)]
         for width, height in SIZES:
-            res = phase_kernels(cloud, target_cloud, settings, width, height)
+            res = timed(f"kernels {mode} {width}x{height}", phase_kernels, cloud, target_cloud, settings, width, height)
             if (width, height) == SIZES[0]:
                 results[mode] = res
-        phase_small(settings)
-        serve = phase_main(cloud, settings, opts.profile)
+                results[mode + "+bbox"] = {"composite_tiles_raw": res["composite_tiles_raw+bbox"]}
+        timed(f"small {mode}", phase_small, settings)
+        if mode == "obb":
+            timed("small views", phase_small_views)
+        serve = timed(f"main {mode}", phase_main, cloud, settings, opts.profile)
+        launches[mode + "+bbox"] = timed(f"main {mode}+bbox", phase_main, cloud,
+                                         settings.replace(visualize_bounding_box=True), False, rounds=1)
         if mode == "aabb":
-            train = phase_train_aabb(arrays, settings, opts.profile)
-            converge = phase_converge()
+            train = timed("train aabb", phase_train_aabb, arrays, settings, opts.profile)
+            converge = timed("converge", phase_converge)
             train = {k: v + converge[k] for k, v in train.items()}
         elif mode == "2d":
-            train = phase_train(arrays, settings, SURFEL_TRAIN_STEPS, False, opts.profile)
+            train = timed("train 2d", phase_train, arrays, settings, SURFEL_TRAIN_STEPS, False, opts.profile)
         else:
-            train = phase_train(arrays, settings, TRAIN_STEPS, True, opts.profile)
+            timed("main views", phase_main_views, cloud)
+            train = timed("train obb", phase_train, arrays, settings, TRAIN_STEPS, True, opts.profile)
+            normal = timed("train normal", phase_train_normal, arrays)
+            train = {k: v + normal[k] for k, v in train.items()}
         launches[mode] = {k: serve.get(k, 0) + v for k, v in train.items()}
 
     kernels = []
@@ -740,13 +970,16 @@ def main() -> int:
         "segment_reduce": ("bevy_gaussian_splatting_tpu_torch/csrc/reduce.cu",
                            "bevy_gaussian_splatting_tpu/ops/pallas/reduce.py:39"),
     }
-    # the four kernels in OBB mode, the two compositors in AABB mode, and the
-    # two compositors and the reduce (at 16 columns) in 2DGS mode (the
-    # expansion does not depend on the mode, nor the reduce on OBB or AABB)
+    # the four kernels in OBB mode, the two compositors in AABB mode, the two
+    # compositors and the reduce (at 16 columns) in 2DGS mode (the expansion
+    # does not depend on the mode, nor the reduce on OBB or AABB), and the
+    # forward compositor's overlay instantiation in each mode (its bbox=True
+    # branch, tile_fwd.py:289-312)
     entries = (
         [(name, "obb") for name in sources]
         + [("composite_tiles_raw", "aabb"), ("composite_backward", "aabb")]
         + [("composite_tiles_raw", "2d"), ("composite_backward", "2d"), ("segment_reduce", "2d")]
+        + [("composite_tiles_raw", f"{m}+bbox") for m in ("obb", "aabb", "2d")]
     )
     for name, mode in entries:
         source, replaces = sources[name]

@@ -1,6 +1,8 @@
 """PyTorch port on the card: each CUDA kernel against its plain version (the
-compositors in OBB, AABB and 2DGS mode, the reduce at 10 and 16 columns),
-``render()`` on the card against the same call on the CPU, and the training
+compositors in OBB, AABB and 2DGS mode, the forward's bounding-box overlay
+instantiation in each, the reduce at 10 and 16 columns),
+``render()`` on the card against the same call on the CPU (also with the
+overlay and in the other rasterize and draw modes), and the training
 gradients of every cloud field, card against CPU.
 
 These skip without an NVIDIA card.  On one, run them without the JAX-side
@@ -13,7 +15,7 @@ import torch
 
 from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
 from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy, random_arrays_3d_seeded, surfel_grid_arrays
-from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode
+from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, DrawMode, GaussianMode, RasterizeMode
 from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import expand as ex
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import reduce as rd
@@ -252,3 +254,49 @@ def test_2dgs_render_and_gradients_card_match_cpu(card, height):
         assert bool(torch.isfinite(g_gpu[f]).all()), f
         assert float((g_gpu[f] - g_cpu[f]).abs().max()) <= GRAD_BAR * float(g_cpu[f].abs().max()), f
     assert not bool(g_gpu["scale_opacity"][:, 2].any())  # the flat surfel's scale z
+
+
+OVERLAY = {"obb": CloudSettings(visualize_bounding_box=True),
+           "aabb": CloudSettings(aabb=True, visualize_bounding_box=True),
+           "2d": CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_2D, visualize_bounding_box=True)}
+
+
+@pytest.mark.parametrize("mode", list(OVERLAY))
+@pytest.mark.parametrize("kind,n,height,chunk", [("bench", 20000, 256, None), ("occluded", 1000, 120, 128)])
+def test_overlay_kernel_matches_plain(card, mode, kind, n, height, chunk):
+    # chip_smoke.py's bars: within 2e-5 (2DGS 1e-4) of the plain overlay,
+    # counted under its own instantiation, with edges that close pixels
+    settings = OVERLAY[mode]
+    splats, p_max = _inputs(_scene(kind, n, 10), 256, height, card, settings)
+    bins = rt.tile_bins(splats, 256, height, p_max)
+    params = rt.pack_raster_params(splats, settings, 256, height)[bins.g_s].contiguous()
+    if chunk is None:
+        chunk = tf.preferred_chunk(p_max, bins.start.shape[0])
+    kmode = rt.kernel_mode(settings)
+    args = (params, bins.start, bins.count, 16, 256, height)
+    before = (tf.composite_tiles_raw.instances.get((mode, True), 0), tf.composite_tiles_raw.instances.get((mode, False), 0))
+    got = tf.composite_tiles_raw(*args, chunk=chunk, mode=kmode, bbox=True)
+    after = (tf.composite_tiles_raw.instances.get((mode, True), 0), tf.composite_tiles_raw.instances.get((mode, False), 0))
+    assert after == (before[0] + 1, before[1])
+    ref = tf.composite_tiles_raw_plain(*args, chunk=chunk, mode=kmode, bbox=True)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= (SURFEL_BAR if mode == "2d" else 2e-5)
+    assert int((got[:, 3] == 0.0).sum()) > 0
+
+
+@pytest.mark.parametrize("name,settings", [
+    ("obb-bbox", OVERLAY["obb"]), ("aabb-bbox", OVERLAY["aabb"]), ("2d-bbox", OVERLAY["2d"]),
+    ("depth", CloudSettings(rasterize_mode=RasterizeMode.DEPTH)),
+    ("normal", CloudSettings(rasterize_mode=RasterizeMode.NORMAL)),
+    ("classification", CloudSettings(rasterize_mode=RasterizeMode.CLASSIFICATION, num_classes=4)),
+    ("highlight", CloudSettings(draw_mode=DrawMode.HIGHLIGHT_SELECTED)),
+])
+def test_views_render_card_match_cpu(card, name, settings):
+    a = _scene("bench", 2000, 3)
+    a["position_visibility"][:, 3] = np.random.default_rng(11).choice(
+        np.array([0.0, 0.25, 0.5, 1.0, 2.0, 3.0, 4.0], np.float32), 2000)
+    cam = Camera.create(eye=(0.0, 0.0, 60.0), width=128, height=120, device="cpu")
+    cpu = render(cloud_from_numpy(a, "cpu"), cam, settings, device="cpu")
+    gpu = render(cloud_from_numpy(a, card), cam.to(card), settings)
+    bar = SURFEL_BAR if settings.gaussian_mode == GaussianMode.GAUSSIAN_2D else 2e-5
+    assert float((gpu.cpu() - cpu).abs().max()) <= bar

@@ -178,8 +178,16 @@ def test_project_rejects_other_modes():
     from bevy_gaussian_splatting_tpu_torch.models import settings as ts
 
     for s in (ts.CloudSettings(gaussian_mode=ts.GaussianMode.GAUSSIAN_4D),
-              ts.CloudSettings(rasterize_mode=ts.RasterizeMode.DEPTH),
-              ts.CloudSettings(gaussian_mode=ts.GaussianMode.GAUSSIAN_2D, visualize_bounding_box=True),
-              ts.CloudSettings(visualize_bounding_box=True)):
+              ts.CloudSettings(gaussian_mode=ts.GaussianMode.GAUSSIAN_4D, rasterize_mode=ts.RasterizeMode.VELOCITY)):
         with pytest.raises(NotImplementedError, match="slice 3"):
             tproject(torch_cloud(a), tc, s)
+
+
+def test_project_rejects_velocity_without_4dgs():
+    """As the JAX package's projection (ops/project.py:242-243)."""
+    a = cloud_arrays("wide", 8, 0)
+    _, tc = cameras(32, 32)
+    from bevy_gaussian_splatting_tpu_torch.models import settings as ts
+
+    with pytest.raises(ValueError, match="GAUSSIAN_4D"):
+        tproject(torch_cloud(a), tc, ts.CloudSettings(rasterize_mode=ts.RasterizeMode.VELOCITY))

@@ -93,3 +93,21 @@ def jax_splats(cloud, camera, settings):
     splats["sort_key"] = back_key
     splats["mask"] = splats["mask"] & (back_key != sort_ops.SENTINEL_KEY)
     return splats
+
+
+def overlay_settings(mode: str, **kw):
+    """The same bounding-box overlay settings in both packages, for kernel
+    mode ``mode`` ("obb", "aabb" or "2d"), with ``kw`` on top."""
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode
+
+    j = {"aabb": mode == "aabb", "visualize_bounding_box": True, **kw}
+    t = dict(j)
+    if mode == "2d":
+        j["gaussian_mode"] = bgs.GaussianMode.GAUSSIAN_2D
+        t["gaussian_mode"] = GaussianMode.GAUSSIAN_2D
+    return bgs.CloudSettings(**j), CloudSettings(**t)
+
+
+def green_pixels(img: np.ndarray) -> int:
+    """Pixels whose colour is the overlay's green (an edge on top)."""
+    return int((np.abs(img[..., :3] - np.array([0.3, 1.0, 0.1], np.float32)).max(axis=-1) < 1e-6).sum())
