@@ -13,7 +13,8 @@
 // the rgb cotangent, row 3 the final-transmittance cotangent, rows 4-6 the
 // forward's rgb totals, row 7 its final transmittance.  Output dparams of
 // the params' shape, zeroed by the caller: pairs no tile walked (past k_max,
-// past the early exit, past the total) keep their zeros.
+// past the early exit, past the total) and pairs whose splat reaches no
+// pixel of the tile keep their zeros.
 //
 // Per pixel, splats i front to back (derivation: tile_bwd.py:8-22):
 //   w_i = a_i T_i,  dL/dc_i = w_i ghat_rgb,
@@ -51,30 +52,77 @@
 // gradient term flips and the exit vote can fall one chunk apart.  All modes
 // share one body (a template on the mode), as in the forward.
 //
-// What changes: no lane scans, no first-chunk read-merge-write and no donated
-// zeros.  Every pair lies in exactly one tile, so its gradient row is written
-// by one block, once, without atomics.  The per-pair sum over the 256 pixels
-// is a warp butterfly (__shfl_xor_sync) per pair and value, then a fixed-order
-// sum of the eight warp partials from shared memory: deterministic.  A warp in
-// which no pixel is inside the splat skips its shuffles (its partials are
-// exactly zero), which is most warps for small splats.
+// What bounds it on the H100.  The arithmetic a gradient needs is small: the
+// bound (chip_smoke.py) counts 4-16 FP32 operations per walked (pair, pixel)
+// and 51-105 more where the pixel is inside the splat.  A splat of the bench
+// scene reaches 5-8 of a tile's 256 pixels, so almost all of a pair's work
+// in a kernel that visits every (pair, pixel) is overhead: staged loads, the
+// falloff and a vote for warps that no pixel of the splat reaches, a full
+// butterfly per gradient column for a handful of active lanes, and the
+// flush of eight warp partials per pair.  The kernel is bound by issued
+// instructions, not by FP32 work or bytes.  The design removes that
+// overhead and keeps the arithmetic:
 //
-// Shared memory: the staged chunk [columns][512] (OBB / AABB 10 columns,
-// 2DGS 17) and the warp partials [8 warps][32 pairs][row columns]: 30 KB for
-// OBB / AABB, 50 KB for 2DGS, above the 48 KB of static shared memory, so it
-// is dynamic shared memory sized per mode (for 2DGS, cudaFuncSetAttribute
-// raises the limit once per device, before the first launch).  The chunk grid stays the forward's: it decides
-// where the exit vote may stop a tile.
+//  1. Per-warp footprint culling, decided once per pair when its chunk is
+//     staged.  The staging thread bounds the splat by a box |px - cx| <= hx,
+//     |py - cy| <= hy in the falloff's frame and turns it into a mask of the
+//     warps whose pixels it may touch (warp_mask).  A strip of pixels is
+//     left out when fl(x - cx) at its first and last pixel both lie beyond
+//     the box: rounding is monotone, so every pixel between does too.  AABB
+//     and 2DGS test that with the exact test's own half-widths (the radius;
+//     the staged mr/W, mr/H), so their box is the clip itself.  OBB's box is
+//     the rotated rectangle's, (b1 |e1x| + b2 |e1y|, b1 |e1y| + b2 |e1x|) /
+//     |e1|^2, widened by 2^-13 of hx + hy: the rounding of u, v, 1/b and the
+//     box's own arithmetic stay below 20 ulps of hx + hy, so no pixel that
+//     the exact test keeps is dropped.  b1 <= 0 is empty (the exact test
+//     rejects it); an axis with |e1|^2 < 2^-100 (or NaN) keeps every warp,
+//     and so does any NaN in the box (the comparisons are written so that
+//     NaN keeps).  Each warp ballots its own bit over a batch of pairs and
+//     walks only the set bits in order (__ffsll); the exact falloff still
+//     decides every pair it visits.  A left-out (pair, warp) has g = 0 at
+//     every pixel, so a = 0 and T, q_acc and every partial are unchanged to
+//     the bit: the culling changes no float and no exit vote.  The twin of
+//     the mask in PyTorch is ops/cuda/tile_bwd.py `warp_masks`.
+//  2. A multi-column warp reduce.  The 9-15 gradient columns of a hit warp
+//     are summed over its lanes by a reduce-scatter (reduce_scatter): at each
+//     of the five shuffle distances 16 ... 1 a lane keeps half of its
+//     columns and sends the other half, so the column count halves per level
+//     (10 columns: 5 + 3 + 2 + 1 + 1 = 12 shuffles and 12 adds; 15: 16), not
+//     one five-step butterfly per column (45-75).  Each column's sum ends in
+//     one or more lanes with the same bits (the adds of a level commute), and
+//     the lowest of them writes it.  The order is fixed: two launches on the
+//     same inputs are bitwise equal.
+//  3. Flush only what was hit.  A warp writes partials only for the pairs it
+//     visits (zeros where its exact test found nothing).  The per-pair sum
+//     reads the warps of the pair's mask in warp order, and a pair with an
+//     empty mask is not written.  Adding an exact zero changes no float sum,
+//     so leaving the other warps out gives the sum of all eight.
+//  4. Batches of kBatch pairs per pair of barriers: 64 for OBB and AABB, 32
+//     for 2DGS, whose 16-column partials would take it to 68 KB of shared
+//     memory and 3 resident blocks per SM.  OBB and AABB are held to 48
+//     registers so that 5 blocks fit an SM (shared memory allows 5); 2DGS
+//     runs 4.
+//  5. Warps of 4 x 8 pixels: a splat's box meets fewer of them than of 2 x
+//     16 strips (the bench scene keeps 0.17-0.18 of the visits at 512x512
+//     against 0.21), at the price of a second column strip in the mask.
+//     gbar's layout and the pixel index stay in pixel order; only the
+//     thread-to-pixel map follows the shape.
 //
-// Bound on the H100: operations.  Every walked (pair, pixel) evaluation
-// needs 12 FP32 operations (offsets, u, v, the inside test); one inside the
-// splat needs about 59 more and one expf: alpha and transmittance, the
-// gradient chain, and one add for each of the ten sums over pixels.  AABB:
-// 16 per walked evaluation (offsets, the quadratic form, the clip) and about
-// 50 more and one expf inside (nine sums: the radius column has none).
-// 2DGS: 4 per walked evaluation (offsets, the square clip) and about 104 more
-// and one expf inside (the homography and reciprocal, the chain, fifteen
-// sums).
+// The choices of items 4 and 5 were timed against their alternatives (2 x
+// 16 warps, batches of 32, no floor on resident blocks) on the card; PERF.md
+// keeps that table.
+//
+// Shared memory (dynamic, sized per mode): the staged chunk [columns][512]
+// (OBB / AABB 10 columns, 2DGS 17), the warp partials [8 warps][kBatch][row
+// columns] and the masks [512] B.  Above 48 KB (2DGS), cudaFuncSetAttribute
+// raises the limit once per device, before the first launch.
+//
+// Bound on the H100: operations, counted per walked evaluation as before
+// (chip_smoke.py keeps the formula so the numbers stay comparable): 12 FP32
+// operations per walked (pair, pixel) for OBB (offsets, u, v, the inside
+// test), 16 for AABB, 4 for 2DGS, and inside the splat 59 (OBB), 50 (AABB)
+// or 104 (2DGS) more and one expf.  The culled kernel no longer evaluates
+// most walked (pair, pixel)s, so that bound overstates the work it does.
 
 #include <cuda_runtime.h>
 
@@ -84,13 +132,23 @@ constexpr int kTile = 16;
 constexpr int kPix = kTile * kTile;  // 256 threads, one per pixel
 constexpr int kWarps = kPix / 32;
 constexpr int kMaxChunk = 512;
-constexpr int kBatch = 32;  // pairs whose warp partials are flushed together
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kAllWarps = (1u << kWarps) - 1u;
 constexpr int kModeObb = 0;
 constexpr int kModeAabb = 1;
 constexpr int kMode2d = 2;
 constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic shared memory a launch gets unasked
 constexpr int kMaxDevices = 64;
+
+// the warp shape: kWarpRows x kWarpCols pixels; the eight warps of a tile
+// as kStripsY rows of kStripsX warps
+constexpr int kWarpRows = 4;
+constexpr int kWarpCols = 8;
+constexpr int kStripsX = kTile / kWarpCols;
+constexpr int kStripsY = kTile / kWarpRows;
+// OBB's box margin, a share of hx + hy, and the smallest |e1|^2 it trusts
+constexpr float kObbMargin = 0x1p-13f;
+constexpr float kMinAxisNorm2 = 0x1p-100f;
 
 // as in tile_fwd.cu: row columns, staged columns (the colours and alpha last)
 template <int kMode>
@@ -100,20 +158,108 @@ constexpr int kStaged = kMode == kMode2d ? 17 : 10;
 // the column that only masks (exact zeros, no warp sum): AABB radius, 2DGS mr
 template <int kMode>
 constexpr int kMaskCol = kMode == kModeAabb ? 5 : kMode == kMode2d ? 2 : -1;
+// the columns the warp reduce sums
+template <int kMode>
+constexpr int kSummed = kRowCols<kMode> - (kMaskCol<kMode> >= 0 ? 1 : 0);
+// pairs whose warp partials are flushed together
+template <int kMode>
+constexpr int kBatch = kMode == kMode2d ? 32 : 64;
+// resident blocks per SM that ptxas must leave registers for (OBB, AABB:
+// 48 registers, where they would take 56-60 and allow 4; 2DGS's shared
+// memory allows 4 at most)
+template <int kMode>
+constexpr int kMinBlocks = kMode == kMode2d ? 1 : 5;
 
 template <int kMode>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)kStaged<kMode> * kMaxChunk + (size_t)kWarps * kBatch * kRowCols<kMode>);
+  return sizeof(float) * ((size_t)kStaged<kMode> * kMaxChunk + (size_t)kWarps * kBatch<kMode> * kRowCols<kMode>)
+         + kMaxChunk;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// One level of the reduce-scatter over lanes lane and lane ^ O, then the
+// next: n values in, (n + 1) / 2 out; a lane with bit O set keeps the odd
+// member of each pair, the other the even one; an odd last value is summed
+// in both lanes.
+template <int N, int O, int M>
+__device__ __forceinline__ void reduce_scatter(float (&v)[M], int lane) {
+  if constexpr (O > 0) {
+    const bool upper = (lane & O) != 0;
+    constexpr int kPairs = N / 2;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+    for (int i = 0; i < kPairs; ++i) {
+      const float keep = upper ? v[2 * i + 1] : v[2 * i];
+      const float send = upper ? v[2 * i] : v[2 * i + 1];
+      v[i] = keep + __shfl_xor_sync(kFull, send, O);
+    }
+    if constexpr (N % 2 == 1) v[kPairs] = v[N - 1] + __shfl_xor_sync(kFull, v[N - 1], O);
+    reduce_scatter<(N + 1) / 2, O / 2>(v, lane);
+  }
+}
+
+// The position, among the N values reduce_scatter<N, O> starts from, of the
+// one value `lane` holds at its end.
+template <int N, int O>
+__device__ __forceinline__ int scatter_index(int lane) {
+  if constexpr (O == 0) {
+    return 0;
+  } else {
+    const int below = scatter_index<(N + 1) / 2, O / 2>(lane);
+    return below < N / 2 ? 2 * below + ((lane & O) ? 1 : 0) : N - 1;
+  }
+}
+
+// Bit w set: the splat of `row` may reach a pixel of warp w.  `colx` holds
+// the falloff frame's x of the tile's 16 columns, `rowy` the y of its 16
+// rows (decreasing with the row).  See the design note, item 1.
+template <int kMode>
+__device__ __forceinline__ unsigned warp_mask(const float* row, const float* colx, const float* rowy,
+                                              float inv_w, float inv_h) {
+  float hx, hy;
+  if constexpr (kMode == kModeObb) {
+    if (!(row[4] > 0.0f)) return 0u;  // the exact test's b1 <= 0: outside
+    const float b1 = fmaxf(row[4], 1e-12f);
+    const float b2 = fmaxf(row[5], 1e-12f);
+    const float ax = fabsf(row[2]);
+    const float ay = fabsf(row[3]);
+    const float n2 = row[2] * row[2] + row[3] * row[3];
+    if (!(n2 >= kMinAxisNorm2)) return kAllWarps;
+    hx = (b1 * ax + b2 * ay) / n2;
+    hy = (b1 * ay + b2 * ax) / n2;
+    const float grow = (hx + hy) * kObbMargin;
+    hx += grow;
+    hy += grow;
+  } else if constexpr (kMode == kModeAabb) {
+    hx = row[5];
+    hy = row[5];
+  } else {
+    hx = row[2] * inv_w;
+    hy = row[2] * inv_h;
+  }
+  const float cx = row[0];
+  const float cy = row[1];
+  unsigned xs = 0, ys = 0;
+#pragma unroll
+  for (int sx = 0; sx < kStripsX; ++sx) {
+    const float lo = colx[sx * kWarpCols] - cx;
+    const float hi = colx[sx * kWarpCols + kWarpCols - 1] - cx;
+    if (!(lo > hx || hi < -hx)) xs |= 1u << sx;
+  }
+#pragma unroll
+  for (int sy = 0; sy < kStripsY; ++sy) {
+    const float hi = rowy[sy * kWarpRows] - cy;
+    const float lo = rowy[sy * kWarpRows + kWarpRows - 1] - cy;
+    if (!(lo > hy || hi < -hy)) ys |= 1u << sy;
+  }
+  unsigned mask = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if ((ys >> (w / kStripsX)) & (xs >> (w % kStripsX)) & 1u) mask |= 1u << w;
+  }
+  return mask;
 }
 
 template <int kMode>
-__global__ void __launch_bounds__(kPix)
+__global__ void __launch_bounds__(kPix, kMinBlocks<kMode>)
 composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count, const float* __restrict__ gbar,
                      int tx_count, float width_f, float full_height_f, float inv_w2,
@@ -122,17 +268,23 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
   constexpr int kRow = kRowCols<kMode>;
   constexpr int kCol = kStaged<kMode>;
   constexpr int kR = kCol - 4;  // staged r; g, b, alpha follow
+  constexpr int kB = kBatch<kMode>;
+  constexpr int kSum = kSummed<kMode>;
+  constexpr int kMask = kMaskCol<kMode>;
   // staged columns [kCol][kMaxChunk] (OBB 2-5: e1x, e1y, 1/b1, 1/b2; AABB
   // conic.x, conic.y, conic.z, r; 2DGS 2-12: mr/W, mr/H, A, B, C), then the
-  // warp partials [kWarps][kBatch][kRow]
+  // warp partials [kWarps][kB][kRow], then the warp masks [kMaxChunk]
   extern __shared__ __align__(16) float smem[];
   float (*s)[kMaxChunk] = reinterpret_cast<float (*)[kMaxChunk]>(smem);
-  float (*s_part)[kBatch][kRow] = reinterpret_cast<float (*)[kBatch][kRow]>(smem + kCol * kMaxChunk);
+  float (*s_part)[kB][kRow] = reinterpret_cast<float (*)[kB][kRow]>(smem + kCol * kMaxChunk);
+  unsigned char* s_mask = reinterpret_cast<unsigned char*>(smem + kCol * kMaxChunk + kWarps * kB * kRow);
+  __shared__ float s_colx[kTile];
+  __shared__ float s_rowy[kTile];
 
   const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int lane = p & 31;
-  const int warp = p >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int count = tile_count[t];
   const int start = tile_start[t];
   const int base = (start / 128) * 128;
@@ -141,15 +293,26 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
   if (count <= 0) return;  // uniform over the block, before any barrier
   const int n_chunks = (total + chunk - 1) / chunk;
 
+  // this thread's pixel: warp (warp / kStripsX, warp % kStripsX) of the
+  // tile, lane in row-major order within it
+  const int prow = (warp / kStripsX) * kWarpRows + lane / kWarpCols;
+  const int pcol = (warp % kStripsX) * kWarpCols + lane % kWarpCols;
+  const int p = prow * kTile + pcol;
+
   // the forward's pixel coordinates (csrc/tile_fwd.cu)
-  const float px = (float)((t % tx_count) * kTile + p % kTile) + 0.5f;
-  const float py = ((float)((t / tx_count) * kTile + p / kTile) + 0.5f) + (float)y0;
+  const float px = (float)((t % tx_count) * kTile + pcol) + 0.5f;
+  const float py = ((float)((t / tx_count) * kTile + prow) + 0.5f) + (float)y0;
   const float x_ndc = fmaf(px, inv_w2, -1.0f);
   const float y_ndc = fmaf(-py, inv_h2, 1.0f);
   const float px_vp = x_ndc * width_f;
   const float py_vp = y_ndc * full_height_f;
   const float px_ndc = x_ndc * (width_f * inv_w);
   const float py_ndc = y_ndc * (full_height_f * inv_h);
+  // the falloff's frame: NDC for 2DGS, else vp units
+  const float fx = kMode == kMode2d ? px_ndc : px_vp;
+  const float fy = kMode == kMode2d ? py_ndc : py_vp;
+  if (prow == 0) s_colx[pcol] = fx;
+  if (pcol == 0) s_rowy[prow] = fy;
 
   const float* gb = gbar + (long long)t * 8 * kPix;
   const float g_r = gb[p];
@@ -158,6 +321,14 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
   const float q_total = g_r * gb[4 * kPix + p] + g_g * gb[5 * kPix + p] + g_b * gb[6 * kPix + p];
   // S_i + ghat_T T_fin = s_total - q_acc
   const float s_total = q_total + gb[3 * kPix + p] * gb[7 * kPix + p];
+
+  // the gradient column whose warp sum this lane ends with, and whether it
+  // is the lowest such lane (the one that stores it)
+  const int sum_idx = scatter_index<kSum, 16>(lane);
+  const int sum_col = kMask >= 0 && sum_idx >= kMask ? sum_idx + 1 : sum_idx;
+  const bool sum_writer = (__ffs(__match_any_sync(kFull, sum_idx)) - 1) == lane;
+
+  __syncthreads();  // s_colx, s_rowy before the first chunk's masks
 
   float T = 1.0f;
   float q_acc = 0.0f;
@@ -168,7 +339,7 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
     const int hi = min(total - c * chunk, chunk);
     const int first = base + c * chunk + lo;
     const int m = hi - lo;
-    for (int j = p; j < m; j += kPix) {
+    for (int j = tid; j < m; j += kPix) {
       const float* row = params + (long long)(first + j) * kRow;
       s[0][j] = row[0];
       s[1][j] = row[1];
@@ -192,11 +363,22 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
 #pragma unroll
         for (int k = 0; k < 9; ++k) s[4 + k][j] = row[3 + k];
       }
+      s_mask[j] = (unsigned char)warp_mask<kMode>(row, s_colx, s_rowy, inv_w, inv_h);
     }
     __syncthreads();
-    for (int jb = 0; jb < m; jb += kBatch) {
-      const int nb = min(kBatch, m - jb);
-      for (int k = 0; k < nb; ++k) {
+    for (int jb = 0; jb < m; jb += kB) {
+      const int nb = min(kB, m - jb);
+      // the batch's pairs whose mask holds this warp, walked in order
+      unsigned long long todo = 0;
+#pragma unroll
+      for (int h = 0; h < kB / 32; ++h) {
+        const int k = h * 32 + lane;
+        const unsigned mine = __ballot_sync(kFull, k < nb && ((s_mask[jb + k] >> warp) & 1u));
+        todo |= (unsigned long long)mine << (h * 32);
+      }
+      while (todo) {
+        const int k = __ffsll(todo) - 1;
+        todo &= todo - 1;
         const int j = jb + k;
         // OBB: dx = px - cx, u, v in the quad frame; AABB: dx = cx - px;
         // 2DGS: dx = dxn, dy = dyn (pixel - centre, NDC), and u, v the
@@ -232,12 +414,13 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
             g = expf(-0.5f * fminf(s3d, d2x2));
           }
         }
-        const float op = s[kR + 3][j];
-        const float raw = g * op;
-        const float a = fminf(raw, 0.999f);
-        // g == 0 on every pixel of the warp: a = w = q = 0, all partials are
-        // exactly zero and T, q_acc do not move
+        float sum = 0.0f;  // this lane's column of the warp's partials
+        // g == 0 on every pixel of the warp: a = w = q = 0, the partials
+        // are exactly zero and T, q_acc do not move
         if (__any_sync(kFull, g != 0.0f)) {
+          const float op = s[kR + 3][j];
+          const float raw = g * op;
+          const float a = fminf(raw, 0.999f);
           const float w = a * T;
           const float gc = g_r * s[kR][j] + g_g * s[kR + 1][j] + g_b * s[kR + 2][j];
           q_acc += gc * w;
@@ -295,38 +478,58 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
           d[kRow - 3] = w * g_g;
           d[kRow - 2] = w * g_b;
           d[kRow - 1] = dag;  // dopacity
+          float vals[kSum];
 #pragma unroll
-          for (int col = 0; col < kRow; ++col) {
-            if (col == kMaskCol<kMode>) continue;
-            d[col] = warp_sum(d[col]);
-          }
-          if (lane == 0) {
-#pragma unroll
-            for (int col = 0; col < kRow; ++col) s_part[warp][k][col] = d[col];
-          }
+          for (int i = 0; i < kSum; ++i) vals[i] = d[kMask >= 0 && i >= kMask ? i + 1 : i];
+          reduce_scatter<kSum, 16>(vals, lane);
+          sum = vals[0];
           T *= 1.0f - a;
-        } else if (lane == 0) {
-#pragma unroll
-          for (int col = 0; col < kRow; ++col) s_part[warp][k][col] = 0.0f;
         }
+        if (sum_writer) s_part[warp][k][sum_col] = sum;
       }
       __syncthreads();
-      // sum the eight warp partials in a fixed order; rows are contiguous
+      // sum each pair's partials over the warps of its mask, in warp order;
+      // rows are contiguous, a pair with an empty mask keeps its zeros
       float* out = dparams + (long long)(first + jb) * kRow;
-      for (int i = p; i < nb * kRow; i += kPix) {
+      for (int i = tid; i < nb * kRow; i += kPix) {
         const int k = i / kRow;
         const int col = i - k * kRow;
-        float sum = 0.0f;
-#pragma unroll
-        for (int w8 = 0; w8 < kWarps; ++w8) sum += s_part[w8][k][col];
+        unsigned warps = s_mask[jb + k];
+        if (col == kMask || warps == 0) continue;
+        float acc = 0.0f;
+        while (warps) {
+          acc += s_part[__ffs(warps) - 1][k][col];
+          warps &= warps - 1;
+        }
         const bool negate = kMode == kModeObb ? (col == 0 || col == 4 || col == 5)
                             : kMode == kMode2d ? (col == 0 || col == 1)
                                                : false;
-        out[i] = negate ? -sum : sum;
+        out[i] = negate ? -acc : acc;
       }
       __syncthreads();
     }
   }
+}
+
+// Raise `mode`'s dynamic shared memory limit above the default, once per
+// device (the attribute belongs to the device's context); a mode under the
+// default never asks.
+template <int kMode>
+int raise_smem_limit() {
+  constexpr size_t bytes = smem_bytes<kMode>();
+  if (bytes <= kDefaultSmem) return (int)cudaSuccess;
+  static bool raised[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!raised[device]) {
+    err = cudaFuncSetAttribute(composite_bwd_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    raised[device] = true;
+  }
+  return (int)cudaSuccess;
 }
 
 template <int kMode>
@@ -334,27 +537,22 @@ int launch(const void* params, const void* tile_start, const void* tile_count, c
            int num_tiles, int tx_count, float width_f, float full_height_f, float inv_w2,
            float inv_h2, float inv_w, float inv_h, float two_w2, int y0, int chunk,
            float trans_eps, void* dparams, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<kMode>();
-  if (bytes > kDefaultSmem) {
-    // raise the limit once per device (the attribute belongs to the device's
-    // context); OBB and AABB stay under the default and never ask
-    static bool raised[kMaxDevices] = {};
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err != cudaSuccess) return (int)err;
-    if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-    if (!raised[device]) {
-      err = cudaFuncSetAttribute(composite_bwd_kernel<kMode>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (err != cudaSuccess) return (int)err;
-      raised[device] = true;
-    }
-  }
-  composite_bwd_kernel<kMode><<<num_tiles, kPix, bytes, stream>>>(
+  const int err = raise_smem_limit<kMode>();
+  if (err != (int)cudaSuccess) return err;
+  composite_bwd_kernel<kMode><<<num_tiles, kPix, smem_bytes<kMode>(), stream>>>(
       (const float*)params, (const int*)tile_start, (const int*)tile_count, (const float*)gbar,
       tx_count, width_f, full_height_f, inv_w2, inv_h2, inv_w, inv_h, two_w2, y0, chunk,
       trans_eps, (float*)dparams);
   return (int)cudaGetLastError();
+}
+
+template <int kMode>
+int occupancy(int* blocks_per_sm, int* dynamic_smem) {
+  const int err = raise_smem_limit<kMode>();
+  if (err != (int)cudaSuccess) return err;
+  *dynamic_smem = (int)smem_bytes<kMode>();
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, composite_bwd_kernel<kMode>,
+                                                            kPix, smem_bytes<kMode>());
 }
 
 }  // namespace
@@ -375,3 +573,12 @@ extern "C" int bgs_composite_bwd(const void* params, const void* tile_start,
             inv_w2, inv_h2, inv_w, inv_h, two_w2, y0, chunk, trans_eps, dparams,
             (cudaStream_t)stream);
 }
+
+// Resident blocks per SM of `mode`'s instantiation (with its shared memory
+// limit raised, as a launch does) and its dynamic shared memory in bytes.
+extern "C" int bgs_composite_bwd_occupancy(int mode, int* blocks_per_sm, int* dynamic_smem) {
+  if (mode != kModeObb && mode != kModeAabb && mode != kMode2d) return (int)cudaErrorInvalidValue;
+  auto fn = mode == kModeObb ? occupancy<kModeObb> : mode == kModeAabb ? occupancy<kModeAabb> : occupancy<kMode2d>;
+  return fn(blocks_per_sm, dynamic_smem);
+}
+

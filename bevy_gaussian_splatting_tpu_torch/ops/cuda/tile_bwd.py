@@ -4,12 +4,23 @@ Replaces the TPU kernel ``bevy_gaussian_splatting_tpu/ops/pallas/tile_bwd.py``
 ``_backward_kernel`` (``pallas_composite_backward``) with
 ``csrc/tile_bwd.cu``: one block of 256 threads per 16x16 tile, one thread per
 pixel, re-walking the tile front to back with the forward's chunk grid and
-early exit, each pair's gradients (10 columns, 16 for 2DGS) summed over the
-pixels by warp shuffles and a fixed-order pass over the warps.  OBB, AABB
-and 2DGS modes, as the forward.  On the H100 it is bound by FP32 operations
-(about 70 per pair and pixel inside an OBB splat, about 110 inside a surfel,
-plus one ``expf``, and 4-16 per pair and pixel outside it); see the source
-for the derivation and the design.
+early exit.  OBB, AABB and 2DGS modes, as the forward.
+
+A splat of the bench scene reaches a handful of a tile's pixels, so the
+kernel was bound by issued instructions spent on pixels it does not reach,
+not by its FP32 work or bytes.  Its design, for the H100: when a chunk is
+staged, each pair gets a mask of the warps (4x8-pixel blocks) that its
+splat's box may reach (:func:`warp_masks` is its twin, written with the
+kernel's float32 operations in its order), and each warp walks only the
+pairs whose mask holds it; a warp that a splat hits sums its 9-15 gradient
+columns over its lanes with one multi-column reduce-scatter (12-16
+shuffles); and each pair's sum reads only the warps of its mask, in warp
+order (no atomics: two launches are bitwise equal).  Leaving out a (pair,
+warp) whose pixels all have g = 0 changes no float, so the cull changes no
+gradient and no exit vote.  On "NVIDIA H100 80GB HBM3, 700.00 W" at the
+1M-gaussian bench scene this took the kernel from 1.54-1.99 ms to
+0.65-1.11 ms (``chip_smoke.py``, the earlier kernel and this one in turns;
+PERF.md).  See the source for the bounds and the design.
 
 ``composite_backward`` launches the kernel for CUDA tensors and runs the
 plain version, ``composite_backward_plain``, for CPU tensors.
@@ -19,8 +30,6 @@ plain version, ``composite_backward_plain``, for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
-
 import torch
 
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
@@ -30,6 +39,7 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
     MODE_2D,
     MODE_AABB,
     MODE_OBB,
+    MODES,
     PIX,
     TRANS_EPS,
     _check_inputs,
@@ -41,6 +51,10 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
 )
 
 GBAR_ROWS = 8  # [ghat_r, ghat_g, ghat_b, ghat_T, total_r, total_g, total_b, T_fin]
+WARPS = 8  # warps of a tile's block
+WARP_ROWS, WARP_COLS = 4, 8  # the kernel's warp shape in pixels
+OBB_MARGIN = 2.0**-13  # OBB's box margin, a share of hx + hy
+MIN_AXIS_NORM2 = 2.0**-100  # below this |e1|^2 the OBB box keeps every warp
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 4
@@ -83,15 +97,11 @@ def composite_backward_plain(
     chunk: int = MAX_CHUNK,
     mode: int = MODE_OBB,
     tile_batch: int = 128,
-    inside_count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version, vectorized over [tiles, chunk, 256] in batches
     of ``tile_batch`` tiles with the forward's chunk grid and exit rule
     (``composite_tiles_raw_plain``).  Within a chunk the transmittance is an
-    exclusive ``cumprod`` and the running ``q`` prefix a ``cumsum``.
-
-    ``inside_count``, if given ([T] int64), receives the number of walked
-    (pair, pixel) evaluations of each tile that fall inside their splat."""
+    exclusive ``cumprod`` and the running ``q`` prefix a ``cumsum``."""
     dev = params.device
     num_tiles = tile_start.shape[0]
     p = params.shape[0]
@@ -133,8 +143,6 @@ def composite_backward_plain(
             cr, cg, cb, op = (q[..., ro + i : ro + i + 1] for i in range(4))
             g, inside, aux = splat_falloff(q, px, py, mode, width, full_height)
             inside = inside & in_rng[..., None]
-            if inside_count is not None:
-                inside_count[tids] += inside.sum(dim=(1, 2))
             g = torch.where(inside, g, 0.0)
             raw = g * op
             alpha = torch.clamp(raw, max=ALPHA_CAP)  # [B, chunk, 256]
@@ -210,6 +218,87 @@ def composite_backward_plain(
     return dparams
 
 
+def tile_pairs(tile_start: torch.Tensor, counts: torch.Tensor):
+    """(tile, pair) [N] int64 of the first ``counts[t]`` pairs of each tile
+    t's range in the pair-sorted layout (``tile_count`` for all of them)."""
+    counts = counts.to(torch.int64).clamp(min=0)
+    tids = torch.repeat_interleave(torch.arange(tile_start.shape[0], device=counts.device), counts)
+    first = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    offset = torch.arange(tids.shape[0], device=counts.device) - first
+    return tids, torch.repeat_interleave(tile_start.to(torch.int64), counts) + offset
+
+
+def warp_masks(
+    params: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    tx_count: int,
+    width: int,
+    full_height: int,
+    y0: int = 0,
+    mode: int = MODE_OBB,
+) -> torch.Tensor:
+    """The kernel's per-pair warp masks [P] uint8: bit w set where the
+    splat of the pair's row may reach a pixel of warp w of its tile (warps of
+    4 x 8 pixels, row-major in the tile); 0 for pairs in no tile's range.  The same float32 operations in the same order
+    as ``warp_mask`` in csrc/tile_bwd.cu, so the bits are the kernel's.
+
+    The box |px - cx| <= hx, |py - cy| <= hy in the falloff's frame: OBB's
+    rotated rectangle (b1 |e1x| + b2 |e1y|, b1 |e1y| + b2 |e1x|) / |e1|^2
+    widened by ``OBB_MARGIN`` of hx + hy, empty where b1 <= 0, every warp
+    where |e1|^2 < ``MIN_AXIS_NORM2``; AABB the radius; 2DGS the staged
+    (mr / W, mr / H).  A strip of warps is left out where px - cx (or py -
+    cy), rounded, lies beyond the box at both of its extreme pixels."""
+    dev = params.device
+    tids, pair = tile_pairs(tile_start, tile_count)
+    q = params[pair]
+    px, py = tile_pixel_coords(tids, tx_count, width, full_height, y0, mode)
+    colx = px[:, :16]  # the falloff frame's x of the 16 columns
+    rowy = py[:, ::16]  # and y of the 16 rows, decreasing
+    full = torch.zeros(pair.shape[0], dtype=torch.bool, device=dev)
+    empty = torch.zeros_like(full)
+    if mode == MODE_OBB:
+        floor = torch.tensor(1e-12, dtype=torch.float32, device=dev)
+        empty = ~(q[:, 4] > 0.0)
+        b1, b2 = torch.fmax(q[:, 4], floor), torch.fmax(q[:, 5], floor)
+        ax, ay = q[:, 2].abs(), q[:, 3].abs()
+        n2 = q[:, 2] * q[:, 2] + q[:, 3] * q[:, 3]
+        full = ~(n2 >= MIN_AXIS_NORM2)
+        hx = (b1 * ax + b2 * ay) / n2
+        hy = (b1 * ay + b2 * ax) / n2
+        grow = (hx + hy) * OBB_MARGIN
+        hx, hy = hx + grow, hy + grow
+    elif mode == MODE_AABB:
+        hx = hy = q[:, 5]
+    else:
+        inv_w, inv_h, _ = _surfel_constants(width, full_height)
+        hx, hy = q[:, 2] * inv_w, q[:, 2] * inv_h
+    cx, cy = q[:, 0:1], q[:, 1:2]
+    hx, hy = hx[:, None], hy[:, None]
+    xlo = colx[:, 0::WARP_COLS] - cx
+    xhi = colx[:, WARP_COLS - 1 :: WARP_COLS] - cx
+    yhi = rowy[:, 0::WARP_ROWS] - cy
+    ylo = rowy[:, WARP_ROWS - 1 :: WARP_ROWS] - cy
+    xs = ~((xlo > hx) | (xhi < -hx))  # [pairs, 2 column strips]
+    ys = ~((ylo > hy) | (yhi < -hy))  # [pairs, 4 row strips]
+    keep = (ys[:, :, None] & xs[:, None, :]).reshape(-1, WARPS)  # warp w = (w // 2, w % 2)
+    keep = (keep | full[:, None]) & ~empty[:, None]
+    bits = (keep.to(torch.int64) << torch.arange(WARPS, device=dev)).sum(dim=1)
+    masks = torch.zeros(params.shape[0], dtype=torch.uint8, device=dev)
+    masks[pair] = bits.to(torch.uint8)
+    return masks
+
+
+def warp_pixels() -> torch.Tensor:
+    """Pixel indices [8, 32] of each warp of a tile (row-major pixel index
+    p = row * 16 + col), as the kernel maps its threads."""
+    w = torch.arange(WARPS)[:, None]
+    lane = torch.arange(32)[None, :]
+    row = (w // 2) * WARP_ROWS + lane // WARP_COLS
+    col = (w % 2) * WARP_COLS + lane % WARP_COLS
+    return row * 16 + col
+
+
 def composite_backward(
     params: torch.Tensor,
     tile_start: torch.Tensor,
@@ -259,6 +348,21 @@ def composite_backward(
     if num_tiles > 0:
         composite_backward.launches += 1
     return dparams
+
+
+def occupancy() -> dict:
+    """Per mode name, the kernel's resident blocks per SM and dynamic shared
+    memory (bytes) on the current CUDA device: ``{"obb": (blocks, bytes),
+    ...}``."""
+    fn = build.load("tile_bwd").bgs_composite_bwd_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = {}
+    for mode, name in MODES.items():
+        blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+        build.check(fn(mode, ctypes.byref(blocks), ctypes.byref(smem)), "composite_backward occupancy")
+        out[name] = (blocks.value, smem.value)
+    return out
 
 
 composite_backward.launches = 0

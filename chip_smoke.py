@@ -17,7 +17,9 @@ surfels (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``):
   1. build   every kernel under bevy_gaussian_splatting_tpu_torch/csrc with
              nvcc for sm_90a, one nvcc per source, all started together,
              and print what ptxas reports for each kernel (registers,
-             shared memory, spills);
+             shared memory, spills), and the backward compositor's
+             dynamic shared memory and resident blocks per SM in each
+             mode;
   2. scene   the repo's benchmark scene: 1,000,000 gaussians from
              ``random_gaussians_3d_seeded(n, seed=0)``, positions scaled by
              (1, 1, 0.25), scales by 0.05 (bench.py), camera at (0, 0, 60);
@@ -29,8 +31,12 @@ surfels (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``):
              compositor within 1e-4 of each gradient
              column's largest magnitude (its cotangent taken from a real
              loss; the AABB radius column and the 2DGS surfel radius column
-             exactly 0 in both), the segmented reduce array-equal (16
-             columns for 2DGS);
+             exactly 0 in both; two launches bitwise equal; the share of
+             (pair, warp) visits its cull keeps, from the twin of the
+             mask), the segmented reduce array-equal (16 columns for 2DGS);
+             with AABB also both compositors at the convergence protocols'
+             shapes (512 gaussians at 128x128, 192 at 48x48), timed over
+             200 launches;
   4. small   ``render()`` on the card against the port's oracle (3e-5; 2DGS
              1e-4) and against the same call on the CPU (2e-5; 2DGS 1e-4),
              and the gradients of every cloud field, card against CPU (1e-4
@@ -194,6 +200,7 @@ def orbit_camera(az: float, width: int, height: int, device):
 
 def phase_build() -> None:
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
 
     t0 = time.perf_counter()
     build.build_all()
@@ -202,6 +209,9 @@ def phase_build() -> None:
     for name in build.SOURCES:
         for kernel, usage in build.ptxas_usage(name):
             log(f"[build] ptxas {name}.cu {kernel}: {usage}")
+    occ = tb.occupancy()
+    log("[build] composite_backward resident blocks per SM and dynamic shared memory: "
+        + ", ".join(f"{m} {occ[m][0]} blocks, {occ[m][1]} B" for m in ("obb", "aabb", "2d")))
 
 
 def bound(nbytes: float, nops: float, ops_per_s: float):
@@ -211,13 +221,121 @@ def bound(nbytes: float, nops: float, ops_per_s: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def forward_case(comp_args, chunk: int, kmode: int, label: str, reps: int):
+    """The forward compositor against its plain version, timed by CUDA
+    events over ``reps`` launches -> (raw, pairs walked per tile, (pair,
+    pixel) evaluations inside, the kernels-line entry)."""
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
+
+    mode = tf.MODES[kmode]
+    params, start = comp_args[0], comp_args[1]
+    num_tiles = start.shape[0]
+    raw = tf.composite_tiles_raw(*comp_args, chunk=chunk, mode=kmode)
+    walked = torch.zeros(num_tiles, dtype=torch.int64, device=params.device)
+    inside = torch.zeros_like(walked)
+    raw_plain = tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, mode=kmode, tile_batch=512, walked=walked,
+                                             inside_count=inside)
+    err = float((raw - raw_plain).abs().max())
+    if not err <= IMAGE_BAR[mode]:
+        raise AssertionError(f"composite_tiles_raw {label}: max |kernel - plain| = {err:.3e} > {IMAGE_BAR[mode]}")
+    ms = cuda_ms(lambda: tf.composite_tiles_raw(*comp_args, chunk=chunk, mode=kmode), reps)
+    plain_ms = cuda_ms(lambda: tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, mode=kmode, tile_batch=512), 2)
+    n_walked, n_inside = int(walked.sum()), int(inside.sum())
+    # the bytes this frame needs: the rows of the walked pairs (the rest of
+    # the p_max rows no tile reads), the tile ranges, the output written once
+    nbytes = n_walked * params.shape[1] * 4 + 2 * 4 * num_tiles + raw.numel() * 4
+    ops = n_walked * tf.PIX * COMPOSITE_OPS_PER_EVAL[mode] + n_inside * COMPOSITE_OPS_PER_INSIDE[mode]
+    b, by = bound(nbytes, ops, FP32_NO_FMA_OPS_PER_S)
+    return raw, walked, n_inside, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                                       library_ms=None)
+
+
+def cotangent(raw, target, width: int, height: int):
+    """gbar of the bench objective mean((img - target)^2) through the
+    epilogue, at the forward's output ``raw``."""
+    from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
+
+    raw_req = raw.detach().requires_grad_()
+    img = tf.composite_epilogue(raw_req, None, width, rt.pad_to_tile(height))[:height]
+    (grad_raw,) = torch.autograd.grad(torch.mean((img - target) ** 2), raw_req)
+    return tb.pack_gbar(grad_raw, raw)
+
+
+def kept_share(masks, start, walked) -> float:
+    """Share of the walked (pair, warp) visits that the backward's cull
+    keeps, from the twin of its mask (``warp_masks``, [P] uint8)."""
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
+
+    _, pairs = tb.tile_pairs(start, walked)  # a tile walks the first walked[t] pairs of its range
+    m = masks.to(torch.int64)[pairs]
+    kept = sum(int(((m >> b) & 1).sum()) for b in range(tb.WARPS))
+    return kept / max(tb.WARPS * pairs.numel(), 1)
+
+
+def backward_case(bwd_args, chunk: int, kmode: int, label: str, walked, n_inside: int, reps: int):
+    """The backward compositor against its plain version (per column within
+    GRAD_BAR of its largest |plain|, the radius column exactly 0, two
+    launches bitwise equal, every row that the twin of its cull leaves to
+    no warp exactly 0 and every row with a plain gradient kept by some
+    warp), timed by CUDA events over ``reps`` launches, with the share of
+    (pair, warp) visits its cull keeps -> (dparams, the kernels-line entry,
+    a log fragment)."""
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
+
+    mode = tf.MODES[kmode]
+    params, start, count, gbar, tx_count, width, height = bwd_args
+    dsorted = tb.composite_backward(*bwd_args, chunk=chunk, mode=kmode)
+    plain = tb.composite_backward_plain(*bwd_args, chunk=chunk, mode=kmode, tile_batch=512)
+    col_max = plain.abs().amax(dim=0)
+
+    col_err = (dsorted - plain).abs().amax(dim=0)
+    if not bool((col_err <= GRAD_BAR * col_max).all()):
+        rel = (col_err / col_max.clamp(min=1e-30)).tolist()
+        raise AssertionError(f"composite_backward {label}: per-column |kernel - plain| / max|plain| "
+                             f"{[f'{r:.2e}' for r in rel]} above {GRAD_BAR}")
+    mask_col = {"aabb": 5, "2d": 2}.get(mode)  # the radius only masks
+    if mask_col is not None and (bool(dsorted[:, mask_col].any()) or bool(plain[:, mask_col].any())):
+        raise AssertionError(f"composite_backward {label}: the radius column ({mask_col}) has a gradient")
+    # the kernel against the twin of its cull: a row with an empty mask is
+    # walked by no warp, and a row with a gradient must be walked by one
+    masks = tb.warp_masks(params, start, count, tx_count, width, height, 0, kmode)
+    culled = masks == 0
+    if bool(dsorted[culled].any()):
+        raise AssertionError(f"composite_backward {label}: {int(dsorted[culled].any(dim=1).sum())} rows that the "
+                             "twin's mask leaves to no warp have a gradient")
+    if bool(((plain != 0).any(dim=1) & culled).any()):
+        raise AssertionError(f"composite_backward {label}: the twin's mask leaves out rows with a plain gradient")
+    if not torch.equal(dsorted, tb.composite_backward(*bwd_args, chunk=chunk, mode=kmode)):
+        raise AssertionError(f"composite_backward {label}: two launches on the same inputs differ")
+    col_rel = (col_err / col_max.clamp(min=1e-30)).tolist()
+    ms = cuda_ms(lambda: tb.composite_backward(*bwd_args, chunk=chunk, mode=kmode), reps)
+    plain_ms = cuda_ms(lambda: tb.composite_backward_plain(*bwd_args, chunk=chunk, mode=kmode, tile_batch=512), 1)
+    share = kept_share(masks, start, walked)
+    n_walked = int(walked.sum())
+    num_tiles = start.shape[0]
+    # the backward walks the forward's pairs; its output is all p_max rows
+    nbytes = n_walked * params.shape[1] * 4 + 2 * 4 * num_tiles + gbar.numel() * 4 + dsorted.numel() * 4
+    ops = n_walked * tf.PIX * BACKWARD_OPS_PER_EVAL[mode] + n_inside * BACKWARD_OPS_PER_INSIDE[mode]
+    b, by = bound(nbytes, ops, FP32_NO_FMA_OPS_PER_S)
+    line = (
+        f"composite_backward per-column |kernel - plain| / max|plain| {' '.join(f'{r:.2e}' for r in col_rel)} "
+        f"(bar {GRAD_BAR}), max_abs_err {float(col_err.max()):.3e}, bitwise equal twice, {ms:.4f} ms (plain "
+        f"{plain_ms:.4f}, bound {b:.4f} by {by}), (pair, pixel) inside {n_inside} of {n_walked * tf.PIX}, "
+        f"(pair, warp) visits kept {share:.4f}, rows culled whole {int(culled.sum())} of {params.shape[0]} (all 0)"
+    )
+    entry = dict(max_abs_err=float(col_err.max()), ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None)
+    return dsorted, entry, line
+
+
 def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dict:
     """Each kernel against its plain version on this frame's real inputs, in
     the compositors' mode for ``settings``."""
     from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import expand as ex
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import reduce as rd
-    from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 
     dev = cloud.device
@@ -261,22 +379,9 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     start, count = bins.start, bins.count
     chunk = tf.preferred_chunk(p_max, num_tiles)
     comp_args = (params, start, count, tx_count, width, height)
-    raw = tf.composite_tiles_raw(*comp_args, chunk=chunk, mode=kmode)
-    walked = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
-    raw_plain = tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, mode=kmode, tile_batch=512, walked=walked)
-    comp_err = float((raw - raw_plain).abs().max())
-    if not comp_err <= IMAGE_BAR[mode]:
-        raise AssertionError(f"composite_tiles_raw {label}: max |kernel - plain| = {comp_err:.3e} > {IMAGE_BAR[mode]}")
-    comp_ms = cuda_ms(lambda: tf.composite_tiles_raw(*comp_args, chunk=chunk, mode=kmode), 20)
-    comp_plain_ms = cuda_ms(
-        lambda: tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, mode=kmode, tile_batch=512), 2
-    )
+    raw, walked, n_inside, comp = forward_case(comp_args, chunk, kmode, label, 20)
+    comp_err, comp_ms = comp["max_abs_err"], comp["ms"]
     n_walked = int(walked.sum())
-    evals = n_walked * tf.PIX
-    # the bytes this frame needs: the rows of the walked pairs (the rest of
-    # the p_max rows no tile reads), the tile ranges, the output written once
-    row_bytes = params.shape[1] * 4
-    comp_bytes = n_walked * row_bytes + 2 * 4 * num_tiles + raw.numel() * 4
 
     # ---- the overlay instantiation against the plain overlay ----
     raw_b = tf.composite_tiles_raw(*comp_args, chunk=chunk, mode=kmode, bbox=True)
@@ -312,38 +417,9 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     # the moved cloud, through the epilogue
     with torch.no_grad():
         target = rt.render_tiled(target_cloud, camera, settings, pairs_max=p_max)
-    raw_req = raw.detach().requires_grad_()
-    img = tf.composite_epilogue(raw_req, None, width, rt.pad_to_tile(height))[:height]
-    (grad_raw,) = torch.autograd.grad(torch.mean((img - target) ** 2), raw_req)
-    gbar = tb.pack_gbar(grad_raw, raw)
+    gbar = cotangent(raw, target, width, height)
     bwd_args = (params, start, count, gbar, tx_count, width, height)
-    dsorted = tb.composite_backward(*bwd_args, chunk=chunk, mode=kmode)
-    inside = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
-    dsorted_plain = tb.composite_backward_plain(
-        *bwd_args, chunk=chunk, mode=kmode, tile_batch=512, inside_count=inside
-    )
-    col_max = dsorted_plain.abs().amax(dim=0)
-    col_err = (dsorted - dsorted_plain).abs().amax(dim=0)
-    col_rel = (col_err / col_max.clamp(min=1e-30)).tolist()
-    bwd_err = float(col_err.max())
-    if not bool((col_err <= GRAD_BAR * col_max).all()):
-        raise AssertionError(
-            f"composite_backward {label}: per-column |kernel - plain| / max|plain| "
-            f"{[f'{r:.2e}' for r in col_rel]} above {GRAD_BAR}"
-        )
-    mask_col = {"aabb": 5, "2d": 2}.get(mode)  # the radius only masks
-    if mask_col is not None and (bool(dsorted[:, mask_col].any()) or bool(dsorted_plain[:, mask_col].any())):
-        raise AssertionError(f"composite_backward {label}: the radius column ({mask_col}) has a gradient")
-    bwd_ms = cuda_ms(lambda: tb.composite_backward(*bwd_args, chunk=chunk, mode=kmode), 10)
-    bwd_plain_ms = cuda_ms(
-        lambda: tb.composite_backward_plain(*bwd_args, chunk=chunk, mode=kmode, tile_batch=512), 1
-    )
-    n_inside = int(inside.sum())
-    # the backward walks the forward's pairs; its output is all p_max rows
-    bwd_bytes = n_walked * row_bytes + 2 * 4 * num_tiles + gbar.numel() * 4 + dsorted.numel() * 4
-    bwd_ops = evals * BACKWARD_OPS_PER_EVAL[mode] + n_inside * BACKWARD_OPS_PER_INSIDE[mode]
-    # the forward walks the same pairs with the same inside test
-    comp_ops = evals * COMPOSITE_OPS_PER_EVAL[mode] + n_inside * COMPOSITE_OPS_PER_INSIDE[mode]
+    dsorted, bwd, bwd_line = backward_case(bwd_args, chunk, kmode, label, walked, n_inside, 10)
 
     # ---- segmented reduce: array-equal, at the mode's row width ----
     cols = tf.param_width(kmode)
@@ -367,36 +443,67 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     red_ops = owned * cols
 
     eb, eby = bound(exp_bytes, exp_ops, INT32_OPS_PER_S)
-    cb, cby = bound(comp_bytes, comp_ops, FP32_NO_FMA_OPS_PER_S)
-    bb, bby = bound(bwd_bytes, bwd_ops, FP32_NO_FMA_OPS_PER_S)
     rb, rby = bound(red_bytes, red_ops, FP32_NO_FMA_OPS_PER_S)
     log(
         f"[kernels {label}] pairs {total} p_max {p_max} chunk {chunk} | "
         f"expand equal, {exp_ms:.4f} ms (plain {exp_plain_ms:.4f}, bound {eb:.4f} by {eby}) | "
-        f"composite max_abs_err {comp_err:.3e}, {comp_ms:.4f} ms (plain {comp_plain_ms:.4f}, "
-        f"bound {cb:.4f} by {cby}), pairs walked {n_walked} of {int(count.sum())}"
+        f"composite max_abs_err {comp_err:.3e}, {comp_ms:.4f} ms (plain {comp['plain_ms']:.4f}, "
+        f"bound {comp['bound_ms']:.4f} by {comp['bound_by']}), pairs walked {n_walked} of {int(count.sum())}"
     )
     log(
-        f"[kernels {label}] composite_backward per-column |kernel - plain| / max|plain| "
-        f"{' '.join(f'{r:.2e}' for r in col_rel)} (bar {GRAD_BAR}), max_abs_err {bwd_err:.3e}, "
-        f"{bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}, bound {bb:.4f} by {bby}), (pair, pixel) inside "
-        f"{n_inside} of {evals} | segment_reduce equal over {n} ranks, {owned} slots x {cols} columns, {red_ms:.4f} ms "
-        f"(plain {red_plain_ms:.4f}, bound {rb:.4f} by {rby}, torch.segment_reduce {red_lib_ms:.4f}, "
+        f"[kernels {label}] {bwd_line} | segment_reduce equal over {n} ranks, {owned} slots x {cols} columns, "
+        f"{red_ms:.4f} ms (plain {red_plain_ms:.4f}, bound {rb:.4f} by {rby}, torch.segment_reduce {red_lib_ms:.4f}, "
         f"differs by {lib_err:.3e})"
     )
     log(bbox_line)
     return {
         "expand_pairs": dict(max_abs_err=exp_err, ms=exp_ms, plain_ms=exp_plain_ms, bound_ms=eb, bound_by=eby,
                              library_ms=None),
-        "composite_tiles_raw": dict(max_abs_err=comp_err, ms=comp_ms, plain_ms=comp_plain_ms, bound_ms=cb,
-                                    bound_by=cby, library_ms=None),
-        "composite_backward": dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bb, bound_by=bby,
-                                   library_ms=None),
+        "composite_tiles_raw": comp,
+        "composite_backward": bwd,
         "segment_reduce": dict(max_abs_err=red_err, ms=red_ms, plain_ms=red_plain_ms, bound_ms=rb, bound_by=rby,
                                library_ms=red_lib_ms),
         "composite_tiles_raw+bbox": dict(max_abs_err=bbox_err, ms=bbox_ms, plain_ms=bbox_plain_ms, bound_ms=xb,
                                          bound_by=xby, library_ms=None),
     }
+
+
+def phase_kernels_converge() -> None:
+    """The two compositors at the convergence protocols' shapes (AABB,
+    ``CONVERGE``): the protocol's starting cloud (``_init_arrays``) seen from
+    its first view, with ``render_tiled``'s default pair budget; each kernel
+    against its plain version and timed by CUDA events over 200 launches,
+    with its bound; the cotangent from the bench objective against the
+    test model's render."""
+    from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy, test_model_3d
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
+    from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
+    from bevy_gaussian_splatting_tpu_torch.train.quality import _init_arrays
+
+    settings = CloudSettings(aabb=True)
+    kmode = rt.kernel_mode(settings)
+    target_cloud = test_model_3d(seed=11, device="cuda")
+    for _, n, size, _ in CONVERGE:
+        label = f"aabb converge n {n} {size}x{size}"
+        cloud = cloud_from_numpy(_init_arrays(target_cloud, n, 0), "cuda")
+        camera = Camera.create(eye=(0.0, 1.0, 5.0), target=(0, 0, 0), width=size, height=size, device="cuda")
+        p_max = rt.pairs_budget(n)
+        splats = rt.project_for_binning(cloud, camera, settings)
+        bins = rt.tile_bins(splats, size, size, p_max)
+        params = rt.pack_raster_params(splats, settings, size, size)[bins.g_s].contiguous()
+        tx_count = size // rt.TILE
+        chunk = tf.preferred_chunk(p_max, bins.start.shape[0])
+        comp_args = (params, bins.start, bins.count, tx_count, size, size)
+        raw, walked, n_inside, fwd = forward_case(comp_args, chunk, kmode, label, 200)
+        with torch.no_grad():
+            target = rt.render_tiled(target_cloud, camera, settings)
+        bwd_args = (params, bins.start, bins.count, cotangent(raw, target, size, size), tx_count, size, size)
+        bwd_line = backward_case(bwd_args, chunk, kmode, label, walked, n_inside, 200)[2]
+        log(f"[kernels {label}] pairs {int(bins.count.sum())} p_max {p_max} chunk {chunk}, walked "
+            f"{int(walked.sum())} | composite max_abs_err {fwd['max_abs_err']:.3e}, {fwd['ms']:.4f} ms (plain "
+            f"{fwd['plain_ms']:.4f}, bound {fwd['bound_ms']:.4f} by {fwd['bound_by']}) | {bwd_line}")
 
 
 def small_grads(arrays: dict, camera, background, settings, device) -> dict:
@@ -940,6 +1047,8 @@ def main() -> int:
             if (width, height) == SIZES[0]:
                 results[mode] = res
                 results[mode + "+bbox"] = {"composite_tiles_raw": res["composite_tiles_raw+bbox"]}
+        if mode == "aabb":
+            timed("kernels aabb converge", phase_kernels_converge)
         timed(f"small {mode}", phase_small, settings)
         if mode == "obb":
             timed("small views", phase_small_views)

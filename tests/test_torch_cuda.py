@@ -24,6 +24,7 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 from bevy_gaussian_splatting_tpu_torch.render.api import render
 from bevy_gaussian_splatting_tpu_torch.train.losses import mse
 from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, shifted_arrays
+from torch_port_cases import MODE, adversarial_rows, special_rows
 
 FIELDS = ("position_visibility", "spherical_harmonic", "rotation", "scale_opacity")
 GRAD_BAR = 1e-4  # chip_smoke.py's bar: per column or field, of its largest |plain|
@@ -42,7 +43,9 @@ def card():
 
 def _scene(kind, n, seed):
     a = random_arrays_3d_seeded(n, seed=seed)
-    if kind == "bench":
+    if kind == "wide":  # the raw draw: large splats spanning many tiles
+        return a
+    if kind.startswith("bench"):
         a["position_visibility"] *= np.array([1, 1, 0.25, 1], np.float32)
         a["scale_opacity"] *= np.array([0.05, 0.05, 0.05, 1], np.float32)
     else:  # heavy occlusion: whole tiles saturate, the early exit binds
@@ -103,11 +106,38 @@ def test_render_card_matches_cpu(card, height):
     assert float((gpu.cpu() - cpu).abs().max()) <= 2e-5
 
 
-@pytest.mark.parametrize("kind,n,height,chunk", [("bench", 20000, 256, None), ("occluded", 1000, 120, 128)])
+# the backward's cases: the bench scene, heavy occlusion with short chunks,
+# large splats spanning the tile, the bench scene with short chunks; for OBB
+# also rows with b1 <= 0 (every fifth negated, every seventh 0)
+BWD_CASES = [("bench", 20000, 256, None), ("occluded", 1000, 120, 128), ("wide", 400, 256, None),
+             ("bench", 20000, 256, 128)]
+
+
+def _bitwise_again(got, *args, **kwargs):
+    """A second launch on the same inputs gives the same bits."""
+    again = tb.composite_backward(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def _matches_twin(got, plain, params, start, count, gbar, tx_count, width, full_height, y0=0, mode=tb.MODE_OBB):
+    """The kernel against the twin of its cull (``warp_masks``): a row whose
+    mask holds no warp gets no gradient from the kernel, and every row with a
+    plain gradient is held by some warp's mask -> the rows culled whole."""
+    culled = tb.warp_masks(params, start, count, tx_count, width, full_height, y0, mode) == 0
+    assert not bool(got[culled].any())
+    assert not bool(((plain != 0).any(dim=1) & culled).any())
+    return int(culled.sum())
+
+
+@pytest.mark.parametrize("kind,n,height,chunk", BWD_CASES + [("bench-b1", 20000, 256, None)])
 def test_backward_and_reduce_kernels_match_plain(card, kind, n, height, chunk):
     splats, p_max = _inputs(_scene(kind, n, 5), 256, height, card)
     bins = rt.tile_bins(splats, 256, height, p_max)
     params = rt.pack_raster_params(splats, CloudSettings(), 256, height)[bins.g_s].contiguous()
+    if kind == "bench-b1":
+        params[::5, 4] = -params[::5, 4]
+        params[1::7, 4] = 0.0
     if chunk is None:
         chunk = tf.preferred_chunk(p_max, bins.start.shape[0])
     raw = tf.composite_tiles_raw(params, bins.start, bins.count, 16, 256, height, chunk=chunk)
@@ -121,6 +151,8 @@ def test_backward_and_reduce_kernels_match_plain(card, kind, n, height, chunk):
     torch.cuda.synchronize()
     col_max = ref.abs().amax(dim=0)
     assert bool(((got - ref).abs().amax(dim=0) <= GRAD_BAR * col_max).all())
+    _matches_twin(got, ref, *args)
+    _bitwise_again(got, *args, chunk=chunk)
 
     dslot = torch.empty_like(got)
     dslot[bins.order] = got
@@ -129,6 +161,31 @@ def test_backward_and_reduce_kernels_match_plain(card, kind, n, height, chunk):
     drank = rd.segment_reduce(dslot, bins.cum, n_ranks)
     assert rd.segment_reduce.launches == before + 1
     assert torch.equal(drank, rd.segment_reduce_plain(dslot, bins.cum, n_ranks))
+
+
+@pytest.mark.parametrize("mode", ["obb", "aabb", "2d"])
+def test_backward_kernel_on_adversarial_rows(card, mode):
+    # tests/test_torch_cull.py's rows on one tile: splats straddling warp
+    # strips with extents at a pixel's offset +- 2 ulps, b1 <= 0, r = 0, a
+    # zero axis, whole-tile splats; kernel within GRAD_BAR of the plain
+    # version per column, zero on every row the twin of its cull leaves to
+    # no warp (some are), bitwise equal twice
+    width, height, y0 = 32, 48, 8
+    rows = adversarial_rows(mode, width, height, y0, 480, seed=5)  # one chunk: no early exit
+    params = torch.cat([rows, torch.stack([r for r, _ in special_rows(mode, width, height, y0)])]).to(card)
+    n = params.shape[0]
+    start = torch.tensor([0, n, n, n, n, n], dtype=torch.int32, device=card)
+    count = torch.tensor([n, 0, 0, 0, 0, 0], dtype=torch.int32, device=card)
+    gbar = (torch.rand((6, tb.GBAR_ROWS, tb.PIX), generator=torch.Generator().manual_seed(3)) - 0.5).to(card)
+    args = (params, start, count, gbar, width // 16, width, height, y0)
+    got = tb.composite_backward(*args, chunk=512, mode=MODE[mode])
+    plain = tb.composite_backward_plain(*args, chunk=512, mode=MODE[mode])
+    torch.cuda.synchronize()
+    col_max = plain.abs().amax(dim=0)
+    assert bool(((got - plain).abs().amax(dim=0) <= GRAD_BAR * col_max).all())
+    assert int((got != 0).any(dim=1).sum()) > n // 4  # the rows reach the tile
+    assert _matches_twin(got, plain, *args, mode=MODE[mode]) > 0
+    _bitwise_again(got, *args, chunk=512, mode=MODE[mode])
 
 
 def _grads(arrays, camera, background, device, settings=CloudSettings()):
@@ -156,7 +213,7 @@ def test_training_gradients_card_match_cpu(card, height):
         assert float((gpu[f] - cpu[f]).abs().max()) <= GRAD_BAR * float(cpu[f].abs().max()), f
 
 
-@pytest.mark.parametrize("kind,n,height,chunk", [("bench", 20000, 256, None), ("occluded", 1000, 120, 128)])
+@pytest.mark.parametrize("kind,n,height,chunk", BWD_CASES)
 def test_aabb_compositor_kernels_match_plain(card, kind, n, height, chunk):
     # chip_smoke.py's bars: forward within 2e-5, backward within 1e-4 of each
     # column's largest |plain|, the radius column (5) exactly 0 in both
@@ -182,6 +239,8 @@ def test_aabb_compositor_kernels_match_plain(card, kind, n, height, chunk):
     assert not bool(got[:, 5].any()) and not bool(plain[:, 5].any())
     col_max = plain.abs().amax(dim=0)
     assert bool(((got - plain).abs().amax(dim=0) <= GRAD_BAR * col_max).all())
+    _matches_twin(got, plain, *bwd_args, mode=tb.MODE_AABB)
+    _bitwise_again(got, *bwd_args, chunk=chunk, mode=tb.MODE_AABB)
 
 
 @pytest.mark.parametrize("height", [128, 120])
@@ -200,8 +259,7 @@ def test_aabb_render_and_gradients_card_match_cpu(card, height):
         assert float((g_gpu[f] - g_cpu[f]).abs().max()) <= GRAD_BAR * float(g_cpu[f].abs().max()), f
 
 
-@pytest.mark.parametrize("kind,n,height,chunk", [("bench", 20000, 256, None), ("occluded", 1000, 120, 128),
-                                                 ("surfels", 16, 120, None)])
+@pytest.mark.parametrize("kind,n,height,chunk", BWD_CASES + [("surfels", 16, 120, None)])
 def test_2dgs_kernels_match_plain(card, kind, n, height, chunk):
     # chip_smoke.py's bars: forward within 1e-4, backward within 1e-4 of each
     # column's largest |plain| with the surfel radius column (2) exactly 0 in
@@ -231,6 +289,7 @@ def test_2dgs_kernels_match_plain(card, kind, n, height, chunk):
     assert not bool(got[:, 2].any()) and not bool(plain[:, 2].any())
     col_max = plain.abs().amax(dim=0)
     assert bool(((got - plain).abs().amax(dim=0) <= GRAD_BAR * col_max).all())
+    _matches_twin(got, plain, *bwd_args, mode=tf.MODE_2D)
     dslot = torch.empty_like(got)
     dslot[bins.order] = got
     n_ranks = bins.cum.shape[0]
@@ -238,6 +297,7 @@ def test_2dgs_kernels_match_plain(card, kind, n, height, chunk):
     assert torch.equal(drank, rd.segment_reduce_plain(dslot, bins.cum, n_ranks))
     after = (tf.composite_tiles_raw.launches, tb.composite_backward.launches, rd.segment_reduce.launches)
     assert after == tuple(b + 1 for b in before)
+    _bitwise_again(got, *bwd_args, chunk=chunk, mode=tf.MODE_2D)
 
 
 @pytest.mark.parametrize("height", [128, 120])

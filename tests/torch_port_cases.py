@@ -10,20 +10,24 @@ overlapping splats; scales * 3 so whole tiles saturate).  The 2DGS cases add
 the surfel grid of ``tools/surfel_plane.py`` (the port's numpy copy of
 ``make_surfel_grid`` is ``models/cloud.py`` ``surfel_grid_arrays``) seen from
 its camera eye, ``SURFEL_EYE``.
+
+The module imports JAX and the JAX package only inside the functions that
+build the JAX side, so that the card tests (tests/test_torch_cuda.py), which
+run where JAX is not installed, share the backward cull's rows
+(``adversarial_rows``, ``special_rows``) with tests/test_torch_cull.py.
 """
 
 from __future__ import annotations
 
-import jax.numpy as jnp
 import numpy as np
 import torch
 
-import bevy_gaussian_splatting_tpu as bgs
 from bevy_gaussian_splatting_tpu_torch.models.camera import Camera as TCamera
 from bevy_gaussian_splatting_tpu_torch.models.cloud import (
     cloud_from_numpy,
     random_arrays_3d_seeded,
 )
+from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 
 # The suite runs in several pytest-xdist workers at once, and every worker
 # imports this module while collecting.  PyTorch's default intra-op pool, one
@@ -54,6 +58,10 @@ def cloud_arrays(kind: str, n: int, seed: int) -> dict:
 
 
 def jax_cloud(arrays: dict):
+    import jax.numpy as jnp
+
+    import bevy_gaussian_splatting_tpu as bgs
+
     return bgs.Gaussian3dCloud(**{k: jnp.asarray(v) for k, v in arrays.items()})
 
 
@@ -63,6 +71,8 @@ def torch_cloud(arrays: dict):
 
 def cameras(width: int, height: int, eye=EYE):
     """The same camera in both packages."""
+    import bevy_gaussian_splatting_tpu as bgs
+
     return (
         bgs.Camera.create(eye=eye, target=(0.0, 0.0, 0.0), width=width, height=height),
         TCamera.create(eye=eye, target=(0.0, 0.0, 0.0), width=width, height=height, device="cpu"),
@@ -81,6 +91,8 @@ CASE_IDS = [f"{k}{n}-{w}x{h}" for k, n, _, w, h in CASES]
 
 def jax_splats(cloud, camera, settings):
     """The JAX package's binning inputs, prepared as its render_tiled does."""
+    import jax.numpy as jnp
+
     from bevy_gaussian_splatting_tpu.ops import sort as sort_ops
     from bevy_gaussian_splatting_tpu.ops.project import project_gaussians
 
@@ -98,6 +110,7 @@ def jax_splats(cloud, camera, settings):
 def overlay_settings(mode: str, **kw):
     """The same bounding-box overlay settings in both packages, for kernel
     mode ``mode`` ("obb", "aabb" or "2d"), with ``kw`` on top."""
+    import bevy_gaussian_splatting_tpu as bgs
     from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode
 
     j = {"aabb": mode == "aabb", "visualize_bounding_box": True, **kw}
@@ -111,3 +124,127 @@ def overlay_settings(mode: str, **kw):
 def green_pixels(img: np.ndarray) -> int:
     """Pixels whose colour is the overlay's green (an edge on top)."""
     return int((np.abs(img[..., :3] - np.array([0.3, 1.0, 0.1], np.float32)).max(axis=-1) < 1e-6).sum())
+
+
+# the backward cull's rows (tests/test_torch_cull.py, tests/test_torch_cuda.py)
+MODE = {"obb": tf.MODE_OBB, "aabb": tf.MODE_AABB, "2d": tf.MODE_2D}
+
+
+def _tile_coords(mode, width, height, y0):
+    """Columns' x and rows' y of the frame's tile 0, in ``mode``'s frame."""
+    px, py = tf.tile_pixel_coords(torch.tensor([0]), width // 16, width, height, y0, MODE[mode])
+    return px[0, :16], py[0, ::16]
+
+
+def _nudge(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """x moved by k ulps (float32, k in -2..2)."""
+    out = x.clone()
+    for _ in range(2):
+        up = k > 0
+        down = k < 0
+        out = torch.where(up, torch.nextafter(out, torch.tensor(np.inf, dtype=torch.float32)), out)
+        out = torch.where(down, torch.nextafter(out, torch.tensor(-np.inf, dtype=torch.float32)), out)
+        k = k - up.to(k.dtype) + down.to(k.dtype)
+    return out
+
+
+def adversarial_rows(mode, width, height, y0, n, seed):
+    """[n, param_width(mode)] rows for tile 0 of a ``width`` x ``height``
+    frame placed at ``y0``: centres on pixels, between them or anywhere near
+    the tile, extents snapped to one pixel's offset and moved by -2 ... 2
+    ulps."""
+    rng = np.random.default_rng(seed)
+    colx, rowy = _tile_coords(mode, width, height, y0)
+    spacing_x = float(colx[1] - colx[0])
+    spacing_y = float(rowy[0] - rowy[1])
+    # centres on pixels, halfway between them, or anywhere in and around the tile
+    ci = rng.integers(0, 16, n)
+    ri = rng.integers(0, 16, n)
+    jitter = rng.choice([0.0, 0.5, -0.5], n)[:, None] * np.array([spacing_x, spacing_y])
+    free = rng.uniform(-3, 19, (n, 2)) * np.array([spacing_x, -spacing_y]) + np.array([float(colx[0]), float(rowy[0])])
+    pick = rng.random(n) < 0.3
+    cx = np.where(pick, free[:, 0], colx.numpy()[ci] + jitter[:, 0]).astype(np.float32)
+    cy = np.where(pick, free[:, 1], rowy.numpy()[ri] + jitter[:, 1]).astype(np.float32)
+    cx_t, cy_t = torch.from_numpy(cx), torch.from_numpy(cy)
+    # a target pixel per row, whose offset sets an extent
+    tx_ = torch.from_numpy(rng.integers(0, 16, n))
+    ty_ = torch.from_numpy(rng.integers(0, 16, n))
+    ox = colx[tx_] - cx_t  # the kernel's rounded offsets, pixel minus centre
+    oy = rowy[ty_] - cy_t
+    k = torch.from_numpy(rng.integers(-2, 3, n))
+    cols = tf.param_width(MODE[mode])
+    rows = torch.zeros((n, cols), dtype=torch.float32)
+    rows[:, 0], rows[:, 1] = cx_t, cy_t
+    ro = tf.rgb_row(MODE[mode])
+    rows[:, ro : ro + 3] = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    rows[:, ro + 3] = torch.from_numpy(rng.uniform(0.05, 1, n).astype(np.float32))
+    if mode == "obb":
+        theta = rng.uniform(0, np.pi, n)
+        axis = rng.random(n) < 0.3  # some axis-aligned, where u or v is one offset
+        theta = np.where(axis, rng.choice([0.0, np.pi / 2], n), theta)
+        e1 = torch.from_numpy(np.stack([np.cos(theta), np.sin(theta)], 1).astype(np.float32))
+        rows[:, 2:4] = e1
+        # |u| = 1 at the target pixel: b1 = |dx e1x + dy e1y| in float32, then
+        # moved by k ulps; b2 likewise for v, or free
+        b1 = (ox * e1[:, 0] + oy * e1[:, 1]).abs()
+        b2 = (ox * e1[:, 1] - oy * e1[:, 0]).abs()
+        free_b = torch.from_numpy(np.exp(rng.uniform(np.log(0.05), np.log(60.0), (n, 2))).astype(np.float32))
+        snap = torch.from_numpy(rng.integers(0, 3, n))  # 0: b1 snapped, 1: b2 snapped, 2: both
+        b1 = torch.where(snap != 1, _nudge(b1, k), free_b[:, 0])
+        b2 = torch.where(snap != 0, _nudge(b2, -k), free_b[:, 1])
+        rows[:, 4], rows[:, 5] = torch.clamp(b1, min=1e-6), torch.clamp(b2, min=1e-6)
+    elif mode == "aabb":
+        r = torch.maximum(ox.abs(), oy.abs())
+        rows[:, 5] = _nudge(r, k)
+        # a conic with power <= 0 near the centre and > 0 nowhere needed
+        s = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(1.0), (n, 2))).astype(np.float32))
+        rows[:, 2], rows[:, 4] = s[:, 0], s[:, 1]
+        rows[:, 3] = torch.from_numpy(rng.uniform(-0.5, 0.5, n).astype(np.float32)) * torch.sqrt(s[:, 0] * s[:, 1])
+    else:
+        inv_w, inv_h, _ = tf._surfel_constants(width, height)
+        # mr with fl(mr / W) or fl(mr / H) at one offset, then k ulps
+        on_x = rng.random(n) < 0.5
+        mr = torch.where(torch.from_numpy(on_x), ox.abs() / inv_w, oy.abs() / inv_h)
+        rows[:, 2] = _nudge(mr.to(torch.float32), k)
+        rows[:, 3:12] = torch.from_numpy(rng.normal(0, 1, (n, 9)).astype(np.float32))
+        rows[:, 11] = rows[:, 11].abs() + 0.5  # C.z away from 0
+    return rows
+
+
+def special_rows(mode, width, height, y0):
+    """Rows with a known mask: [(row, expected mask), ...]."""
+    colx, rowy = _tile_coords(mode, width, height, y0)
+    cx, cy = float(colx[7]), float(rowy[7])
+    cols = tf.param_width(MODE[mode])
+    out = []
+
+    def row(**kw):
+        r = torch.zeros(cols, dtype=torch.float32)
+        r[0], r[1] = cx, cy
+        ro = tf.rgb_row(MODE[mode])
+        r[ro : ro + 4] = torch.tensor([0.5, 0.5, 0.5, 0.8])
+        for i, v in kw.items():
+            r[int(i[1:])] = v
+        return r
+
+    if mode == "obb":
+        out += [(row(c2=1.0, c4=0.0, c5=3.0), 0), (row(c2=1.0, c4=-2.0, c5=3.0), 0)]  # b1 <= 0: empty
+        out += [(row(c2=0.6, c3=0.8, c4=1e4, c5=1e4), 0xFF)]  # covers the tile
+        out += [(row(c2=0.0, c3=0.0, c4=1.0, c5=1.0), 0xFF)]  # no axis: u = v = 0 everywhere
+        out += [(row(c2=1.0, c4=3.0, c5=-1.0), None)]  # b2 <= 0 with b1 > 0
+    elif mode == "aabb":
+        out += [(row(c2=0.1, c4=0.1, c5=0.0), None)]  # r = 0, centre on a pixel: that warp only
+        out += [(row(c2=1e-4, c4=1e-4, c5=1e5), 0xFF)]
+        out += [(row(c2=0.1, c4=0.1, c5=-1.0), None)]
+    else:
+        # a square whose bottom edge is the boundary between rows 7 and 8:
+        # centre on row 3.5, half-height to row 7 exactly, then one ulp more
+        inv_h = tf._surfel_constants(width, height)[1]
+        mid = (rowy[3] + rowy[4]) * 0.5
+        half = float((rowy[7] - mid).abs())
+        for mr in (half / inv_h, float(np.nextafter(np.float32(half / inv_h), np.float32(np.inf)))):
+            r = row(c2=mr, c11=1.0, c3=1.0, c7=1.0)
+            r[1] = mid
+            out.append((r, None))
+        out += [(row(c2=1e4, c11=1.0, c3=50.0, c7=50.0), 0xFF)]
+    return out
