@@ -52,9 +52,9 @@
 // gradient term flips and the exit vote can fall one chunk apart.  All modes
 // share one body (a template on the mode), as in the forward.
 //
-// What bounds it on the H100.  The arithmetic a gradient needs is small: the
-// bound (chip_smoke.py) counts 4-16 FP32 operations per walked (pair, pixel)
-// and 51-105 more where the pixel is inside the splat.  A splat of the bench
+// What bounds it on the H100.  The arithmetic a gradient needs is small:
+// 51-105 FP32 operations where a pixel is inside the splat, none elsewhere
+// (the bound below).  A splat of the bench
 // scene reaches 5-8 of a tile's 256 pixels, so almost all of a pair's work
 // in a kernel that visits every (pair, pixel) is overhead: staged loads, the
 // falloff and a vote for warps that no pixel of the splat reaches, a full
@@ -64,25 +64,14 @@
 // overhead and keeps the arithmetic:
 //
 //  1. Per-warp footprint culling, decided once per pair when its chunk is
-//     staged.  The staging thread bounds the splat by a box |px - cx| <= hx,
-//     |py - cy| <= hy in the falloff's frame and turns it into a mask of the
-//     warps whose pixels it may touch (warp_mask).  A strip of pixels is
-//     left out when fl(x - cx) at its first and last pixel both lie beyond
-//     the box: rounding is monotone, so every pixel between does too.  AABB
-//     and 2DGS test that with the exact test's own half-widths (the radius;
-//     the staged mr/W, mr/H), so their box is the clip itself.  OBB's box is
-//     the rotated rectangle's, (b1 |e1x| + b2 |e1y|, b1 |e1y| + b2 |e1x|) /
-//     |e1|^2, widened by 2^-13 of hx + hy: the rounding of u, v, 1/b and the
-//     box's own arithmetic stay below 20 ulps of hx + hy, so no pixel that
-//     the exact test keeps is dropped.  b1 <= 0 is empty (the exact test
-//     rejects it); an axis with |e1|^2 < 2^-100 (or NaN) keeps every warp,
-//     and so does any NaN in the box (the comparisons are written so that
-//     NaN keeps).  Each warp ballots its own bit over a batch of pairs and
-//     walks only the set bits in order (__ffsll); the exact falloff still
-//     decides every pair it visits.  A left-out (pair, warp) has g = 0 at
-//     every pixel, so a = 0 and T, q_acc and every partial are unchanged to
-//     the bit: the culling changes no float and no exit vote.  The twin of
-//     the mask in PyTorch is ops/cuda/tile_bwd.py `warp_masks`.
+//     staged: warp_mask (csrc/cull.cuh, shared with the forward) bounds the
+//     splat by a box in the falloff's frame and keeps the warps whose
+//     pixels the box may touch.  Each warp ballots its own bit over a batch
+//     of pairs and walks only the set bits in order (__ffsll); the exact
+//     falloff still decides every pair it visits.  A left-out (pair, warp)
+//     has g = 0 at every pixel, so a = 0 and T, q_acc and every partial are
+//     unchanged to the bit: the culling changes no float and no exit vote.
+//     The twin of the mask in PyTorch is ops/cuda/cull.py `warp_masks`.
 //  2. A multi-column warp reduce.  The 9-15 gradient columns of a hit warp
 //     are summed over its lanes by a reduce-scatter (reduce_scatter): at each
 //     of the five shuffle distances 16 ... 1 a lane keeps half of its
@@ -102,11 +91,10 @@
 //     memory and 3 resident blocks per SM.  OBB and AABB are held to 48
 //     registers so that 5 blocks fit an SM (shared memory allows 5); 2DGS
 //     runs 4.
-//  5. Warps of 4 x 8 pixels: a splat's box meets fewer of them than of 2 x
-//     16 strips (the bench scene keeps 0.17-0.18 of the visits at 512x512
-//     against 0.21), at the price of a second column strip in the mask.
-//     gbar's layout and the pixel index stay in pixel order; only the
-//     thread-to-pixel map follows the shape.
+//  5. Warps of 4 x 8 pixels (cull.cuh): a splat's box meets fewer of them
+//     than of 2 x 16 strips (the bench scene keeps 0.17-0.18 of the visits
+//     at 512x512 against 0.21), at the price of a second column strip in
+//     the mask.
 //
 // The choices of items 4 and 5 were timed against their alternatives (2 x
 // 16 warps, batches of 32, no floor on resident blocks) on the card; PERF.md
@@ -117,42 +105,23 @@
 // columns] and the masks [512] B.  Above 48 KB (2DGS), cudaFuncSetAttribute
 // raises the limit once per device, before the first launch.
 //
-// Bound on the H100: operations, counted per walked evaluation as before
-// (chip_smoke.py keeps the formula so the numbers stay comparable): 12 FP32
-// operations per walked (pair, pixel) for OBB (offsets, u, v, the inside
-// test), 16 for AABB, 4 for 2DGS, and inside the splat 59 (OBB), 50 (AABB)
-// or 104 (2DGS) more and one expf.  The culled kernel no longer evaluates
-// most walked (pair, pixel)s, so that bound overstates the work it does.
+// Bound on the H100 (chip_smoke.py), the least work any implementation
+// does: the larger of the bytes (the walked rows, the tile ranges, gbar,
+// the output) and the operations: per walked pair its staging (the
+// reciprocals, the mask), per (pair, pixel) inside the splat the falloff,
+// alpha, the gradient chain and one add into each pixel sum.  Both are far
+// below the kernel's time: it is bound by issued instructions (above).
 
 #include <cuda_runtime.h>
 
+#include "cull.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;  // 256 threads, one per pixel
-constexpr int kWarps = kPix / 32;
-constexpr int kMaxChunk = 512;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned kAllWarps = (1u << kWarps) - 1u;
-constexpr int kModeObb = 0;
-constexpr int kModeAabb = 1;
-constexpr int kMode2d = 2;
 constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic shared memory a launch gets unasked
 constexpr int kMaxDevices = 64;
 
-// the warp shape: kWarpRows x kWarpCols pixels; the eight warps of a tile
-// as kStripsY rows of kStripsX warps
-constexpr int kWarpRows = 4;
-constexpr int kWarpCols = 8;
-constexpr int kStripsX = kTile / kWarpCols;
-constexpr int kStripsY = kTile / kWarpRows;
-// OBB's box margin, a share of hx + hy, and the smallest |e1|^2 it trusts
-constexpr float kObbMargin = 0x1p-13f;
-constexpr float kMinAxisNorm2 = 0x1p-100f;
-
-// as in tile_fwd.cu: row columns, staged columns (the colours and alpha last)
-template <int kMode>
-constexpr int kRowCols = kMode == kMode2d ? 16 : 10;
+// staged columns (the colours and alpha last)
 template <int kMode>
 constexpr int kStaged = kMode == kMode2d ? 17 : 10;
 // the column that only masks (exact zeros, no warp sum): AABB radius, 2DGS mr
@@ -208,56 +177,6 @@ __device__ __forceinline__ int scatter_index(int lane) {
   }
 }
 
-// Bit w set: the splat of `row` may reach a pixel of warp w.  `colx` holds
-// the falloff frame's x of the tile's 16 columns, `rowy` the y of its 16
-// rows (decreasing with the row).  See the design note, item 1.
-template <int kMode>
-__device__ __forceinline__ unsigned warp_mask(const float* row, const float* colx, const float* rowy,
-                                              float inv_w, float inv_h) {
-  float hx, hy;
-  if constexpr (kMode == kModeObb) {
-    if (!(row[4] > 0.0f)) return 0u;  // the exact test's b1 <= 0: outside
-    const float b1 = fmaxf(row[4], 1e-12f);
-    const float b2 = fmaxf(row[5], 1e-12f);
-    const float ax = fabsf(row[2]);
-    const float ay = fabsf(row[3]);
-    const float n2 = row[2] * row[2] + row[3] * row[3];
-    if (!(n2 >= kMinAxisNorm2)) return kAllWarps;
-    hx = (b1 * ax + b2 * ay) / n2;
-    hy = (b1 * ay + b2 * ax) / n2;
-    const float grow = (hx + hy) * kObbMargin;
-    hx += grow;
-    hy += grow;
-  } else if constexpr (kMode == kModeAabb) {
-    hx = row[5];
-    hy = row[5];
-  } else {
-    hx = row[2] * inv_w;
-    hy = row[2] * inv_h;
-  }
-  const float cx = row[0];
-  const float cy = row[1];
-  unsigned xs = 0, ys = 0;
-#pragma unroll
-  for (int sx = 0; sx < kStripsX; ++sx) {
-    const float lo = colx[sx * kWarpCols] - cx;
-    const float hi = colx[sx * kWarpCols + kWarpCols - 1] - cx;
-    if (!(lo > hx || hi < -hx)) xs |= 1u << sx;
-  }
-#pragma unroll
-  for (int sy = 0; sy < kStripsY; ++sy) {
-    const float hi = rowy[sy * kWarpRows] - cy;
-    const float lo = rowy[sy * kWarpRows + kWarpRows - 1] - cy;
-    if (!(lo > hy || hi < -hy)) ys |= 1u << sy;
-  }
-  unsigned mask = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    if ((ys >> (w / kStripsX)) & (xs >> (w % kStripsX)) & 1u) mask |= 1u << w;
-  }
-  return mask;
-}
-
 template <int kMode>
 __global__ void __launch_bounds__(kPix, kMinBlocks<kMode>)
 composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ tile_start,
@@ -293,21 +212,16 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
   if (count <= 0) return;  // uniform over the block, before any barrier
   const int n_chunks = (total + chunk - 1) / chunk;
 
-  // this thread's pixel: warp (warp / kStripsX, warp % kStripsX) of the
-  // tile, lane in row-major order within it
-  const int prow = (warp / kStripsX) * kWarpRows + lane / kWarpCols;
-  const int pcol = (warp % kStripsX) * kWarpCols + lane % kWarpCols;
+  // this thread's pixel (cull.cuh) and its coordinates, as the forward's
+  const int prow = pixel_row(tid);
+  const int pcol = pixel_col(tid);
   const int p = prow * kTile + pcol;
-
-  // the forward's pixel coordinates (csrc/tile_fwd.cu)
-  const float px = (float)((t % tx_count) * kTile + pcol) + 0.5f;
-  const float py = ((float)((t / tx_count) * kTile + prow) + 0.5f) + (float)y0;
-  const float x_ndc = fmaf(px, inv_w2, -1.0f);
-  const float y_ndc = fmaf(-py, inv_h2, 1.0f);
-  const float px_vp = x_ndc * width_f;
-  const float py_vp = y_ndc * full_height_f;
-  const float px_ndc = x_ndc * (width_f * inv_w);
-  const float py_ndc = y_ndc * (full_height_f * inv_h);
+  const PixelCoords pc = pixel_coords(t, prow, pcol, tx_count, width_f, full_height_f, inv_w2, inv_h2, inv_w,
+                                      inv_h, y0);
+  const float px_vp = pc.px_vp;
+  const float py_vp = pc.py_vp;
+  const float px_ndc = pc.px_ndc;
+  const float py_ndc = pc.py_ndc;
   // the falloff's frame: NDC for 2DGS, else vp units
   const float fx = kMode == kMode2d ? px_ndc : px_vp;
   const float fy = kMode == kMode2d ? py_ndc : py_vp;

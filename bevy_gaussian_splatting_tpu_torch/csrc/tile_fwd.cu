@@ -2,16 +2,17 @@
 // splats, one 16x16 tile per block.
 //
 // Replaces the TPU kernel bevy_gaussian_splatting_tpu/ops/pallas/tile_fwd.py
-// `_composite_kernel` (launched by `pallas_forward_raw`), OBB, AABB and 2DGS
-// modes (`kernel_mode`, tile_fwd.py:81-84).
+// `_composite_kernel` (tile_fwd.py:237, launched by `pallas_forward_raw`),
+// OBB, AABB and 2DGS modes (`kernel_mode`, tile_fwd.py:81-84), each with and
+// without the bounding-box overlay.
 //
 // Inputs: params [P, 10] f32 in pair-sorted order, rows [cx_vp, cy_vp, e1x,
 // e1y, b1, b2, r, g, b, alpha] (OBB) or [cx_vp, cy_vp, conic.x, conic.y,
 // conic.z, radius_vp, r, g, b, alpha] (AABB); for 2DGS params [P, 16], rows
 // [cx_ndc, cy_ndc, mr, A.xyz, B.xyz, C.xyz, r, g, b, alpha]; tile_start /
-// tile_count [T] i32.  Output out [T, 4, 256] f32: rows 0-2 premultiplied
-// rgb, row 3 final transmittance (the background is applied afterwards, in
-// PyTorch).
+// tile_count [T] i32.  Output out [T, 4, 256] f32 in row-major pixel order:
+// rows 0-2 premultiplied rgb, row 3 final transmittance (the background is
+// applied afterwards, in PyTorch).
 //
 // Semantics kept from the TPU kernel, because they change the image:
 //  * the walk over a tile's range goes in chunks aligned at
@@ -22,86 +23,109 @@
 //    does not stop on its own: what it would still add after T < 1/255 is up
 //    to 4e-3, far above the 2e-5 bar;
 //  * the pixel coordinates are `_tile_pixel_coords` with the same f32
-//    expressions, keeping `y0` and `full_height` for band rendering;
+//    expressions, keeping `y0` and `full_height` for band rendering
+//    (cull.cuh pixel_coords);
 //  * the OBB falloff uses the reciprocal form 1 / max(b, 1e-12);
 //  * the AABB falloff (tile_fwd.py:146-157) takes the offset as centre minus
 //    pixel, power = -0.5 (a dx dx + c dy dy) + b dx dy in the JAX order of
 //    products, and clips to |dx|, |dy| <= r and power <= 0;
 //  * the 2DGS falloff (tile_fwd.py:117-139) works in NDC: the vp pixel
 //    coordinate times f32 1/width (1/full_height) as XLA folds it, the
-//    offset pixel minus centre, clipped to |dxn| <= mr/width and |dyn| <= mr/full_height (both
-//    products per pair, at staging, as the TPU kernel forms them per row);
-//    q = dxn A + dyn B + C, pz = q.z where |q.z| > 1e-12 else +1e-12 (not
-//    sign-preserving), one IEEE reciprocal 1/pz, s3d = us^2 + vs^2 and
-//    d2x2 = (dxn^2 + dyn^2) * 2 width^2 (width on both axes, the reference's
-//    doubled-frame quirk), g = exp(-0.5 min(s3d, d2x2)).  The three f32
-//    constants come from the host, rounded as the TPU kernel rounds them.
-// One kernel body serves all modes (a template on the mode): the chunk grid,
-// the pixel coordinates, the exit vote and the blend are shared; only the
-// staged columns and the falloff differ.
+//    offset pixel minus centre, clipped to |dxn| <= mr/width and |dyn| <=
+//    mr/full_height (both products per pair, at staging, as the TPU kernel
+//    forms them per row); q = dxn A + dyn B + C, pz = q.z where |q.z| >
+//    1e-12 else +1e-12 (not sign-preserving), one IEEE reciprocal 1/pz, s3d
+//    = us^2 + vs^2 and d2x2 = (dxn^2 + dyn^2) * 2 width^2 (width on both
+//    axes, the reference's doubled-frame quirk), g = exp(-0.5 min(s3d,
+//    d2x2)).  The three f32 constants come from the host, rounded as the TPU
+//    kernel rounds them;
+//  * the bounding-box overlay (the TPU kernel's bbox=True branch,
+//    tile_fwd.py:140-145, :158-162, :180-185, :289-312; the kBbox
+//    instantiations): its edge band, before the gate on the opacity, is
+//    OBB: inside the quad and max(|u|, |v|) > band (rows with b1 <= 0 stay
+//    folded into opacity 0 with u = v = 0: no edge, as JAX's inside & b1 >
+//    0); AABB: inside the radius square (|dx|, |dy| <= r, not the power <= 0
+//    test that gates g) and max(|dx|, |dy|) / max(r, 1e-12) > band, a true
+//    IEEE divide; 2DGS: inside the surfel's square and max(|dxn| width, |dyn|
+//    full_height) / max(mr, 1e-12) > band, with the raw mr staged beside
+//    the homography.  The edge holds only where the packed alpha column is > 0;
+//    there a = 1 (above the 0.999 cap, so T becomes exactly 0) and the colour
+//    is the overlay's green (0.3, 1, 0.1).  The band 1 - 2 * 0.08 comes from
+//    the host rounded to f32, as the TPU kernel's weakly typed constant is.
+// One kernel body serves all six instantiations (a template on the mode and
+// the overlay): only the staged columns and the falloff differ.
 //
 // What changes: the TPU kernel blends a chunk with a Hillis-Steele cumprod
 // across lanes; here each thread (one pixel) blends its pairs in sequence,
 // C += a * T * rgb, T *= 1 - a.  The products associate differently, so the
 // bar against the plain version is a tolerance (2e-5; 1e-4 for 2DGS, whose
 // reciprocal near pz = 0 amplifies an ulp), not bit equality.  The file is
-// built with --fmad=false (see ops/cuda/build.py): contraction into FMA would
-// move the inside test |u| <= 1 by an ulp and flip fragments, and would move
-// the 2DGS min() branch.  It is never built with fast math: 1.0f / pz must
-// stay IEEE-rounded.
+// built with --fmad=false (ops/cuda/build.py; cull.cuh inherits it):
+// contraction into FMA would move the inside test |u| <= 1 by an ulp and flip
+// fragments, and would move the 2DGS min() branch.  It is never built with
+// fast math: 1.0f / pz must stay IEEE-rounded.
 //
-// Bound on the H100: operations.  Each (pair, pixel) evaluation is about 25
-// FP32 operations plus one expf, against ~40 bytes of parameters per pair
-// shared by the 256 pixels of the tile.  Design: a chunk of parameter rows
-// is staged once into shared memory as structure-of-arrays (with the two
-// reciprocals computed at staging, once per pair instead of once per pixel),
-// then every thread reads each row as a broadcast.  AABB costs about as much
-// per evaluation (27 FP32 operations and one expf) and stages its conic and
-// radius as they are.  2DGS stages 17 columns (34 KB at 512 pairs, static
-// shared memory) and skips its homography where the pixel is outside the
-// surfel's square: 4 operations per evaluation, and 37 more and one expf
-// inside it.
+// What bounds it on the H100.  The work a frame needs is small: its rows
+// read once, and per (pair, pixel) inside a splat about 30 FP32 operations
+// with one expf (2DGS 45).  A splat of the bench scene reaches 5-8 of a
+// tile's 256 pixels, so a kernel that gives every thread every walked pair
+// spends almost all of its issued instructions on pixels with g = 0: ten or
+// more shared-memory broadcasts, the offsets, the inside test and a blend
+// step that changes no bit.  The design:
 //
-// The bounding-box overlay (the TPU kernel's bbox=True branch,
-// tile_fwd.py:140-145, :158-162, :180-185, :289-312) is a second
-// instantiation of the same body (kBbox), so the non-overlay instantiations
-// compile as before.  Its edge band, before the gate on the opacity:
-//  * OBB: inside the quad and max(|u|, |v|) > band.  Rows with b1 <= 0 stay
-//    folded into opacity 0 with u = v = 0: no edge, as JAX's inside & b1 > 0;
-//  * AABB: inside the radius square (|dx|, |dy| <= r, not the power <= 0
-//    test that gates g) and max(|dx|, |dy|) / max(r, 1e-12) > band, a true
-//    IEEE divide as in the TPU kernel;
-//  * 2DGS: inside the surfel's square and max(|dxn| width, |dyn|
-//    full_height) / max(mr, 1e-12) > band.  The raw mr is staged as an 18th
-//    column (36,864 B of static shared memory at 512 pairs).
-// The edge holds only where the packed alpha column is > 0; there a = 1
-// (above the 0.999 cap, so T becomes exactly 0) and the colour is the
-// overlay's green (0.3, 1, 0.1).  The blend and the exit vote are unchanged.
-// The band 1 - 2 * 0.08 comes from the host rounded to f32, as the TPU
-// kernel's weakly typed constant is.  About 4 more operations per walked
-// evaluation (OBB, AABB: the abs, max and compare, AABB's divide) and 6
-// inside a 2DGS square.
+//  1. Per-warp footprint culling, from the mask the backward uses
+//     (cull.cuh warp_mask): when a chunk is staged, the staging thread
+//     computes each pair's mask of the 4x8-pixel warps its splat's box may
+//     reach (s_mask), beside the staged columns.  After the staging barrier
+//     each warp ballots its own bit over the chunk, 32 pairs at a time, and
+//     walks only the set bits in pair order (__ffs); every visited pair goes
+//     through the exact falloff and blend, the same expressions in the same
+//     order.  A left-out (pair, warp) has g = 0 at all 32 pixels (and no
+//     edge: the band lies inside the box), so a = 0 and T and C are
+//     unchanged to the bit; the exit vote stays where it was, at the same
+//     pair indices.  The image and the exit chunk are therefore those of the
+//     unculled walk, bit for bit (cull.cuh states the one condition: finite
+//     T).  The overlay instantiations use the same mask.
+//  2. Threads map to pixels by 4x8-pixel warps (cull.cuh pixel_row,
+//     pixel_col), the backward's map; the output stays in row-major pixel
+//     order.
+//  3. Staged rows as an array of structures, read as float4 broadcasts:
+//     the staging thread writes each pair's row (with the OBB reciprocals
+//     and the 2DGS mr/W, mr/H computed there, once per pair) as 12 floats
+//     (2DGS 20) into shared memory, and every lane of a visiting warp reads
+//     the same row with 128-bit loads: 3 loads a visit for OBB and AABB
+//     where a structure of arrays took 10, and for 2DGS one load before its
+//     square test.  All lanes read one address, so there are no bank
+//     conflicts.  Shared memory: 25,216 B (2DGS 41,600 B) of static memory.
+//
+// The choice of item 3 was timed on the card against the structure of
+// arrays and against __launch_bounds__ floors of 6 and 8 blocks per SM
+// (which spill); PERF.md keeps that table.
+//
+// What is left: at the bench scene's 17-26% of (pair, warp) visits kept,
+// the issued instructions of a kept visit (its broadcasts, falloff and
+// blend), then the chunk barrier, where a chunk takes as long as its
+// busiest warp, and the tail of the busiest tiles.  The bound that
+// chip_smoke.py gives is the least work: the larger of the bytes (walked
+// rows, tile ranges, output) and the operations (per walked pair its
+// staging, per (pair, pixel) inside the splat the falloff and the blend).
 
 #include <cuda_runtime.h>
 
+#include "cull.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;  // 256 threads, one per pixel
-constexpr int kMaxChunk = 512;
-constexpr int kModeObb = 0;
-constexpr int kModeAabb = 1;
-constexpr int kMode2d = 2;
-
-// columns of a parameter row, and of a staged pair: OBB / AABB stage cx, cy,
-// columns 2-5, r, g, b, alpha; 2DGS stages cx, cy, mr/width, mr/full_height,
-// A.xyz, B.xyz, C.xyz, (with the overlay: mr,) r, g, b, alpha.  The colours
-// and alpha are the last four in all.
+// staged rows, kStride floats a pair, read by each warp as float4
+// broadcasts (all lanes of a warp read the same pair):
+//   OBB / AABB: [cx, cy, c2, c3 | c4, c5, -, - | r, g, b, alpha], OBB c4, c5
+//     = 1/b1, 1/b2 and alpha folded to 0 where b1 <= 0;
+//   2DGS: [cx, cy, mr/width, mr/full_height | A.xyz, B.x | B.yz, C.xy | C.z,
+//     mr, -, - | r, g, b, alpha].
 template <int kMode>
-constexpr int kRowCols = kMode == kMode2d ? 16 : 10;
-template <int kMode, bool kBbox>
-constexpr int kStaged = kMode == kMode2d ? (kBbox ? 18 : 17) : 10;
-constexpr int kMrCol = 13;  // 2DGS with the overlay: the raw mr
+constexpr int kStride = kMode == kMode2d ? 20 : 12;
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
 template <int kMode, bool kBbox>
 __global__ void __launch_bounds__(kPix)
@@ -111,33 +135,33 @@ composite_fwd_kernel(const float* __restrict__ params, const int* __restrict__ t
                      float two_w2, int y0, int chunk, float trans_eps, float band,
                      float* __restrict__ out) {
   constexpr int kRow = kRowCols<kMode>;
-  constexpr int kCol = kStaged<kMode, kBbox>;
-  constexpr int kR = kCol - 4;  // staged r; g, b, alpha follow
-  // OBB columns 2-5: e1x, e1y, 1/b1, 1/b2; AABB conic.x, conic.y, conic.z, r
-  __shared__ float s[kCol][kMaxChunk];
+  constexpr int kS = kStride<kMode>;
+  __shared__ __align__(16) float s[kMaxChunk * kS];
+  __shared__ unsigned char s_mask[kMaxChunk];  // each staged pair's warps
+  __shared__ float s_colx[kTile];              // the falloff frame's x of the columns
+  __shared__ float s_rowy[kTile];              // and y of the rows
 
   const int t = blockIdx.x;
-  const int p = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int start = tile_start[t];
   const int base = (start / 128) * 128;
   const int prefix = start - base;
   const int total = tile_count[t] + prefix;
   const int n_chunks = (total + chunk - 1) / chunk;
 
-  // _tile_pixel_coords (tile_fwd.py:87-103): integer-valued adds are exact;
-  // the multiply-add is fused, as the compiled JAX kernel evaluates it and
-  // as the plain version computes it (ops/cuda/tile_fwd.py)
-  const float px = (float)((t % tx_count) * kTile + p % kTile) + 0.5f;
-  const float py = ((float)((t / tx_count) * kTile + p / kTile) + 0.5f) + (float)y0;
-  const float x_ndc = fmaf(px, inv_w2, -1.0f);
-  const float y_ndc = fmaf(-py, inv_h2, 1.0f);
-  const float px_vp = x_ndc * width_f;
-  const float py_vp = y_ndc * full_height_f;
-  // 2DGS: the vp coordinate times f32 1/width (tile_fwd.py:120-121), which
-  // the compiled JAX kernel folds into x_ndc * f32(width * f32(1/width)), 1
-  // for most sizes (ops/cuda/tile_fwd.py tile_pixel_coords)
-  const float px_ndc = x_ndc * (width_f * inv_w);
-  const float py_ndc = y_ndc * (full_height_f * inv_h);
+  const int prow = pixel_row(tid);
+  const int pcol = pixel_col(tid);
+  const PixelCoords pc = pixel_coords(t, prow, pcol, tx_count, width_f, full_height_f, inv_w2, inv_h2, inv_w,
+                                      inv_h, y0);
+  const float px_vp = pc.px_vp;
+  const float py_vp = pc.py_vp;
+  const float px_ndc = pc.px_ndc;
+  const float py_ndc = pc.py_ndc;
+  if (prow == 0) s_colx[pcol] = kMode == kMode2d ? px_ndc : px_vp;
+  if (pcol == 0) s_rowy[prow] = kMode == kMode2d ? py_ndc : py_vp;
+  __syncthreads();  // s_colx, s_rowy before the first chunk's masks
 
   float T = 1.0f;
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
@@ -149,94 +173,107 @@ composite_fwd_kernel(const float* __restrict__ params, const int* __restrict__ t
     const int hi = min(total - c * chunk, chunk);
     const int first = base + c * chunk + lo;
     const int m = hi - lo;
-    for (int j = p; j < m; j += kPix) {
+    for (int j = tid; j < m; j += kPix) {
       const float* row = params + (long long)(first + j) * kRow;
-      s[0][j] = row[0];
-      s[1][j] = row[1];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) s[kR + k][j] = row[kRow - 4 + k];
+      float* st = s + j * kS;
+      float4 colour = make_float4(row[kRow - 4], row[kRow - 3], row[kRow - 2], row[kRow - 1]);
       if constexpr (kMode == kModeObb) {
         const float b1 = row[4];
         const bool ok = b1 > 0.0f;
-        s[2][j] = row[2];
-        s[3][j] = row[3];
         // b1 <= 0 is "outside" in the TPU kernel (alpha 0): fold it into
         // opacity 0 with u = v = 0, which gives the same alpha of exactly 0
-        s[4][j] = ok ? 1.0f / fmaxf(b1, 1e-12f) : 0.0f;
-        s[5][j] = ok ? 1.0f / fmaxf(row[5], 1e-12f) : 0.0f;
-        s[kR + 3][j] = ok ? row[9] : 0.0f;
+        *reinterpret_cast<float4*>(st) = make_float4(row[0], row[1], row[2], row[3]);
+        *reinterpret_cast<float4*>(st + 4) = make_float4(ok ? 1.0f / fmaxf(b1, 1e-12f) : 0.0f,
+                                                         ok ? 1.0f / fmaxf(row[5], 1e-12f) : 0.0f, 0.0f, 0.0f);
+        colour.w = ok ? colour.w : 0.0f;
       } else if constexpr (kMode == kModeAabb) {
-#pragma unroll
-        for (int k = 2; k < 6; ++k) s[k][j] = row[k];
+        *reinterpret_cast<float4*>(st) = make_float4(row[0], row[1], row[2], row[3]);
+        *reinterpret_cast<float4*>(st + 4) = make_float4(row[4], row[5], 0.0f, 0.0f);
       } else {
-        s[2][j] = row[2] * inv_w;
-        s[3][j] = row[2] * inv_h;
-#pragma unroll
-        for (int k = 0; k < 9; ++k) s[4 + k][j] = row[3 + k];
-        if constexpr (kBbox) s[kMrCol][j] = row[2];
+        *reinterpret_cast<float4*>(st) = make_float4(row[0], row[1], row[2] * inv_w, row[2] * inv_h);
+        *reinterpret_cast<float4*>(st + 4) = make_float4(row[3], row[4], row[5], row[6]);
+        *reinterpret_cast<float4*>(st + 8) = make_float4(row[7], row[8], row[9], row[10]);
+        *reinterpret_cast<float4*>(st + 12) = make_float4(row[11], row[2], 0.0f, 0.0f);
       }
+      *reinterpret_cast<float4*>(st + kS - 4) = colour;
+      s_mask[j] = (unsigned char)warp_mask<kMode>(row, s_colx, s_rowy, inv_w, inv_h);
     }
     __syncthreads();
-    for (int j = 0; j < m; ++j) {
-      float g = 0.0f;
-      bool edge = false;  // the overlay's edge band (kBbox only)
-      if constexpr (kMode == kModeObb) {
-        const float dx = px_vp - s[0][j];
-        const float dy = py_vp - s[1][j];
-        const float e1x = s[2][j];
-        const float e1y = s[3][j];
-        const float u = (dx * e1x + dy * e1y) * s[4][j];
-        const float v = (dx * e1y - dy * e1x) * s[5][j];
-        if (fabsf(u) <= 1.0f && fabsf(v) <= 1.0f) {
-          g = expf(-4.5f * (u * u + v * v));
-          if constexpr (kBbox) edge = fmaxf(fabsf(u), fabsf(v)) > band;
-        }
-      } else if constexpr (kMode == kModeAabb) {
-        const float dx = s[0][j] - px_vp;
-        const float dy = s[1][j] - py_vp;
-        const float r = s[5][j];
-        const float power = -0.5f * (s[2][j] * dx * dx + s[4][j] * dy * dy) + s[3][j] * dx * dy;
-        const bool in_quad = fabsf(dx) <= r && fabsf(dy) <= r;
-        if (in_quad && power <= 0.0f) g = expf(power);
-        if constexpr (kBbox) edge = in_quad && fmaxf(fabsf(dx), fabsf(dy)) / fmaxf(r, 1e-12f) > band;
-      } else {
-        const float dxn = px_ndc - s[0][j];
-        const float dyn = py_ndc - s[1][j];
-        if (fabsf(dxn) <= s[2][j] && fabsf(dyn) <= s[3][j]) {
-          const float qx = dxn * s[4][j] + dyn * s[7][j] + s[10][j];
-          const float qy = dxn * s[5][j] + dyn * s[8][j] + s[11][j];
-          const float qz = dxn * s[6][j] + dyn * s[9][j] + s[12][j];
-          const float inv_pz = 1.0f / (fabsf(qz) > 1e-12f ? qz : 1e-12f);
-          const float us = qx * inv_pz;
-          const float vs = qy * inv_pz;
-          const float s3d = us * us + vs * vs;
-          const float d2x2 = (dxn * dxn + dyn * dyn) * two_w2;
-          g = expf(-0.5f * fminf(s3d, d2x2));
-          if constexpr (kBbox) {
-            edge = fmaxf(fabsf(dxn) * width_f, fabsf(dyn) * full_height_f) / fmaxf(s[kMrCol][j], 1e-12f) > band;
+    for (int jb = 0; jb < m; jb += 32) {
+      // the pairs among the next 32 whose mask holds this warp, in order
+      unsigned todo = __ballot_sync(kFull, jb + lane < m && ((s_mask[jb + lane] >> warp) & 1u));
+      while (todo) {
+        const int j = jb + __ffs(todo) - 1;
+        todo &= todo - 1;
+        const float* st = s + j * kS;
+        const float4 h = ld4(st);
+        float g = 0.0f;
+        bool edge = false;  // the overlay's edge band (kBbox only)
+        if constexpr (kMode == kModeObb) {
+          const float4 k = ld4(st + 4);
+          const float dx = px_vp - h.x;
+          const float dy = py_vp - h.y;
+          const float e1x = h.z;
+          const float e1y = h.w;
+          const float u = (dx * e1x + dy * e1y) * k.x;
+          const float v = (dx * e1y - dy * e1x) * k.y;
+          if (fabsf(u) <= 1.0f && fabsf(v) <= 1.0f) {
+            g = expf(-4.5f * (u * u + v * v));
+            if constexpr (kBbox) edge = fmaxf(fabsf(u), fabsf(v)) > band;
+          }
+        } else if constexpr (kMode == kModeAabb) {
+          const float4 k = ld4(st + 4);
+          const float dx = h.x - px_vp;
+          const float dy = h.y - py_vp;
+          const float r = k.y;
+          const float power = -0.5f * (h.z * dx * dx + k.x * dy * dy) + h.w * dx * dy;
+          const bool in_quad = fabsf(dx) <= r && fabsf(dy) <= r;
+          if (in_quad && power <= 0.0f) g = expf(power);
+          if constexpr (kBbox) edge = in_quad && fmaxf(fabsf(dx), fabsf(dy)) / fmaxf(r, 1e-12f) > band;
+        } else {
+          const float dxn = px_ndc - h.x;
+          const float dyn = py_ndc - h.y;
+          if (fabsf(dxn) <= h.z && fabsf(dyn) <= h.w) {
+            const float4 f1 = ld4(st + 4);   // A.xyz, B.x
+            const float4 f2 = ld4(st + 8);   // B.yz, C.xy
+            const float4 f3 = ld4(st + 12);  // C.z, mr
+            const float qx = dxn * f1.x + dyn * f1.w + f2.z;
+            const float qy = dxn * f1.y + dyn * f2.x + f2.w;
+            const float qz = dxn * f1.z + dyn * f2.y + f3.x;
+            const float inv_pz = 1.0f / (fabsf(qz) > 1e-12f ? qz : 1e-12f);
+            const float us = qx * inv_pz;
+            const float vs = qy * inv_pz;
+            const float s3d = us * us + vs * vs;
+            const float d2x2 = (dxn * dxn + dyn * dyn) * two_w2;
+            g = expf(-0.5f * fminf(s3d, d2x2));
+            if constexpr (kBbox) {
+              edge = fmaxf(fabsf(dxn) * width_f, fabsf(dyn) * full_height_f) / fmaxf(f3.y, 1e-12f) > band;
+            }
           }
         }
+        const float4 col = ld4(st + kS - 4);
+        float a, wr, wg, wb;
+        if constexpr (kBbox) {
+          edge = edge && col.w > 0.0f;
+          a = edge ? 1.0f : fminf(g * col.w, 0.999f);
+          wr = edge ? 0.3f : col.x;
+          wg = edge ? 1.0f : col.y;
+          wb = edge ? 0.1f : col.z;
+        } else {
+          a = fminf(g * col.w, 0.999f);
+          wr = col.x;
+          wg = col.y;
+          wb = col.z;
+        }
+        const float w = a * T;
+        cr += w * wr;
+        cg += w * wg;
+        cb += w * wb;
+        T *= 1.0f - a;
       }
-      float a, wr, wg, wb;
-      if constexpr (kBbox) {
-        edge = edge && s[kR + 3][j] > 0.0f;
-        a = edge ? 1.0f : fminf(g * s[kR + 3][j], 0.999f);
-        wr = edge ? 0.3f : s[kR][j];
-        wg = edge ? 1.0f : s[kR + 1][j];
-        wb = edge ? 0.1f : s[kR + 2][j];
-      } else {
-        a = fminf(g * s[kR + 3][j], 0.999f);
-        wr = s[kR][j];
-        wg = s[kR + 1][j];
-        wb = s[kR + 2][j];
-      }
-      const float w = a * T;
-      cr += w * wr;
-      cg += w * wg;
-      cb += w * wb;
-      T *= 1.0f - a;
     }
   }
+  const int p = prow * kTile + pcol;
   float* o = out + (long long)t * 4 * kPix;
   o[p] = cr;
   o[kPix + p] = cg;

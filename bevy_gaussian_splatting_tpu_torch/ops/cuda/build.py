@@ -7,8 +7,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so
          -Xcompiler -fPIC [extra flags] -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``bevy_gaussian_splatting_tpu_torch/_build/`` (ignored
-by git), named by a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is reused.  Builds happen at first use, or all
+by git), named by a hash of its source, the shared headers ``csrc/*.cuh``
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is reused.  Builds happen at first use, or all
 at once and in parallel through :func:`build_all`.  A failed build raises.
 ptxas reports each kernel's registers, shared memory and spills (``-Xptxas
 -v``); the report is kept beside the library and read by
@@ -38,7 +39,8 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", 
 # fragment in or out of the quad, a jump of up to exp(-4.5) * opacity, far
 # above the 2e-5 image tolerance.  Its backward recomputes the same alpha and
 # transmittance and must round them as the forward did, so it takes the same
-# flag.
+# flag.  The flag holds for everything the source includes: the warp mask
+# both compositors share (csrc/cull.cuh) rounds under it too.
 EXTRA_FLAGS = {
     "tile_fwd": ["--fmad=false"],
     "tile_bwd": ["--fmad=false"],
@@ -68,10 +70,14 @@ def _command(name: str, out: Path) -> list:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    flags = " ".join(ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS.get(name, []))
-    digest = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, every
+    header under ``csrc/`` (an edited header rebuilds each source that may
+    include it) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS.get(name, [])).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -10,8 +10,9 @@ A splat of the bench scene reaches a handful of a tile's pixels, so the
 kernel was bound by issued instructions spent on pixels it does not reach,
 not by its FP32 work or bytes.  Its design, for the H100: when a chunk is
 staged, each pair gets a mask of the warps (4x8-pixel blocks) that its
-splat's box may reach (:func:`warp_masks` is its twin, written with the
-kernel's float32 operations in its order), and each warp walks only the
+splat's box may reach (``csrc/cull.cuh``, shared with the forward;
+``ops/cuda/cull.py`` ``warp_masks`` is its twin, written with the kernel's
+float32 operations in its order), and each warp walks only the
 pairs whose mask holds it; a warp that a splat hits sums its 9-15 gradient
 columns over its lanes with one multi-column reduce-scatter (12-16
 shuffles); and each pair's sum reads only the warps of its mask, in warp
@@ -51,10 +52,6 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
 )
 
 GBAR_ROWS = 8  # [ghat_r, ghat_g, ghat_b, ghat_T, total_r, total_g, total_b, T_fin]
-WARPS = 8  # warps of a tile's block
-WARP_ROWS, WARP_COLS = 4, 8  # the kernel's warp shape in pixels
-OBB_MARGIN = 2.0**-13  # OBB's box margin, a share of hx + hy
-MIN_AXIS_NORM2 = 2.0**-100  # below this |e1|^2 the OBB box keeps every warp
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 4
@@ -216,87 +213,6 @@ def composite_backward_plain(
             q_acc = q_incl[:, -1, :]
             trans = trans * cum[:, -1, :]
     return dparams
-
-
-def tile_pairs(tile_start: torch.Tensor, counts: torch.Tensor):
-    """(tile, pair) [N] int64 of the first ``counts[t]`` pairs of each tile
-    t's range in the pair-sorted layout (``tile_count`` for all of them)."""
-    counts = counts.to(torch.int64).clamp(min=0)
-    tids = torch.repeat_interleave(torch.arange(tile_start.shape[0], device=counts.device), counts)
-    first = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
-    offset = torch.arange(tids.shape[0], device=counts.device) - first
-    return tids, torch.repeat_interleave(tile_start.to(torch.int64), counts) + offset
-
-
-def warp_masks(
-    params: torch.Tensor,
-    tile_start: torch.Tensor,
-    tile_count: torch.Tensor,
-    tx_count: int,
-    width: int,
-    full_height: int,
-    y0: int = 0,
-    mode: int = MODE_OBB,
-) -> torch.Tensor:
-    """The kernel's per-pair warp masks [P] uint8: bit w set where the
-    splat of the pair's row may reach a pixel of warp w of its tile (warps of
-    4 x 8 pixels, row-major in the tile); 0 for pairs in no tile's range.  The same float32 operations in the same order
-    as ``warp_mask`` in csrc/tile_bwd.cu, so the bits are the kernel's.
-
-    The box |px - cx| <= hx, |py - cy| <= hy in the falloff's frame: OBB's
-    rotated rectangle (b1 |e1x| + b2 |e1y|, b1 |e1y| + b2 |e1x|) / |e1|^2
-    widened by ``OBB_MARGIN`` of hx + hy, empty where b1 <= 0, every warp
-    where |e1|^2 < ``MIN_AXIS_NORM2``; AABB the radius; 2DGS the staged
-    (mr / W, mr / H).  A strip of warps is left out where px - cx (or py -
-    cy), rounded, lies beyond the box at both of its extreme pixels."""
-    dev = params.device
-    tids, pair = tile_pairs(tile_start, tile_count)
-    q = params[pair]
-    px, py = tile_pixel_coords(tids, tx_count, width, full_height, y0, mode)
-    colx = px[:, :16]  # the falloff frame's x of the 16 columns
-    rowy = py[:, ::16]  # and y of the 16 rows, decreasing
-    full = torch.zeros(pair.shape[0], dtype=torch.bool, device=dev)
-    empty = torch.zeros_like(full)
-    if mode == MODE_OBB:
-        floor = torch.tensor(1e-12, dtype=torch.float32, device=dev)
-        empty = ~(q[:, 4] > 0.0)
-        b1, b2 = torch.fmax(q[:, 4], floor), torch.fmax(q[:, 5], floor)
-        ax, ay = q[:, 2].abs(), q[:, 3].abs()
-        n2 = q[:, 2] * q[:, 2] + q[:, 3] * q[:, 3]
-        full = ~(n2 >= MIN_AXIS_NORM2)
-        hx = (b1 * ax + b2 * ay) / n2
-        hy = (b1 * ay + b2 * ax) / n2
-        grow = (hx + hy) * OBB_MARGIN
-        hx, hy = hx + grow, hy + grow
-    elif mode == MODE_AABB:
-        hx = hy = q[:, 5]
-    else:
-        inv_w, inv_h, _ = _surfel_constants(width, full_height)
-        hx, hy = q[:, 2] * inv_w, q[:, 2] * inv_h
-    cx, cy = q[:, 0:1], q[:, 1:2]
-    hx, hy = hx[:, None], hy[:, None]
-    xlo = colx[:, 0::WARP_COLS] - cx
-    xhi = colx[:, WARP_COLS - 1 :: WARP_COLS] - cx
-    yhi = rowy[:, 0::WARP_ROWS] - cy
-    ylo = rowy[:, WARP_ROWS - 1 :: WARP_ROWS] - cy
-    xs = ~((xlo > hx) | (xhi < -hx))  # [pairs, 2 column strips]
-    ys = ~((ylo > hy) | (yhi < -hy))  # [pairs, 4 row strips]
-    keep = (ys[:, :, None] & xs[:, None, :]).reshape(-1, WARPS)  # warp w = (w // 2, w % 2)
-    keep = (keep | full[:, None]) & ~empty[:, None]
-    bits = (keep.to(torch.int64) << torch.arange(WARPS, device=dev)).sum(dim=1)
-    masks = torch.zeros(params.shape[0], dtype=torch.uint8, device=dev)
-    masks[pair] = bits.to(torch.uint8)
-    return masks
-
-
-def warp_pixels() -> torch.Tensor:
-    """Pixel indices [8, 32] of each warp of a tile (row-major pixel index
-    p = row * 16 + col), as the kernel maps its threads."""
-    w = torch.arange(WARPS)[:, None]
-    lane = torch.arange(32)[None, :]
-    row = (w // 2) * WARP_ROWS + lane // WARP_COLS
-    col = (w % 2) * WARP_COLS + lane % WARP_COLS
-    return row * 16 + col
 
 
 def composite_backward(

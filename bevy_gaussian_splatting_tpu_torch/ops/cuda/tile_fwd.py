@@ -7,16 +7,24 @@ thread per pixel, parameter rows staged chunk by chunk into shared memory and
 blended in sequence.  Three modes, as the TPU kernel's ``kernel_mode``: OBB
 (``MODE_OBB``, the eigen-rotated quad), AABB (``MODE_AABB``, the conic
 quadratic form clipped to the radius square) and 2DGS (``MODE_2D``, the
-surfel's folded homography clipped to its square).  On the H100 it is bound
-by FP32 operations (about 25 per pair and pixel for OBB, plus one ``expf``;
-2DGS about 40 inside its square); see the source for the design and for what
-it keeps of the TPU kernel (chunk grid, between-chunk early exit, pixel
-coordinates).
+surfel's folded homography clipped to its square).  It keeps what the TPU
+kernel does that changes the image (chunk grid, between-chunk early exit,
+pixel coordinates).
+
+A splat of the bench scene reaches a handful of a tile's pixels, so a kernel
+that gives every thread every pair spends almost all of its instructions on
+pixels with g = 0.  Its design, for the H100: each staged pair gets the
+mask of the 4x8-pixel warps its splat's box may reach (``csrc/cull.cuh``,
+the backward's mask; ``ops/cuda/cull.py`` is its twin), and each warp blends
+only the pairs whose mask holds it, in pair order, with the exact falloff.
+A left-out (pair, warp) has a = 0 at every pixel, so the image and the exit
+vote are those of the unculled walk, bit for bit.  See the source for the
+bounds and the design; ``PERF.md`` for the times.
 
 The bounding-box overlay (``CloudSettings.visualize_bounding_box``, the TPU
 kernel's ``bbox=True`` branch: opaque green edge bands, tile_fwd.py:140-145,
 :158-162, :180-185, :289-312) is a second instantiation of the kernel in
-each mode.
+each mode; its edge band lies inside the same mask.
 
 ``composite_tiles_raw`` launches the kernel for CUDA tensors and runs the
 plain version, ``composite_tiles_raw_plain``, for CPU tensors.

@@ -31,9 +31,10 @@ surfels (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``):
              compositor within 1e-4 of each gradient
              column's largest magnitude (its cotangent taken from a real
              loss; the AABB radius column and the 2DGS surfel radius column
-             exactly 0 in both; two launches bitwise equal; the share of
-             (pair, warp) visits its cull keeps, from the twin of the
-             mask), the segmented reduce array-equal (16 columns for 2DGS);
+             exactly 0 in both); for both compositors two launches bitwise
+             equal and the share of (pair, warp) visits their cull keeps,
+             from the twin of the mask; the segmented reduce array-equal
+             (16 columns for 2DGS);
              with AABB also both compositors at the convergence protocols'
              shapes (512 gaussians at 128x128, 192 at 48x48), timed over
              200 launches;
@@ -87,6 +88,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import statistics
@@ -113,29 +115,30 @@ FP32_NO_FMA_OPS_PER_S = FP32_OPS_PER_S / 2
 # The expansion is integer work: 64 INT32 lanes per SM (Hopper whitepaper),
 # half the FP32 lanes, one operation per instruction.
 INT32_OPS_PER_S = FP32_OPS_PER_S / 4
-# Operations per (pair, pixel) evaluation of each mode, counted from the
-# sources (csrc/tile_fwd.cu, csrc/tile_bwd.cu).  Forward: OBB 25 FP32
-# operations and one expf, AABB 27 and one expf, every walked evaluation;
-# 2DGS 4 per walked evaluation (offsets, the square clip) and, inside the
-# square only, 37 more and one expf (the homography, the reciprocal, the
-# distances, alpha and the blend).  Backward, per walked evaluation: OBB 12
-# (offsets, u, v, the inside test), AABB 16 (offsets, the quadratic form, the
-# clip), 2DGS 4; inside the splat 59 more and one expf for OBB (alpha,
-# transmittance, the gradient chain and one add into each of the ten pixel
-# sums), 50 more and one expf for AABB (nine sums), 104 more and one expf for
-# 2DGS (the recompute, the chain, fifteen sums).
-COMPOSITE_OPS_PER_EVAL = {"obb": 26, "aabb": 28, "2d": 4}
-COMPOSITE_OPS_PER_INSIDE = {"obb": 0, "aabb": 0, "2d": 38}
-# The overlay instantiation (kBbox) adds, per walked evaluation, the gate on
-# the opacity (a compare and an and) and four selects (alpha, r, g, b), and
-# the edge test: OBB the max and the compare (the absolute values are the
-# inside test's), AABB those two, max(r, 1e-12) and the divide (counted as
-# one); 2DGS, inside the square only, two products, the max,
-# max(mr, 1e-12), the divide and the compare.
-BBOX_OPS_PER_EVAL = {"obb": 8, "aabb": 10, "2d": 6}
-BBOX_OPS_PER_INSIDE = {"obb": 0, "aabb": 0, "2d": 6}
-BACKWARD_OPS_PER_EVAL = {"obb": 12, "aabb": 16, "2d": 4}
-BACKWARD_OPS_PER_INSIDE = {"obb": 60, "aabb": 51, "2d": 105}
+# The compositors' bounds count the least work any implementation does
+# (csrc/tile_fwd.cu, csrc/tile_bwd.cu): per walked pair its staging, and per
+# (pair, pixel) inside the splat (OBB |u|, |v| <= 1; AABB the radius square
+# and power <= 0; 2DGS the surfel's square) its falloff and blend.  Pixels a
+# splat does not reach need nothing.  Staging, per walked pair: OBB 8 FP32
+# operations (b1 > 0, two clamps, two reciprocals, three selects), 2DGS 2
+# (mr / W, mr / H), AABB 0.  The warp mask (csrc/cull.cuh) is not counted:
+# it is the cost of the kernels' cull, which a compositor without one does
+# not pay.  Forward, per inside (pair, pixel): OBB 30 (offsets 2, u
+# 4, v 4, the inside test 4, the exponent 4 and one expf, then the blend:
+# g alpha, the cap, w, three multiply-adds, 1 - a, T, 11), AABB 28 (offsets
+# 2, the quadratic form 9, the clip 5, one expf, the blend 11), 2DGS 45
+# (offsets 2, the square 4, q 12, the clamp and reciprocal 4, us, vs, s3d,
+# d2x2 9, min, scale, expf 3, the blend 11).  The overlay adds per inside
+# evaluation OBB 8 (the band's max and compare, the gate on the opacity and
+# four selects), AABB 10 (also max(r, 1e-12) and the divide), 2DGS 12 (two
+# scalings, the max, the clamp, the divide, the compare, the gate and four
+# selects).  Backward, per inside (pair, pixel): the falloff (OBB 12, AABB
+# 16, 2DGS 4) and 60 / 51 / 105 more (alpha, transmittance, the gradient
+# chain and one add into each pixel sum).
+STAGE_OPS_PER_PAIR = {"obb": 8, "aabb": 0, "2d": 2}
+COMPOSITE_OPS_PER_INSIDE = {"obb": 30, "aabb": 28, "2d": 45}
+BBOX_OPS_PER_INSIDE = {"obb": 8, "aabb": 10, "2d": 12}
+BACKWARD_OPS_PER_INSIDE = {"obb": 12 + 60, "aabb": 16 + 51, "2d": 4 + 105}
 IMAGE_BAR = {"obb": 2e-5, "aabb": 2e-5, "2d": 1e-4}  # kernel vs plain, card vs CPU
 ORACLE_BAR = {"obb": 3e-5, "aabb": 3e-5, "2d": 1e-4}  # card vs the port's oracle
 GRAD_BAR = 1e-4  # kernel vs plain (and card vs CPU), per gradient column
@@ -221,33 +224,49 @@ def bound(nbytes: float, nops: float, ops_per_s: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def forward_case(comp_args, chunk: int, kmode: int, label: str, reps: int):
-    """The forward compositor against its plain version, timed by CUDA
-    events over ``reps`` launches -> (raw, pairs walked per tile, (pair,
-    pixel) evaluations inside, the kernels-line entry)."""
+def forward_case(comp_args, chunk: int, kmode: int, label: str, reps: int, bbox: bool = False):
+    """The forward compositor (``bbox``: its overlay instantiation) against
+    its plain version, two launches bitwise equal, timed by CUDA events over
+    ``reps`` launches, with the share of (pair, warp) visits its cull keeps
+    (from the twin of the mask) -> (raw, pairs walked per tile, (pair,
+    pixel) evaluations inside, the kernels-line entry, a log fragment)."""
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import cull
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 
     mode = tf.MODES[kmode]
-    params, start = comp_args[0], comp_args[1]
+    params, start, count, tx_count, width, height = comp_args
     num_tiles = start.shape[0]
-    raw = tf.composite_tiles_raw(*comp_args, chunk=chunk, mode=kmode)
+    kw = dict(chunk=chunk, mode=kmode, bbox=bbox)
+    raw = tf.composite_tiles_raw(*comp_args, **kw)
     walked = torch.zeros(num_tiles, dtype=torch.int64, device=params.device)
     inside = torch.zeros_like(walked)
-    raw_plain = tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, mode=kmode, tile_batch=512, walked=walked,
-                                             inside_count=inside)
+    raw_plain = tf.composite_tiles_raw_plain(*comp_args, tile_batch=512, walked=walked, inside_count=inside, **kw)
+    what = f"composite_tiles_raw{' bbox' if bbox else ''} {label}"
     err = float((raw - raw_plain).abs().max())
     if not err <= IMAGE_BAR[mode]:
-        raise AssertionError(f"composite_tiles_raw {label}: max |kernel - plain| = {err:.3e} > {IMAGE_BAR[mode]}")
-    ms = cuda_ms(lambda: tf.composite_tiles_raw(*comp_args, chunk=chunk, mode=kmode), reps)
-    plain_ms = cuda_ms(lambda: tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, mode=kmode, tile_batch=512), 2)
+        raise AssertionError(f"{what}: max |kernel - plain| = {err:.3e} > {IMAGE_BAR[mode]}")
+    if not torch.equal(raw.view(torch.int32), tf.composite_tiles_raw(*comp_args, **kw).view(torch.int32)):
+        raise AssertionError(f"{what}: two launches on the same inputs differ")
+    ms = cuda_ms(lambda: tf.composite_tiles_raw(*comp_args, **kw), reps)
+    plain_ms = cuda_ms(lambda: tf.composite_tiles_raw_plain(*comp_args, tile_batch=512, **kw), 2)
+    share = kept_share(cull.warp_masks(params, start, count, tx_count, width, height, 0, kmode), start, walked)
     n_walked, n_inside = int(walked.sum()), int(inside.sum())
     # the bytes this frame needs: the rows of the walked pairs (the rest of
     # the p_max rows no tile reads), the tile ranges, the output written once
     nbytes = n_walked * params.shape[1] * 4 + 2 * 4 * num_tiles + raw.numel() * 4
-    ops = n_walked * tf.PIX * COMPOSITE_OPS_PER_EVAL[mode] + n_inside * COMPOSITE_OPS_PER_INSIDE[mode]
+    per_inside = COMPOSITE_OPS_PER_INSIDE[mode] + (BBOX_OPS_PER_INSIDE[mode] if bbox else 0)
+    ops = n_walked * STAGE_OPS_PER_PAIR[mode] + n_inside * per_inside
     b, by = bound(nbytes, ops, FP32_NO_FMA_OPS_PER_S)
-    return raw, walked, n_inside, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                                       library_ms=None)
+    # names the image's bits, so that runs of two builds of the kernel can be
+    # held equal bit for bit from their logs
+    digest = hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()[:16]
+    line = (
+        f"composite max_abs_err {err:.3e} (bar {IMAGE_BAR[mode]}), bitwise equal twice (sha256 {digest}), "
+        f"{ms:.4f} ms (plain {plain_ms:.4f}, bound {b:.4f} by {by}), pairs walked {n_walked} of "
+        f"{int(count.sum())}, (pair, pixel) inside {n_inside}, (pair, warp) visits kept {share:.4f}"
+    )
+    entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None)
+    return raw, walked, n_inside, entry, line
 
 
 def cotangent(raw, target, width: int, height: int):
@@ -264,14 +283,14 @@ def cotangent(raw, target, width: int, height: int):
 
 
 def kept_share(masks, start, walked) -> float:
-    """Share of the walked (pair, warp) visits that the backward's cull
-    keeps, from the twin of its mask (``warp_masks``, [P] uint8)."""
-    from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
+    """Share of the walked (pair, warp) visits that the compositors' cull
+    keeps, from the twin of its mask (``cull.warp_masks``, [P] uint8)."""
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import cull
 
-    _, pairs = tb.tile_pairs(start, walked)  # a tile walks the first walked[t] pairs of its range
+    _, pairs = cull.tile_pairs(start, walked)  # a tile walks the first walked[t] pairs of its range
     m = masks.to(torch.int64)[pairs]
-    kept = sum(int(((m >> b) & 1).sum()) for b in range(tb.WARPS))
-    return kept / max(tb.WARPS * pairs.numel(), 1)
+    kept = sum(int(((m >> b) & 1).sum()) for b in range(cull.WARPS))
+    return kept / max(cull.WARPS * pairs.numel(), 1)
 
 
 def backward_case(bwd_args, chunk: int, kmode: int, label: str, walked, n_inside: int, reps: int):
@@ -282,6 +301,7 @@ def backward_case(bwd_args, chunk: int, kmode: int, label: str, walked, n_inside
     warp), timed by CUDA events over ``reps`` launches, with the share of
     (pair, warp) visits its cull keeps -> (dparams, the kernels-line entry,
     a log fragment)."""
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import cull
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 
@@ -301,7 +321,7 @@ def backward_case(bwd_args, chunk: int, kmode: int, label: str, walked, n_inside
         raise AssertionError(f"composite_backward {label}: the radius column ({mask_col}) has a gradient")
     # the kernel against the twin of its cull: a row with an empty mask is
     # walked by no warp, and a row with a gradient must be walked by one
-    masks = tb.warp_masks(params, start, count, tx_count, width, height, 0, kmode)
+    masks = cull.warp_masks(params, start, count, tx_count, width, height, 0, kmode)
     culled = masks == 0
     if bool(dsorted[culled].any()):
         raise AssertionError(f"composite_backward {label}: {int(dsorted[culled].any(dim=1).sum())} rows that the "
@@ -318,7 +338,7 @@ def backward_case(bwd_args, chunk: int, kmode: int, label: str, walked, n_inside
     num_tiles = start.shape[0]
     # the backward walks the forward's pairs; its output is all p_max rows
     nbytes = n_walked * params.shape[1] * 4 + 2 * 4 * num_tiles + gbar.numel() * 4 + dsorted.numel() * 4
-    ops = n_walked * tf.PIX * BACKWARD_OPS_PER_EVAL[mode] + n_inside * BACKWARD_OPS_PER_INSIDE[mode]
+    ops = n_walked * STAGE_OPS_PER_PAIR[mode] + n_inside * BACKWARD_OPS_PER_INSIDE[mode]
     b, by = bound(nbytes, ops, FP32_NO_FMA_OPS_PER_S)
     line = (
         f"composite_backward per-column |kernel - plain| / max|plain| {' '.join(f'{r:.2e}' for r in col_rel)} "
@@ -379,37 +399,18 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     start, count = bins.start, bins.count
     chunk = tf.preferred_chunk(p_max, num_tiles)
     comp_args = (params, start, count, tx_count, width, height)
-    raw, walked, n_inside, comp = forward_case(comp_args, chunk, kmode, label, 20)
-    comp_err, comp_ms = comp["max_abs_err"], comp["ms"]
-    n_walked = int(walked.sum())
+    raw, walked, n_inside, comp, comp_line = forward_case(comp_args, chunk, kmode, label, 20)
 
     # ---- the overlay instantiation against the plain overlay ----
-    raw_b = tf.composite_tiles_raw(*comp_args, chunk=chunk, mode=kmode, bbox=True)
-    walked_b = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
-    inside_b = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
-    raw_b_plain = tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, mode=kmode, tile_batch=512, walked=walked_b,
-                                               bbox=True, inside_count=inside_b)
-    bbox_err = float((raw_b - raw_b_plain).abs().max())
-    if not bbox_err <= IMAGE_BAR[mode]:
-        raise AssertionError(f"composite_tiles_raw bbox {label}: max |kernel - plain| = {bbox_err:.3e} > {IMAGE_BAR[mode]}")
+    raw_b, _, _, bbox_entry, bbox_fwd_line = forward_case(comp_args, chunk, kmode, label, 20, bbox=True)
     closed = int((raw_b[:, 3] == 0.0).sum())  # an edge sets T to exactly 0
     green = int(((raw_b[:, :3] - torch.tensor(tf.BBOX_GREEN, device=dev)[None, :, None]).abs().amax(dim=1) < 1e-6).sum())
     if closed <= 0 or green <= 0:
         raise AssertionError(f"composite_tiles_raw bbox {label}: no edge pixel ({closed} closed, {green} green)")
-    bbox_ms = cuda_ms(lambda: tf.composite_tiles_raw(*comp_args, chunk=chunk, mode=kmode, bbox=True), 20)
-    bbox_plain_ms = cuda_ms(
-        lambda: tf.composite_tiles_raw_plain(*comp_args, chunk=chunk, mode=kmode, tile_batch=512, bbox=True), 2
-    )
-    n_walked_b = int(walked_b.sum())
-    bbox_bytes = n_walked_b * params.shape[1] * 4 + 2 * 4 * num_tiles + raw_b.numel() * 4
-    bbox_ops = (n_walked_b * tf.PIX * (COMPOSITE_OPS_PER_EVAL[mode] + BBOX_OPS_PER_EVAL[mode])
-                + int(inside_b.sum()) * (COMPOSITE_OPS_PER_INSIDE[mode] + BBOX_OPS_PER_INSIDE[mode]))
-    xb, xby = bound(bbox_bytes, bbox_ops, FP32_NO_FMA_OPS_PER_S)
     bbox_line = (
-        f"[kernels {label} bbox] composite max_abs_err {bbox_err:.3e} (bar {IMAGE_BAR[mode]}), {bbox_ms:.4f} ms "
-        f"(plain {bbox_plain_ms:.4f}, bound {xb:.4f} by {xby}; without the overlay {comp_ms:.4f}), pairs walked "
-        f"{n_walked_b} of {int(count.sum())} (without the overlay {n_walked}), pixels closed by an edge (T = 0) "
-        f"{closed}, pure green {green} of {num_tiles * tf.PIX}"
+        f"[kernels {label} bbox] {bbox_fwd_line}; without the overlay {comp['ms']:.4f} ms, "
+        f"{int(walked.sum())} pairs walked; pixels closed by an edge (T = 0) {closed}, pure green {green} of "
+        f"{num_tiles * tf.PIX}"
     )
 
     # ---- backward compositor: per column within GRAD_BAR of its largest |plain| ----
@@ -446,9 +447,7 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     rb, rby = bound(red_bytes, red_ops, FP32_NO_FMA_OPS_PER_S)
     log(
         f"[kernels {label}] pairs {total} p_max {p_max} chunk {chunk} | "
-        f"expand equal, {exp_ms:.4f} ms (plain {exp_plain_ms:.4f}, bound {eb:.4f} by {eby}) | "
-        f"composite max_abs_err {comp_err:.3e}, {comp_ms:.4f} ms (plain {comp['plain_ms']:.4f}, "
-        f"bound {comp['bound_ms']:.4f} by {comp['bound_by']}), pairs walked {n_walked} of {int(count.sum())}"
+        f"expand equal, {exp_ms:.4f} ms (plain {exp_plain_ms:.4f}, bound {eb:.4f} by {eby}) | {comp_line}"
     )
     log(
         f"[kernels {label}] {bwd_line} | segment_reduce equal over {n} ranks, {owned} slots x {cols} columns, "
@@ -463,8 +462,7 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
         "composite_backward": bwd,
         "segment_reduce": dict(max_abs_err=red_err, ms=red_ms, plain_ms=red_plain_ms, bound_ms=rb, bound_by=rby,
                                library_ms=red_lib_ms),
-        "composite_tiles_raw+bbox": dict(max_abs_err=bbox_err, ms=bbox_ms, plain_ms=bbox_plain_ms, bound_ms=xb,
-                                         bound_by=xby, library_ms=None),
+        "composite_tiles_raw+bbox": bbox_entry,
     }
 
 
@@ -496,14 +494,12 @@ def phase_kernels_converge() -> None:
         tx_count = size // rt.TILE
         chunk = tf.preferred_chunk(p_max, bins.start.shape[0])
         comp_args = (params, bins.start, bins.count, tx_count, size, size)
-        raw, walked, n_inside, fwd = forward_case(comp_args, chunk, kmode, label, 200)
+        raw, walked, n_inside, _, fwd_line = forward_case(comp_args, chunk, kmode, label, 200)
         with torch.no_grad():
             target = rt.render_tiled(target_cloud, camera, settings)
         bwd_args = (params, bins.start, bins.count, cotangent(raw, target, size, size), tx_count, size, size)
         bwd_line = backward_case(bwd_args, chunk, kmode, label, walked, n_inside, 200)[2]
-        log(f"[kernels {label}] pairs {int(bins.count.sum())} p_max {p_max} chunk {chunk}, walked "
-            f"{int(walked.sum())} | composite max_abs_err {fwd['max_abs_err']:.3e}, {fwd['ms']:.4f} ms (plain "
-            f"{fwd['plain_ms']:.4f}, bound {fwd['bound_ms']:.4f} by {fwd['bound_by']}) | {bwd_line}")
+        log(f"[kernels {label}] pairs {int(bins.count.sum())} p_max {p_max} chunk {chunk} | {fwd_line} | {bwd_line}")
 
 
 def small_grads(arrays: dict, camera, background, settings, device) -> dict:

@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel against its plain version (the
 compositors in OBB, AABB and 2DGS mode, the forward's bounding-box overlay
-instantiation in each, the reduce at 10 and 16 columns),
-``render()`` on the card against the same call on the CPU (also with the
+instantiation in each, the reduce at 10 and 16 columns; each compositor's
+second launch bitwise equal to its first, and both on the adversarial rows
+of their per-warp cull), ``render()`` on the card against the same call on the CPU (also with the
 overlay and in the other rasterize and draw modes), and the training
 gradients of every cloud field, card against CPU.
 
@@ -17,6 +18,7 @@ from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
 from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy, random_arrays_3d_seeded, surfel_grid_arrays
 from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, DrawMode, GaussianMode, RasterizeMode
 from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
+from bevy_gaussian_splatting_tpu_torch.ops.cuda import cull
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import expand as ex
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import reduce as rd
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
@@ -93,6 +95,7 @@ def test_composite_kernel_matches_plain(card, kind, n, height, chunk):
     ref = tf.composite_tiles_raw_plain(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 2e-5
+    _forward_again(got, *args, chunk=chunk)
 
 
 @pytest.mark.parametrize("height", [128, 120])
@@ -120,11 +123,18 @@ def _bitwise_again(got, *args, **kwargs):
     assert torch.equal(got, again)
 
 
+def _forward_again(got, *args, **kwargs):
+    """A second forward launch on the same inputs gives the same bits."""
+    again = tf.composite_tiles_raw(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
 def _matches_twin(got, plain, params, start, count, gbar, tx_count, width, full_height, y0=0, mode=tb.MODE_OBB):
     """The kernel against the twin of its cull (``warp_masks``): a row whose
     mask holds no warp gets no gradient from the kernel, and every row with a
     plain gradient is held by some warp's mask -> the rows culled whole."""
-    culled = tb.warp_masks(params, start, count, tx_count, width, full_height, y0, mode) == 0
+    culled = cull.warp_masks(params, start, count, tx_count, width, full_height, y0, mode) == 0
     assert not bool(got[culled].any())
     assert not bool(((plain != 0).any(dim=1) & culled).any())
     return int(culled.sum())
@@ -229,13 +239,14 @@ def test_aabb_compositor_kernels_match_plain(card, kind, n, height, chunk):
     ref = tf.composite_tiles_raw_plain(*args, chunk=chunk, mode=tf.MODE_AABB)
     torch.cuda.synchronize()
     assert float((raw - ref).abs().max()) <= 2e-5
+    _forward_again(raw, *args, chunk=chunk, mode=tf.MODE_AABB)
     cotangent = torch.randn(raw.shape, generator=torch.Generator().manual_seed(1)) * 1e-3
     gbar = tb.pack_gbar(cotangent.to(card), raw)
     bwd_args = (params, bins.start, bins.count, gbar, 16, 256, height)
     got = tb.composite_backward(*bwd_args, chunk=chunk, mode=tb.MODE_AABB)
     plain = tb.composite_backward_plain(*bwd_args, chunk=chunk, mode=tb.MODE_AABB)
     torch.cuda.synchronize()
-    assert (tf.composite_tiles_raw.launches, tb.composite_backward.launches) == (before[0] + 1, before[1] + 1)
+    assert (tf.composite_tiles_raw.launches, tb.composite_backward.launches) == (before[0] + 2, before[1] + 1)
     assert not bool(got[:, 5].any()) and not bool(plain[:, 5].any())
     col_max = plain.abs().amax(dim=0)
     assert bool(((got - plain).abs().amax(dim=0) <= GRAD_BAR * col_max).all())
@@ -280,6 +291,7 @@ def test_2dgs_kernels_match_plain(card, kind, n, height, chunk):
     torch.cuda.synchronize()
     assert float((raw - ref).abs().max()) <= SURFEL_BAR
     assert float((ref[:, 3] < 0.99).sum()) > 100  # the surfels cover part of the frame
+    _forward_again(raw, *args, chunk=chunk, mode=tf.MODE_2D)
     cotangent = torch.randn(raw.shape, generator=torch.Generator().manual_seed(2)) * 1e-3
     gbar = tb.pack_gbar(cotangent.to(card), raw)
     bwd_args = (params, bins.start, bins.count, gbar, 16, 256, height)
@@ -296,7 +308,7 @@ def test_2dgs_kernels_match_plain(card, kind, n, height, chunk):
     drank = rd.segment_reduce(dslot, bins.cum, n_ranks)
     assert torch.equal(drank, rd.segment_reduce_plain(dslot, bins.cum, n_ranks))
     after = (tf.composite_tiles_raw.launches, tb.composite_backward.launches, rd.segment_reduce.launches)
-    assert after == tuple(b + 1 for b in before)
+    assert after == (before[0] + 2, before[1] + 1, before[2] + 1)
     _bitwise_again(got, *bwd_args, chunk=chunk, mode=tf.MODE_2D)
 
 
@@ -342,6 +354,33 @@ def test_overlay_kernel_matches_plain(card, mode, kind, n, height, chunk):
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= (SURFEL_BAR if mode == "2d" else 2e-5)
     assert int((got[:, 3] == 0.0).sum()) > 0
+    _forward_again(got, *args, chunk=chunk, mode=kmode, bbox=True)
+
+
+@pytest.mark.parametrize("bbox", [False, True], ids=["plain", "bbox"])
+@pytest.mark.parametrize("mode", ["obb", "aabb", "2d"])
+def test_forward_kernel_on_adversarial_rows(card, mode, bbox):
+    # tests/test_torch_cull.py's rows on one tile, which the culled forward
+    # skips per warp: splats straddling warp strips with extents at a
+    # pixel's offset +- 2 ulps, b1 <= 0, r = 0, a zero axis, whole-tile
+    # splats; kernel within the bar of the plain version (with and without
+    # the overlay), bitwise equal twice
+    width, height, y0 = 32, 48, 8
+    rows = adversarial_rows(mode, width, height, y0, 480, seed=5)  # one chunk: no early exit
+    params = torch.cat([rows, torch.stack([r for r, _ in special_rows(mode, width, height, y0)])]).to(card)
+    n = params.shape[0]
+    start = torch.tensor([0, n, n, n, n, n], dtype=torch.int32, device=card)
+    count = torch.tensor([n, 0, 0, 0, 0, 0], dtype=torch.int32, device=card)
+    args = (params, start, count, width // 16, width, height, y0)
+    kw = dict(chunk=512, mode=MODE[mode], bbox=bbox)
+    got = tf.composite_tiles_raw(*args, **kw)
+    plain = tf.composite_tiles_raw_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert float((got - plain).abs().max()) <= (SURFEL_BAR if mode == "2d" else 2e-5)
+    assert float(plain[0, 3].max()) < 1.0  # the rows reach every pixel of the tile
+    masks = cull.warp_masks(params, start, count, width // 16, width, height, y0, MODE[mode])
+    assert int((masks[:n] != 0xFF).sum()) > n // 2  # and most rows are culled in some warp
+    _forward_again(got, *args, **kw)
 
 
 @pytest.mark.parametrize("name,settings", [

@@ -38,12 +38,13 @@ def test_port_has_sources():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for need in (
         "render/api.py", "ops/rasterize_tile.py", "ops/gaussian_2d.py", "ops/cuda/expand.py", "ops/cuda/tile_fwd.py",
-        "ops/cuda/tile_bwd.py", "ops/cuda/reduce.py", "ops/cuda/core.py",
+        "ops/cuda/tile_bwd.py", "ops/cuda/cull.py", "ops/cuda/reduce.py", "ops/cuda/core.py",
         "train/__init__.py", "train/losses.py", "train/step.py", "train/densify.py", "train/quality.py",
     ):
         assert need in names
     for source in ("expand", "tile_fwd", "tile_bwd", "reduce"):
         assert (PORT / "csrc" / f"{source}.cu").exists(), source
+    assert (PORT / "csrc" / "cull.cuh").exists()  # the compositors' shared warp mask
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(PORT.parent).as_posix())
