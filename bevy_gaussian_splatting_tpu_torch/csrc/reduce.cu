@@ -10,35 +10,113 @@
 // owns the contiguous slots [cum[r-1], cum[r]) (cum[-1] = 0).  Output drank
 // [N, cols] f32; a rank with no slots gets 0.
 //
-// The TPU kernel's one-hot MXU matmul, 512-slot windows, chunk owners and
-// straddle merge exist because its grid runs in order on one core.  Here one
-// thread owns one (rank, column) and sums its slots in slot order: no
-// atomics, deterministic, and bit-equal to the plain version
-// (ops/cuda/reduce.py), which adds in the same order.  The column count is an
-// argument: the threads of a rank read its rows as contiguous runs of
-// 4 * cols bytes whatever the width.
+// Each (rank, column) sums its slots in slot order from 0.0f: no atomics, no
+// tree, deterministic, and bit-equal to the plain version
+// (ops/cuda/reduce.py), which adds in the same order.  The TPU kernel's
+// one-hot MXU matmul, 512-slot windows, chunk owners and straddle merge exist
+// because its grid runs in order on one core; none of it is needed here.
 //
 // Bound on the H100: bytes.  Each owned slot row (4 * cols B) is read once
-// and each output row written once; one add per value read.
+// and each output row written once; one add per value read.  Segments are
+// short (about 1.5 slots a rank on the bench scene), so a thread per (rank,
+// column) reading device memory directly spends its time on loop overhead
+// and on 40-byte rows that straddle 32-byte sectors.  Design: a block owns
+// up to kRanks consecutive ranks, whose slots form one contiguous run of
+// dslot; below kRanks * kMinBlocks ranks it owns fewer, so that a small
+// problem still spreads over the SMs, but never so few that a thread has
+// less than one (rank, column).  A grid whose blocks give each thread at most
+// one (the convergence protocol's 192 or 512 ranks) sums from device memory
+// directly: for one sum a thread, staging only adds a round trip.  Else:
+//   1. The block stages the ranks' bounds, then copies their run into
+//      shared memory with 16-byte asynchronous copies (cp.async); a head and
+//      a tail that are not 16-byte aligned (a 10-column run starting at an
+//      odd slot) go by 4-byte loads.
+//   2. Each thread sums (rank, column)s from shared memory, in slot order,
+//      and the block writes its [ranks, cols] output as one coalesced run.
+// The kernel is templated on the column count (10 and 16; 0 takes it from
+// the argument), so rows are indexed by constants.  A run longer than the
+// staging buffer (a rank with thousands of slots) is summed from device
+// memory in the same order, giving the same bits.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRanks = 128;  // most ranks a block owns
+constexpr int kMinBlocks = 264;  // blocks below which a block owns fewer ranks: two an SM
+constexpr int kStage = 6144;  // floats of a block's staged run (24 KB)
 
+template <int kCols>
 __global__ void __launch_bounds__(kThreads)
-segment_reduce_kernel(const float* __restrict__ dslot, const int* __restrict__ cum, int n, int cols,
-                      float* __restrict__ drank) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= (long long)n * cols) return;
-  const int r = (int)(i / cols);
-  const int col = (int)(i - (long long)r * cols);
-  const int s0 = r > 0 ? cum[r - 1] : 0;
-  const int s1 = cum[r];
-  float acc = 0.0f;
-  for (int s = s0; s < s1; ++s) acc += dslot[(long long)s * cols + col];
-  drank[i] = acc;
+segment_reduce_kernel(const float* __restrict__ dslot, const int* __restrict__ cum, int n, int cols_arg,
+                      int ranks, float* __restrict__ drank) {
+  // s_cum[i] = cum[r0 + i - 1]: rank r0 + i owns slots [s_cum[i], s_cum[i + 1])
+  __shared__ int s_cum[kRanks + 1];
+  __shared__ __align__(16) float s_rows[kStage];
+  const int cols = kCols > 0 ? kCols : cols_arg;
+  const int r0 = blockIdx.x * ranks;
+  const int nr = min(ranks, n - r0);
+  float* out = drank + (long long)r0 * cols;
+  if (ranks * cols <= kThreads) {  // grid-uniform: a (rank, column) a thread, from device memory
+    if ((int)threadIdx.x < nr * cols) {
+      const int i = threadIdx.x / cols;
+      const int a = r0 + i > 0 ? __ldg(cum + r0 + i - 1) : 0;
+      const int b = __ldg(cum + r0 + i);
+      const float* row = dslot + ((long long)a * cols + (threadIdx.x - i * cols));
+      float acc = 0.0f;
+      for (int s = a; s < b; ++s, row += cols) acc += __ldg(row);
+      out[threadIdx.x] = acc;
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i <= nr; i += kThreads) s_cum[i] = r0 + i > 0 ? __ldg(cum + r0 + i - 1) : 0;
+  __syncthreads();
+
+  // the run's floats [f0, f1); base: the 16-byte aligned float at or below f0
+  const long long f0 = (long long)s_cum[0] * cols;
+  const long long f1 = (long long)s_cum[nr] * cols;
+  const long long base = f0 - (long long)((reinterpret_cast<std::uintptr_t>(dslot + f0) & 15) >> 2);
+  const bool staged = f1 - base <= kStage;  // block-uniform
+  if (staged) {
+    const long long head = min(base == f0 ? f0 : base + 4, f1);  // the first aligned float at or past f0
+    const long long body = head + ((f1 - head) & ~3LL);  // aligned run [head, body)
+    for (long long f = f0 + threadIdx.x; f < head; f += kThreads) s_rows[f - base] = __ldg(dslot + f);
+    for (long long f = body + threadIdx.x; f < f1; f += kThreads) s_rows[f - base] = __ldg(dslot + f);
+    for (long long f = head + 4LL * threadIdx.x; f < body; f += 4LL * kThreads) {
+      __pipeline_memcpy_async(s_rows + (f - base), dslot + f, 16);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+  }
+  __syncthreads();
+
+  for (int o = threadIdx.x; o < nr * cols; o += kThreads) {
+    const int i = o / cols;
+    const int c = o - i * cols;
+    const int a = s_cum[i];
+    const int b = s_cum[i + 1];
+    float acc = 0.0f;
+    if (staged) {
+      const float* row = s_rows + ((long long)a * cols + c - base);
+      for (int s = a; s < b; ++s, row += cols) acc += *row;
+    } else {
+      const float* row = dslot + ((long long)a * cols + c);
+      for (int s = a; s < b; ++s, row += cols) acc += __ldg(row);
+    }
+    out[o] = acc;
+  }
+}
+
+template <int kCols>
+void launch(const float* dslot, const int* cum, int n, int cols, float* drank, cudaStream_t stream) {
+  // n > 0 and cols > 0: at least one rank
+  const int ranks = min(kRanks, max((n + kMinBlocks - 1) / kMinBlocks, max(kThreads / cols, 1)));
+  const int blocks = (n + ranks - 1) / ranks;
+  segment_reduce_kernel<kCols><<<blocks, kThreads, 0, stream>>>(dslot, cum, n, cols, ranks, drank);
 }
 
 }  // namespace
@@ -46,11 +124,18 @@ segment_reduce_kernel(const float* __restrict__ dslot, const int* __restrict__ c
 extern "C" int bgs_segment_reduce(const void* dslot, const void* cum, int n, int cols, void* drank,
                                   void* stream) {
   if (cols <= 0) return (int)cudaErrorInvalidValue;
-  const long long threads = (long long)n * cols;
-  if (threads > 0) {
-    const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
-    segment_reduce_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)dslot, (const int*)cum, n, cols, (float*)drank);
+  if (reinterpret_cast<std::uintptr_t>(dslot) & 3) return (int)cudaErrorMisalignedAddress;
+  if (n > 0) {
+    const float* d = (const float*)dslot;
+    float* out = (float*)drank;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (cols == 10) {
+      launch<10>(d, (const int*)cum, n, cols, out, s);
+    } else if (cols == 16) {
+      launch<16>(d, (const int*)cum, n, cols, out, s);
+    } else {
+      launch<0>(d, (const int*)cum, n, cols, out, s);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -1,27 +1,38 @@
 """Segmented gradient reduce: per-pair rows in slot order -> per depth rank.
 
 Replaces the TPU kernel ``bevy_gaussian_splatting_tpu/ops/pallas/reduce.py``
-``_reduce_kernel`` (``pallas_segment_reduce``) with ``csrc/reduce.cu``: one
-thread per (rank, column) sums that rank's contiguous slots in slot order.
-The row width is ``dslot``'s: 10 columns for OBB and AABB gradients, 16
-for 2DGS.  On the H100 it is bound by memory (each owned slot row read once,
-each rank row written once); see the source for the design.
+``_reduce_kernel`` (``pallas_segment_reduce``) with ``csrc/reduce.cu``: a
+block owns up to ``BLOCK_RANKS`` consecutive ranks, stages their contiguous run
+of slot rows in shared memory, and each (rank, column) sums its slots in
+slot order.  The row width is ``dslot``'s: 10 columns for OBB and AABB
+gradients, 16 for 2DGS.  On the H100 it is bound by memory (each owned slot
+row read once, each rank row written once); see the source for the design.
 
 ``segment_reduce`` launches the kernel for CUDA tensors and runs the plain
 version, ``segment_reduce_plain``, for CPU tensors; both add in slot order,
 so they agree bit for bit.  ``segment_reduce.launches`` counts kernel
-launches.
+launches.  :func:`rank_runs` is the plain twin of the kernel's per-block
+decisions (rank range, slot run, staged or not), which the tests hold.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
 
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+
+# csrc/reduce.cu's constants: threads a block (kThreads), the most ranks a
+# block owns (kRanks), the blocks below which it owns fewer (kMinBlocks) and
+# the floats of its staging buffer (kStage)
+THREADS = 256
+BLOCK_RANKS = 128
+MIN_BLOCKS = 264
+STAGE_FLOATS = 6144
 
 
 def segment_bounds(cum: torch.Tensor):
@@ -30,6 +41,37 @@ def segment_bounds(cum: torch.Tensor):
     cum = cum.to(torch.int64)
     first = torch.cat([cum.new_zeros(1), cum[:-1]])
     return first, cum - first
+
+
+class RankRuns(NamedTuple):
+    """The reduce kernel's decisions, one entry per block (int64 but
+    ``staged``)."""
+
+    first: torch.Tensor  # the block's first rank
+    end: torch.Tensor  # its ranks are [first, end)
+    slot0: torch.Tensor  # their slots are the run [slot0, slot1) of dslot
+    slot1: torch.Tensor
+    staged: torch.Tensor  # bool: the run is summed from shared memory, else from device memory
+
+
+def rank_runs(cum: torch.Tensor, n: int, cols: int) -> RankRuns:
+    """Plain twin of the per-block decisions of ``csrc/reduce.cu`` for the
+    inclusive counts ``cum`` [n] and rows of ``cols`` floats whose first
+    float is 16-byte aligned (as a fresh tensor's is): each block's ranks
+    (``BLOCK_RANKS``, fewer where that leaves under ``MIN_BLOCKS`` blocks,
+    but at least a (rank, column) for each of its ``THREADS`` threads),
+    their run of slots, and whether it stages the run: where its ranks
+    give a thread more than one (rank, column) and the run, from the
+    aligned float at or below its start, fits the ``STAGE_FLOATS``
+    staging buffer."""
+    ranks = min(BLOCK_RANKS, max(-(-n // MIN_BLOCKS), THREADS // cols, 1))
+    first = torch.arange(-(-n // ranks), dtype=torch.int64, device=cum.device) * ranks
+    end = torch.clamp(first + ranks, max=n)
+    bounds = torch.cat([cum.new_zeros(1), cum]).to(torch.int64)  # bounds[r] = cum[r - 1]
+    slot0, slot1 = bounds[first], bounds[end]
+    f0 = slot0 * cols
+    staged = (slot1 * cols - (f0 - f0 % 4) <= STAGE_FLOATS) & (ranks * cols > THREADS)
+    return RankRuns(first, end, slot0, slot1, staged)
 
 
 def _check_inputs(dslot, cum, n):

@@ -33,9 +33,10 @@ surfels (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``):
              loss; the AABB radius column and the 2DGS surfel radius column
              exactly 0 in both); for both compositors two launches bitwise
              equal and the share of (pair, warp) visits their cull keeps,
-             from the twin of the mask; the segmented reduce array-equal
-             (16 columns for 2DGS);
-             with AABB also both compositors at the convergence protocols'
+             from the twin of the mask; the segmented reduce bit-equal
+             (16 columns for 2DGS); the paths the expansion's and the
+             reduce's blocks take, from their twins;
+             with AABB also all four kernels at the convergence protocols'
              shapes (512 gaussians at 128x128, 192 at 48x48), timed over
              200 launches;
   4. small   ``render()`` on the card against the port's oracle (3e-5; 2DGS
@@ -79,8 +80,10 @@ surfels (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``):
              its 16.41 dB less 0.5) and at its CPU test protocol (60 steps,
              192 gaussians, 48x48; at least 17.28 dB).
 
-It prints the kernels line (one entry per kernel and mode: twelve, the
-overlay's with the mode "<mode>+bbox"), the card's name and power limit, and
+It prints the kernels line (one entry per kernel and mode: the four kernels
+in each of the three modes, then the expansion and the forward compositor of
+each mode's overlay frames, mode "<mode>+bbox": eighteen), the card's name
+and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card it exits
 non-zero and prints no result.
 """
@@ -105,6 +108,10 @@ N_GAUSSIANS = 1_000_000
 SIZES = ((512, 512), (1920, 1080))
 ORBIT_AZ = (0.0, 0.3, 0.6, 0.9)  # radians about +y, radius 60
 TIMED_ROUNDS = 3
+# cuda_ms's device-side sleep: cycles of torch.cuda._sleep per second at the
+# H100's 1.98 GHz boost clock (at a lower clock it sleeps longer), and its cap
+SLEEP_CYCLES_PER_S = 1.98e9
+MAX_SLEEP_S = 0.05
 LIT_FLOOR = 0.25  # share of pixels with some |rgb| > 1/255
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: HBM3 bandwidth
 FP32_OPS_PER_S = 67e12  # H100 SXM data sheet: FP32 outside the tensor cores
@@ -136,6 +143,11 @@ INT32_OPS_PER_S = FP32_OPS_PER_S / 4
 # 16, 2DGS 4) and 60 / 51 / 105 more (alpha, transmittance, the gradient
 # chain and one add into each pixel sum).
 STAGE_OPS_PER_PAIR = {"obb": 8, "aabb": 0, "2d": 2}
+# The expansion's least work per slot that holds a pair is its tile
+# arithmetic: k, its row and column in the owner's rectangle, the tile id
+# (12 integer operations).  Finding the owner is not counted: it is the cost
+# of one way to find it (a search per slot charged 2 ceil(log2(n + 1)) before).
+EXPAND_OPS_PER_PAIR = 12
 COMPOSITE_OPS_PER_INSIDE = {"obb": 30, "aabb": 28, "2d": 45}
 BBOX_OPS_PER_INSIDE = {"obb": 8, "aabb": 10, "2d": 12}
 BACKWARD_OPS_PER_INSIDE = {"obb": 12 + 60, "aabb": 16 + 51, "2d": 4 + 105}
@@ -172,11 +184,21 @@ def timed(name: str, fn, *args, **kwargs):
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs, by CUDA events."""
+    """Mean device time of ``fn`` over ``reps`` runs, by CUDA events.
+
+    The runs queue behind a device-side sleep that outlasts the host's
+    issuing them, so the events bracket the device's work and not the
+    host's launch overhead, which exceeds a short kernel's time (a ``fn``
+    that synchronises waits the sleep out and is timed with its gaps)."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * min(2.0 * reps * issue_s + 1e-3, MAX_SLEEP_S)))
     start.record()
     for _ in range(reps):
         fn()
@@ -350,12 +372,66 @@ def backward_case(bwd_args, chunk: int, kmode: int, label: str, walked, n_inside
     return dsorted, entry, line
 
 
+def expand_case(table, p_max: int, tx_count: int, num_tiles: int, label: str, reps: int):
+    """The expansion against its plain version (array-equal), timed by CUDA
+    events over ``reps`` launches, with its least-work bound and the paths
+    its blocks take (from the twin ``block_windows``) -> (the kernels-line
+    entry, a log fragment)."""
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import expand as ex
+
+    args = (*table, p_max, tx_count, num_tiles)
+    got = ex.expand_pairs(*args)
+    ref = ex.expand_pairs_plain(*args)
+    for name, g, r in zip(("tile", "g_cloud", "rank"), got, ref):
+        if not torch.equal(g, r):
+            bad = int((g != r).sum())
+            raise AssertionError(f"expand_pairs {label}: {name} differs in {bad} slots")
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref)) if p_max else 0.0
+    ms = cuda_ms(lambda: ex.expand_pairs(*args), reps)
+    plain_ms = cuda_ms(lambda: ex.expand_pairs_plain(*args), 5)
+    pairs = min(int(table[0][-1]), p_max)
+    nbytes = sum(t.numel() * 4 for t in table) + 3 * 4 * p_max
+    b, by = bound(nbytes, pairs * EXPAND_OPS_PER_PAIR, INT32_OPS_PER_S)
+    paths = torch.bincount(ex.block_windows(table[0], p_max).path, minlength=3).tolist()
+    line = (f"expand equal, {ms:.4f} ms (plain {plain_ms:.4f}, bound {b:.4f} by {by}), blocks fill / window / "
+            f"search {paths[0]} / {paths[1]} / {paths[2]}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None), line
+
+
+def reduce_case(dslot, cum, n: int, label: str, reps: int):
+    """The segmented reduce against its plain version (bit-equal), timed by
+    CUDA events over ``reps`` launches beside ``torch.segment_reduce``, with
+    its least-work bound and the blocks that stage their run (from the twin
+    ``rank_runs``) -> (the kernels-line entry, a log fragment)."""
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import reduce as rd
+
+    cols = dslot.shape[1]
+    drank = rd.segment_reduce(dslot, cum, n)
+    drank_plain = rd.segment_reduce_plain(dslot, cum, n)
+    if not torch.equal(drank.view(torch.int32), drank_plain.view(torch.int32)):
+        bad = int((drank != drank_plain).any(dim=1).sum())
+        raise AssertionError(f"segment_reduce {label}: {bad} of {n} ranks differ from the plain version")
+    err = float((drank - drank_plain).abs().max())
+    ms = cuda_ms(lambda: rd.segment_reduce(dslot, cum, n), reps)
+    plain_ms = cuda_ms(lambda: rd.segment_reduce_plain(dslot, cum, n), 2)
+    owned = int(cum[-1])
+    _, lengths = rd.segment_bounds(cum)
+    owned_rows = dslot[:owned]
+    lib = torch.segment_reduce(owned_rows, "sum", lengths=lengths, axis=0)
+    lib_err = float((lib - drank).abs().max())
+    lib_ms = cuda_ms(lambda: torch.segment_reduce(owned_rows, "sum", lengths=lengths, axis=0), reps)
+    b, by = bound(owned * cols * 4 + n * 4 + n * cols * 4, owned * cols, FP32_NO_FMA_OPS_PER_S)
+    staged = rd.rank_runs(cum, n, cols).staged
+    line = (f"segment_reduce equal over {n} ranks, {owned} slots x {cols} columns, {ms:.4f} ms (plain "
+            f"{plain_ms:.4f}, bound {b:.4f} by {by}, torch.segment_reduce {lib_ms:.4f}, differs by {lib_err:.3e}), "
+            f"blocks staged {int(staged.sum())} of {staged.shape[0]}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib_ms), line
+
+
 def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dict:
     """Each kernel against its plain version on this frame's real inputs, in
     the compositors' mode for ``settings``."""
     from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
-    from bevy_gaussian_splatting_tpu_torch.ops.cuda import expand as ex
-    from bevy_gaussian_splatting_tpu_torch.ops.cuda import reduce as rd
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 
     dev = cloud.device
@@ -380,18 +456,7 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
 
     # ---- pair expansion: array-equal ----
     table, _ = rt.expansion_inputs(splats, width, height, p_max)
-    args = (*table, p_max, tx_count, num_tiles)
-    got = ex.expand_pairs(*args)
-    ref = ex.expand_pairs_plain(*args)
-    for name, g, r in zip(("tile", "g_cloud", "rank"), got, ref):
-        if not torch.equal(g, r):
-            bad = int((g != r).sum())
-            raise AssertionError(f"expand_pairs {label}: {name} differs in {bad} slots")
-    exp_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-    exp_ms = cuda_ms(lambda: ex.expand_pairs(*args), 20)
-    exp_plain_ms = cuda_ms(lambda: ex.expand_pairs_plain(*args), 5)
-    exp_bytes = sum(t.numel() * 4 for t in table) + 3 * 4 * p_max
-    exp_ops = p_max * (2 * math.ceil(math.log2(n + 1)) + 12)  # search + tile arithmetic
+    expand, exp_line = expand_case(table, p_max, tx_count, num_tiles, label, 20)
 
     # ---- compositor: within 2e-5 (2DGS 1e-4) ----
     bins = rt.tile_bins(splats, width, height, p_max)
@@ -423,56 +488,28 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     dsorted, bwd, bwd_line = backward_case(bwd_args, chunk, kmode, label, walked, n_inside, 10)
 
     # ---- segmented reduce: array-equal, at the mode's row width ----
-    cols = tf.param_width(kmode)
     dslot = torch.empty_like(dsorted)
     dslot[bins.order] = dsorted
-    drank = rd.segment_reduce(dslot, bins.cum, n)
-    drank_plain = rd.segment_reduce_plain(dslot, bins.cum, n)
-    if not torch.equal(drank, drank_plain):
-        bad = int((drank != drank_plain).any(dim=1).sum())
-        raise AssertionError(f"segment_reduce {label}: {bad} of {n} ranks differ from the plain version")
-    red_err = float((drank - drank_plain).abs().max())
-    red_ms = cuda_ms(lambda: rd.segment_reduce(dslot, bins.cum, n), 20)
-    red_plain_ms = cuda_ms(lambda: rd.segment_reduce_plain(dslot, bins.cum, n), 2)
-    owned = int(bins.cum[-1])
-    _, lengths = rd.segment_bounds(bins.cum)
-    owned_rows = dslot[:owned]
-    lib = torch.segment_reduce(owned_rows, "sum", lengths=lengths, axis=0)
-    lib_err = float((lib - drank).abs().max())
-    red_lib_ms = cuda_ms(lambda: torch.segment_reduce(owned_rows, "sum", lengths=lengths, axis=0), 20)
-    red_bytes = owned * cols * 4 + n * 4 + n * cols * 4
-    red_ops = owned * cols
-
-    eb, eby = bound(exp_bytes, exp_ops, INT32_OPS_PER_S)
-    rb, rby = bound(red_bytes, red_ops, FP32_NO_FMA_OPS_PER_S)
-    log(
-        f"[kernels {label}] pairs {total} p_max {p_max} chunk {chunk} | "
-        f"expand equal, {exp_ms:.4f} ms (plain {exp_plain_ms:.4f}, bound {eb:.4f} by {eby}) | {comp_line}"
-    )
-    log(
-        f"[kernels {label}] {bwd_line} | segment_reduce equal over {n} ranks, {owned} slots x {cols} columns, "
-        f"{red_ms:.4f} ms (plain {red_plain_ms:.4f}, bound {rb:.4f} by {rby}, torch.segment_reduce {red_lib_ms:.4f}, "
-        f"differs by {lib_err:.3e})"
-    )
+    reduce, red_line = reduce_case(dslot, bins.cum, n, label, 20)
+    log(f"[kernels {label}] pairs {total} p_max {p_max} chunk {chunk} | {exp_line} | {comp_line}")
+    log(f"[kernels {label}] {bwd_line} | {red_line}")
     log(bbox_line)
     return {
-        "expand_pairs": dict(max_abs_err=exp_err, ms=exp_ms, plain_ms=exp_plain_ms, bound_ms=eb, bound_by=eby,
-                             library_ms=None),
+        "expand_pairs": expand,
         "composite_tiles_raw": comp,
         "composite_backward": bwd,
-        "segment_reduce": dict(max_abs_err=red_err, ms=red_ms, plain_ms=red_plain_ms, bound_ms=rb, bound_by=rby,
-                               library_ms=red_lib_ms),
+        "segment_reduce": reduce,
         "composite_tiles_raw+bbox": bbox_entry,
     }
 
 
 def phase_kernels_converge() -> None:
-    """The two compositors at the convergence protocols' shapes (AABB,
+    """The four kernels at the convergence protocols' shapes (AABB,
     ``CONVERGE``): the protocol's starting cloud (``_init_arrays``) seen from
     its first view, with ``render_tiled``'s default pair budget; each kernel
     against its plain version and timed by CUDA events over 200 launches,
     with its bound; the cotangent from the bench objective against the
-    test model's render."""
+    test model's render, the reduce's rows from the backward."""
     from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
     from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy, test_model_3d
     from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
@@ -492,14 +529,21 @@ def phase_kernels_converge() -> None:
         bins = rt.tile_bins(splats, size, size, p_max)
         params = rt.pack_raster_params(splats, settings, size, size)[bins.g_s].contiguous()
         tx_count = size // rt.TILE
-        chunk = tf.preferred_chunk(p_max, bins.start.shape[0])
+        num_tiles = bins.start.shape[0]
+        table, _ = rt.expansion_inputs(splats, size, size, p_max)
+        exp_line = expand_case(table, p_max, tx_count, num_tiles, label, 200)[1]
+        chunk = tf.preferred_chunk(p_max, num_tiles)
         comp_args = (params, bins.start, bins.count, tx_count, size, size)
         raw, walked, n_inside, _, fwd_line = forward_case(comp_args, chunk, kmode, label, 200)
         with torch.no_grad():
             target = rt.render_tiled(target_cloud, camera, settings)
         bwd_args = (params, bins.start, bins.count, cotangent(raw, target, size, size), tx_count, size, size)
-        bwd_line = backward_case(bwd_args, chunk, kmode, label, walked, n_inside, 200)[2]
-        log(f"[kernels {label}] pairs {int(bins.count.sum())} p_max {p_max} chunk {chunk} | {fwd_line} | {bwd_line}")
+        dsorted, _, bwd_line = backward_case(bwd_args, chunk, kmode, label, walked, n_inside, 200)
+        dslot = torch.empty_like(dsorted)
+        dslot[bins.order] = dsorted
+        red_line = reduce_case(dslot, bins.cum, n, label, 200)[1]
+        log(f"[kernels {label}] pairs {int(bins.count.sum())} p_max {p_max} chunk {chunk} | {exp_line} | "
+            f"{fwd_line} | {bwd_line} | {red_line}")
 
 
 def small_grads(arrays: dict, camera, background, settings, device) -> dict:
@@ -1042,7 +1086,9 @@ def main() -> int:
             res = timed(f"kernels {mode} {width}x{height}", phase_kernels, cloud, target_cloud, settings, width, height)
             if (width, height) == SIZES[0]:
                 results[mode] = res
-                results[mode + "+bbox"] = {"composite_tiles_raw": res["composite_tiles_raw+bbox"]}
+                # the overlay's frames bin as the mode's: the same expansion inputs
+                results[mode + "+bbox"] = {"composite_tiles_raw": res["composite_tiles_raw+bbox"],
+                                           "expand_pairs": res["expand_pairs"]}
         if mode == "aabb":
             timed("kernels aabb converge", phase_kernels_converge)
         timed(f"small {mode}", phase_small, settings)
@@ -1075,16 +1121,13 @@ def main() -> int:
         "segment_reduce": ("bevy_gaussian_splatting_tpu_torch/csrc/reduce.cu",
                            "bevy_gaussian_splatting_tpu/ops/pallas/reduce.py:39"),
     }
-    # the four kernels in OBB mode, the two compositors in AABB mode, the two
-    # compositors and the reduce (at 16 columns) in 2DGS mode (the expansion
-    # does not depend on the mode, nor the reduce on OBB or AABB), and the
-    # forward compositor's overlay instantiation in each mode (its bbox=True
-    # branch, tile_fwd.py:289-312)
+    # the four kernels in OBB, AABB and 2DGS mode (the reduce at 16 columns
+    # in 2DGS), and the forward compositor's overlay instantiation (its
+    # bbox=True branch, tile_fwd.py:289-312) and the expansion in each mode's
+    # overlay frames, each with the launches of its own paths
     entries = (
-        [(name, "obb") for name in sources]
-        + [("composite_tiles_raw", "aabb"), ("composite_backward", "aabb")]
-        + [("composite_tiles_raw", "2d"), ("composite_backward", "2d"), ("segment_reduce", "2d")]
-        + [("composite_tiles_raw", f"{m}+bbox") for m in ("obb", "aabb", "2d")]
+        [(name, mode) for mode in ("obb", "aabb", "2d") for name in sources]
+        + [(name, f"{m}+bbox") for m in ("obb", "aabb", "2d") for name in ("expand_pairs", "composite_tiles_raw")]
     )
     for name, mode in entries:
         source, replaces = sources[name]

@@ -26,7 +26,15 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 from bevy_gaussian_splatting_tpu_torch.render.api import render
 from bevy_gaussian_splatting_tpu_torch.train.losses import mse
 from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, shifted_arrays
-from torch_port_cases import MODE, adversarial_rows, special_rows
+from torch_port_cases import (
+    EXPAND_COUNT_CASES,
+    MODE,
+    adversarial_rows,
+    expand_counts,
+    expand_table,
+    reduce_counts,
+    special_rows,
+)
 
 FIELDS = ("position_visibility", "spherical_harmonic", "rotation", "scale_opacity")
 GRAD_BAR = 1e-4  # chip_smoke.py's bar: per column or field, of its largest |plain|
@@ -65,17 +73,52 @@ def _inputs(arrays, width, height, device, settings=CloudSettings(), eye=(0.0, 0
     return rt.project_for_binning(cloud, cam, settings), p_max
 
 
-@pytest.mark.parametrize("kind,n,height", [("bench", 20000, 256), ("occluded", 1000, 120)])
+@pytest.mark.parametrize("kind,n,height", [("bench", 20000, 256), ("occluded", 1000, 120), ("wide", 400, 256)])
 def test_expand_kernel_equals_plain(card, kind, n, height):
     splats, p_max = _inputs(_scene(kind, n, 3), 256, height, card)
     table, _ = rt.expansion_inputs(splats, 256, height, p_max)
-    for budget in (p_max, 777):  # the second one caps the pairs
+    for budget in (p_max, 777, 1500):  # the last two cap the pairs; neither is a multiple of a block
         args = (*table, budget, 16, 16 * (rt.pad_to_tile(height) // 16))
         before = ex.expand_pairs.launches
         got = ex.expand_pairs(*args)
         assert ex.expand_pairs.launches == before + 1
         for g, r in zip(got, ex.expand_pairs_plain(*args)):
             assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("case", EXPAND_COUNT_CASES)
+@pytest.mark.parametrize("p_max", [777, 1500, 20480])
+def test_expand_kernel_on_adversarial_counts(card, case, p_max):
+    """Counts the binning never gives: interior zero runs longer than a
+    block's window (those blocks search device memory), a splat over the
+    whole 1080p frame, one gaussian, none, all inactive."""
+    table = tuple(t.to(card) for t in expand_table(expand_counts(case, p_max)))
+    tx_count, sentinel = 120, 120 * 68
+    before = ex.expand_pairs.launches
+    got = ex.expand_pairs(*table, p_max, tx_count, sentinel)
+    assert ex.expand_pairs.launches == before + 1
+    for g, r in zip(got, ex.expand_pairs_plain(*table, p_max, tx_count, sentinel)):
+        assert torch.equal(g, r)
+    if case.startswith("zero-runs") and p_max == 20480:
+        assert bool((ex.block_windows(table[0], p_max).path == ex.PATH_SEARCH).any())
+
+
+@pytest.mark.parametrize("cols", [10, 16])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_reduce_kernel_on_adversarial_counts(card, seed, cols):
+    """Runs that start at odd slots (10-column runs 8-byte aligned), empty
+    ranks, a rank whose run is twice the staging buffer (its block sums
+    from device memory), also from a row view that starts one row into
+    its storage."""
+    cum = reduce_counts(seed, cols, rd.STAGE_FLOATS).to(card)
+    n = cum.shape[0]
+    assert not bool(rd.rank_runs(cum, n, cols).staged.all())
+    rows = torch.randn((int(cum[-1]) + 38, cols), generator=torch.Generator().manual_seed(seed)).to(card)
+    for dslot in (rows[:-1], rows[1:]):
+        before = rd.segment_reduce.launches
+        got = rd.segment_reduce(dslot, cum, n)
+        assert rd.segment_reduce.launches == before + 1
+        assert torch.equal(got.view(torch.int32), rd.segment_reduce_plain(dslot, cum, n).view(torch.int32))
 
 
 @pytest.mark.parametrize("kind,n,height,chunk", [

@@ -248,3 +248,53 @@ def special_rows(mode, width, height, y0):
             out.append((r, None))
         out += [(row(c2=1e4, c11=1.0, c3=50.0, c7=50.0), 0xFF)]
     return out
+
+
+# the expansion's adversarial counts (tests/test_torch_pairs.py on the CPU,
+# tests/test_torch_cuda.py on the card); the window matches csrc/expand.cu
+EXPAND_COUNT_CASES = ["zero-runs0", "zero-runs1", "whole-frame", "n1", "n0", "all-inactive"]
+
+
+def expand_counts(case: str, p_max: int) -> torch.Tensor:
+    """Inclusive counts ``cum`` [N] int32 for the expansion: random counts
+    with interior runs of zero-count ranks longer than a block's window
+    ("zero-runs<seed>", clamped at ``p_max``), one splat over all 120 x 68
+    tiles of 1920x1080, one gaussian, none, or 50 inactive ones."""
+    if case.startswith("zero-runs"):
+        from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import WINDOW
+
+        rng = np.random.default_rng(int(case[len("zero-runs"):]))
+        n, longest = 6000, 2000
+        counts = rng.integers(1, 4, n)
+        for _ in range(4):
+            s = int(rng.integers(0, n - longest))
+            counts[s : s + int(rng.integers(WINDOW + 1, longest))] = 0
+        return torch.from_numpy(np.minimum(np.cumsum(counts), p_max).astype(np.int32))
+    values = {"whole-frame": [8160], "n1": [3], "n0": [], "all-inactive": [0] * 50}[case]
+    return torch.tensor(values, dtype=torch.int32)
+
+
+def expand_table(cum: torch.Tensor, seed: int = 0):
+    """A full expansion table around ``cum``: rect widths 0-4 (0 where a
+    rank owns no slot; a whole-frame splat 120 wide), rectangle corners and
+    a permutation, all int32 [N]."""
+    n = cum.shape[0]
+    rng = np.random.default_rng(seed)
+    counts = torch.diff(cum.to(torch.int64), prepend=torch.zeros(1, dtype=torch.int64)).numpy()
+    rect_w = np.where(counts > 0, rng.integers(1, 5, n), 0)
+    rect_w[counts == 8160] = 120
+    cols = [rect_w, rng.integers(0, 10, n), rng.integers(0, 10, n), rng.permutation(n)]
+    return (cum, *(torch.from_numpy(np.asarray(c, np.int32)) for c in cols))
+
+
+def reduce_counts(seed: int, cols: int, stage_floats: int, n: int = 20000) -> torch.Tensor:
+    """Inclusive counts ``cum`` [n] int32 for the reduce: 0-3 slots a rank
+    (so runs start at odd slots), five empty ranks first, and one rank
+    whose rows of ``cols`` floats are twice the ``stage_floats`` staging
+    buffer."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 4, n)
+    counts[:5] = 0
+    counts[int(rng.integers(n // 5, 4 * n // 5))] = 2 * stage_floats // cols
+    return torch.from_numpy(np.cumsum(counts).astype(np.int32))
+
