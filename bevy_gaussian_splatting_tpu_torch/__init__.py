@@ -7,21 +7,31 @@ on the card (``cuda``) unless the caller passes ``device="cpu"``; there the
 hand-written kernels under ``csrc/`` give way to their plain PyTorch
 versions, which the tests hold against the JAX package.
 
-Ported so far, for 3DGS with OBB or AABB bounds and for 2DGS surfels, in
-every rasterize mode but VELOCITY, every draw and sort mode, with or without
-the bounding-box overlay: the serving forward render,
-``render.api.render``, the training step, ``train.step.train_step``
-(``ops.rasterize_tile.render_tiled`` is differentiable in the cloud's
-tensors), and the training loop's pieces: densification (``train.densify``)
-and the convergence benchmark, ``train.quality.convergence_psnr``.
+Ported so far, for 3DGS with OBB or AABB bounds, 2DGS surfels and temporal
+4DGS, in every rasterize, draw and sort mode, with or without the
+bounding-box overlay, for every cloud class (quaternion and scale storage,
+4DGS, precomputed covariance) at SH degrees 0-4 and in float32, float16 or
+bfloat16 storage: the serving forward render, ``render.api.render``, the
+training step, ``train.step.train_step`` (``ops.rasterize_tile.render_tiled``
+is differentiable in the cloud's tensors), and the training loop's pieces:
+densification (``train.densify``, 3DGS) and the convergence benchmark,
+``train.quality.convergence_psnr``.
 """
 
 __version__ = "0.1.0"
 
 from bevy_gaussian_splatting_tpu_torch.models.cloud import (  # noqa: F401
     Gaussian3dCloud,
+    Gaussian3dCovCloud,
+    Gaussian4dCloud,
     cloud_from_numpy,
+    pad_cloud,
+    precompute_covariance_3d,
+    random_gaussians_3d,
     random_gaussians_3d_seeded,
+    random_gaussians_4d,
+    random_gaussians_4d_seeded,
+    set_sh_degree,
     sh_coeff_width,
     sh_degree_from_width,
     test_model_3d,
@@ -35,5 +45,6 @@ from bevy_gaussian_splatting_tpu_torch.models.settings import (  # noqa: F401
     RadixSortDepthBits,
     RasterizeMode,
     SortMode,
+    playback_update,
 )
 from bevy_gaussian_splatting_tpu_torch.models.camera import Camera  # noqa: F401

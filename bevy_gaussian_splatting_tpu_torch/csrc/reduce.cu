@@ -35,8 +35,11 @@
 //      and the block writes its [ranks, cols] output as one coalesced run.
 // The kernel is templated on the column count (10 and 16; 0 takes it from
 // the argument), so rows are indexed by constants.  A run longer than the
-// staging buffer (a rank with thousands of slots) is summed from device
-// memory in the same order, giving the same bits.
+// staging buffer (the 4DGS scene's larger splats: 128 ranks of up to 6
+// pairs at 1920x1080) is staged in windows of whole ranks, one after the
+// other, each as long as the buffer allows; a rank longer than the buffer
+// alone (thousands of slots) is summed from device memory in the same
+// order, giving the same bits.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -50,8 +53,13 @@ constexpr int kRanks = 128;  // most ranks a block owns
 constexpr int kMinBlocks = 264;  // blocks below which a block owns fewer ranks: two an SM
 constexpr int kStage = 6144;  // floats of a block's staged run (24 KB)
 
+// kBlocksPerSm resident blocks: 32 registers a thread (the staged buffer
+// allows 9 blocks).  Left free, the compiler took 40 for the window loop and
+// the kernel lost 4-5% on the 3D bench scene at 6 blocks an SM.
+constexpr int kBlocksPerSm = 8;
+
 template <int kCols>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 segment_reduce_kernel(const float* __restrict__ dslot, const int* __restrict__ cum, int n, int cols_arg,
                       int ranks, float* __restrict__ drank) {
   // s_cum[i] = cum[r0 + i - 1]: rank r0 + i owns slots [s_cum[i], s_cum[i + 1])
@@ -76,39 +84,56 @@ segment_reduce_kernel(const float* __restrict__ dslot, const int* __restrict__ c
   for (int i = threadIdx.x; i <= nr; i += kThreads) s_cum[i] = r0 + i > 0 ? __ldg(cum + r0 + i - 1) : 0;
   __syncthreads();
 
-  // the run's floats [f0, f1); base: the 16-byte aligned float at or below f0
-  const long long f0 = (long long)s_cum[0] * cols;
-  const long long f1 = (long long)s_cum[nr] * cols;
-  const long long base = f0 - (long long)((reinterpret_cast<std::uintptr_t>(dslot + f0) & 15) >> 2);
-  const bool staged = f1 - base <= kStage;  // block-uniform
-  if (staged) {
-    const long long head = min(base == f0 ? f0 : base + 4, f1);  // the first aligned float at or past f0
-    const long long body = head + ((f1 - head) & ~3LL);  // aligned run [head, body)
-    for (long long f = f0 + threadIdx.x; f < head; f += kThreads) s_rows[f - base] = __ldg(dslot + f);
-    for (long long f = body + threadIdx.x; f < f1; f += kThreads) s_rows[f - base] = __ldg(dslot + f);
+  // windows of whole ranks [i0, i1) whose run, from the 16-byte aligned
+  // float at or below its start, fits the buffer: one window where the
+  // block's whole run fits (and one, empty, for a run of no slots); no sum
+  // spans two windows.  A rank longer than the buffer alone is summed from
+  // device memory, in the same slot order.
+  int i0 = 0;
+  do {
+    const long long g0 = (long long)s_cum[i0] * cols;
+    const long long wb = g0 - (long long)((reinterpret_cast<std::uintptr_t>(dslot + g0) & 15) >> 2);
+    int i1 = nr;
+    if ((long long)s_cum[nr] * cols - wb > kStage) {  // block-uniform: the last rank end whose run fits
+      int lo = i0, hi = nr - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if ((long long)s_cum[mid] * cols - wb <= kStage) lo = mid; else hi = mid - 1;
+      }
+      i1 = lo;
+    }
+    if (i1 == i0) {  // rank i0 alone passes the buffer
+      for (int c = threadIdx.x; c < cols; c += kThreads) {
+        const float* row = dslot + (g0 + c);
+        float acc = 0.0f;
+        for (int s = s_cum[i0]; s < s_cum[i0 + 1]; ++s, row += cols) acc += __ldg(row);
+        out[i0 * cols + c] = acc;
+      }
+      ++i0;
+      continue;
+    }
+    const long long w1 = (long long)s_cum[i1] * cols;
+    const long long head = min(wb == g0 ? g0 : wb + 4, w1);  // the first aligned float at or past g0
+    const long long body = head + ((w1 - head) & ~3LL);  // aligned run [head, body)
+    for (long long f = g0 + threadIdx.x; f < head; f += kThreads) s_rows[f - wb] = __ldg(dslot + f);
+    for (long long f = body + threadIdx.x; f < w1; f += kThreads) s_rows[f - wb] = __ldg(dslot + f);
     for (long long f = head + 4LL * threadIdx.x; f < body; f += 4LL * kThreads) {
-      __pipeline_memcpy_async(s_rows + (f - base), dslot + f, 16);
+      __pipeline_memcpy_async(s_rows + (f - wb), dslot + f, 16);
     }
     __pipeline_commit();
     __pipeline_wait_prior(0);
-  }
-  __syncthreads();
-
-  for (int o = threadIdx.x; o < nr * cols; o += kThreads) {
-    const int i = o / cols;
-    const int c = o - i * cols;
-    const int a = s_cum[i];
-    const int b = s_cum[i + 1];
-    float acc = 0.0f;
-    if (staged) {
-      const float* row = s_rows + ((long long)a * cols + c - base);
-      for (int s = a; s < b; ++s, row += cols) acc += *row;
-    } else {
-      const float* row = dslot + ((long long)a * cols + c);
-      for (int s = a; s < b; ++s, row += cols) acc += __ldg(row);
+    __syncthreads();
+    for (int o = i0 * cols + threadIdx.x; o < i1 * cols; o += kThreads) {
+      const int i = o / cols;
+      const int c = o - i * cols;
+      const float* row = s_rows + ((long long)s_cum[i] * cols + c - wb);
+      float acc = 0.0f;
+      for (int s = s_cum[i]; s < s_cum[i + 1]; ++s, row += cols) acc += *row;
+      out[o] = acc;
     }
-    out[o] = acc;
-  }
+    __syncthreads();  // the next window overwrites the staged rows
+    i0 = i1;
+  } while (i0 < nr);
 }
 
 template <int kCols>

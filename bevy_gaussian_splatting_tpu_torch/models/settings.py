@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 
 
 class DrawMode(enum.Enum):
@@ -131,17 +132,33 @@ class CloudSettings:
 
 
 def check_supported(settings: CloudSettings) -> None:
-    """Raise for settings outside the ported slices.
+    """Raise for settings the port cannot render.
 
-    Ported: 3DGS with OBB or AABB bounds and 2DGS surfels, every rasterize
-    mode but VELOCITY, every draw and sort mode, and the bounding-box
-    overlay.  4DGS (and with it VELOCITY) raises ``NotImplementedError``;
-    VELOCITY without 4DGS raises ``ValueError``, as the JAX package's
-    projection does (ops/project.py:242-243)."""
-    if settings.gaussian_mode == GaussianMode.GAUSSIAN_4D:
-        raise NotImplementedError(
-            "the PyTorch port renders 3DGS (OBB or AABB) and 2DGS so far; "
-            f"gaussian_mode={settings.gaussian_mode.name} arrives with slice 3 (other kernel modes)"
-        )
-    if settings.rasterize_mode == RasterizeMode.VELOCITY:
+    Every gaussian mode is ported (3DGS with OBB or AABB bounds, 2DGS
+    surfels, 4DGS), in every rasterize, draw and sort mode.  VELOCITY
+    without 4DGS raises ``ValueError``, as the JAX package's projection does
+    (ops/project.py:242-243)."""
+    if settings.rasterize_mode == RasterizeMode.VELOCITY and settings.gaussian_mode != GaussianMode.GAUSSIAN_4D:
         raise ValueError("RasterizeMode.VELOCITY requires GaussianMode.GAUSSIAN_4D")
+
+
+def playback_update(settings: CloudSettings, delta_seconds: float, elapsed_seconds: float) -> CloudSettings:
+    """Advance ``settings.time`` one frame (reference ``playback_update``
+    system, src/gaussian/settings.rs:145-191; the JAX package's
+    models/settings.py:137-161)."""
+    if settings.time_scale == 0.0:
+        return settings
+    mode = settings.playback_mode
+    if mode == PlaybackMode.STILL:
+        return settings
+    if mode == PlaybackMode.ONCE and settings.time >= settings.time_stop:
+        return settings
+    if mode in (PlaybackMode.LOOP, PlaybackMode.ONCE):
+        time = settings.time + delta_seconds * settings.time_scale
+    else:  # SIN
+        theta = settings.time_scale * elapsed_seconds
+        y = math.sin(theta * 2.0 * math.pi)
+        time = settings.time_start + (settings.time_stop - settings.time_start) * (y + 1.0) / 2.0
+    if mode == PlaybackMode.LOOP and time > settings.time_stop:
+        time = settings.time_start
+    return settings.replace(time=time)

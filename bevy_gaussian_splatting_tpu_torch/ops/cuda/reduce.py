@@ -3,8 +3,9 @@
 Replaces the TPU kernel ``bevy_gaussian_splatting_tpu/ops/pallas/reduce.py``
 ``_reduce_kernel`` (``pallas_segment_reduce``) with ``csrc/reduce.cu``: a
 block owns up to ``BLOCK_RANKS`` consecutive ranks, stages their contiguous run
-of slot rows in shared memory, and each (rank, column) sums its slots in
-slot order.  The row width is ``dslot``'s: 10 columns for OBB and AABB
+of slot rows in shared memory (in windows of whole ranks where the run is
+longer than its ``STAGE_FLOATS`` buffer, as the 4DGS scene's are), and each
+(rank, column) sums its slots in slot order.  The row width is ``dslot``'s: 10 columns for OBB and AABB
 gradients, 16 for 2DGS.  On the H100 it is bound by memory (each owned slot
 row read once, each rank row written once); see the source for the design.
 
@@ -52,6 +53,8 @@ class RankRuns(NamedTuple):
     slot0: torch.Tensor  # their slots are the run [slot0, slot1) of dslot
     slot1: torch.Tensor
     staged: torch.Tensor  # bool: the run is summed from shared memory, else from device memory
+    windows: torch.Tensor  # the staged run's windows of whole ranks (0 where not staged)
+    alone: torch.Tensor  # ranks longer than the buffer, summed from device memory
 
 
 def rank_runs(cum: torch.Tensor, n: int, cols: int) -> RankRuns:
@@ -60,18 +63,38 @@ def rank_runs(cum: torch.Tensor, n: int, cols: int) -> RankRuns:
     float is 16-byte aligned (as a fresh tensor's is): each block's ranks
     (``BLOCK_RANKS``, fewer where that leaves under ``MIN_BLOCKS`` blocks,
     but at least a (rank, column) for each of its ``THREADS`` threads),
-    their run of slots, and whether it stages the run: where its ranks
-    give a thread more than one (rank, column) and the run, from the
-    aligned float at or below its start, fits the ``STAGE_FLOATS``
-    staging buffer."""
+    their run of slots, whether it stages the run (where its ranks give a
+    thread more than one (rank, column)), in how many windows, and how many
+    of its ranks it sums from device memory instead.  A window holds the
+    most whole ranks from its first whose run, from the aligned float at or
+    below its start, fits the ``STAGE_FLOATS`` buffer (all of the block's
+    where they fit, one window even for a run of no slots); a rank that
+    alone passes the buffer is summed from device memory."""
     ranks = min(BLOCK_RANKS, max(-(-n // MIN_BLOCKS), THREADS // cols, 1))
     first = torch.arange(-(-n // ranks), dtype=torch.int64, device=cum.device) * ranks
     end = torch.clamp(first + ranks, max=n)
     bounds = torch.cat([cum.new_zeros(1), cum]).to(torch.int64)  # bounds[r] = cum[r - 1]
     slot0, slot1 = bounds[first], bounds[end]
-    f0 = slot0 * cols
-    staged = (slot1 * cols - (f0 - f0 % 4) <= STAGE_FLOATS) & (ranks * cols > THREADS)
-    return RankRuns(first, end, slot0, slot1, staged)
+    staged = torch.full_like(first, ranks * cols > THREADS, dtype=torch.bool)
+    windows = torch.zeros_like(first)
+    alone = torch.zeros_like(first)
+    floats = bounds * cols  # floats[r]: the first float of rank r's slots
+    i0, stop = first[staged], end[staged]
+    w, a = torch.zeros_like(i0), torch.zeros_like(i0)
+    while True:  # a window (or a rank alone) of every unfinished block a pass
+        live = i0 < stop
+        if not bool(live.any()):
+            break
+        wb = floats[i0] - floats[i0] % 4
+        # the last rank end whose run from wb fits, at most the block's end
+        i1 = torch.minimum(torch.searchsorted(floats, wb + STAGE_FLOATS, right=True) - 1, stop)
+        single = live & (i1 == i0)
+        w = w + (live & ~single).to(w.dtype)
+        a = a + single.to(a.dtype)
+        i0 = torch.where(single, i0 + 1, torch.where(live, i1, i0))
+    windows[staged] = w
+    alone[staged] = a
+    return RankRuns(first, end, slot0, slot1, staged, windows, alone)
 
 
 def _check_inputs(dslot, cum, n):

@@ -395,7 +395,7 @@ def composite_epilogue(out_raw: torch.Tensor, background, width: int, height: in
     if background is not None:
         if background.dim() != 1:
             raise NotImplementedError(
-                "full-image [H, W, 4] backgrounds arrive with slice 3 of the port"
+                "full-image [H, W, 4] backgrounds are not ported yet (ROADMAP.md Queue 1 item 4)"
             )
         accum = accum + trans[..., None] * background[:3]
         alpha_out = alpha_out + trans * background[3]

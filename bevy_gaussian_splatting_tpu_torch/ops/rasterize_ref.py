@@ -1,7 +1,7 @@
 """Reference (oracle) rasterizer: exact, slow, plain PyTorch.
 
 The counterpart of the JAX package's ``ops/rasterize_ref.py`` for 3DGS with
-OBB or AABB bounds and for 2DGS surfels: back-to-front painter blending over
+OBB or AABB bounds, 2DGS surfels and 4DGS: back-to-front painter blending over
 depth-sorted gaussians with premultiplied alpha, dst factor (1 - a)
 (src/render/mod.rs:914-982), OBB falloff power = -4.5 |uv|^2 in the
 eigen-rotated quad frame (src/render/gaussian.wgsl:489-497), the AABB conic
@@ -23,7 +23,7 @@ from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, Sor
 from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import BBOX_GREEN, EDGE_BAND
 from bevy_gaussian_splatting_tpu_torch.ops.gaussian_2d import surfel_affine_coeffs, surfel_affine_power
-from bevy_gaussian_splatting_tpu_torch.ops.project import project_gaussians
+from bevy_gaussian_splatting_tpu_torch.ops.project import as_float32, project_gaussians
 from bevy_gaussian_splatting_tpu_torch.ops.transforms import apply_transform
 
 ALPHA_CAP = 0.999  # gaussian.wgsl:499
@@ -162,13 +162,18 @@ def render_oracle(
     settings: CloudSettings,
     model_transform: Optional[torch.Tensor] = None,
     background: Optional[torch.Tensor] = None,
+    time=None,
 ) -> torch.Tensor:
-    """Full oracle render: sort + project + composite -> [H, W, 4] linear RGBA.
+    """Full oracle render: sort + project + composite -> [H, W, 4] linear RGBA
+    at ``time`` (4DGS; default ``settings.time``).
 
     RADIX and NONE sort by the radix key and cull its sentinels; STD and
     RAYON take the host sort's order and cull nothing.  The DEPTH ramp's
     (min, max) are the camera distances of sorted entries ``n - 1`` and
-    ``min(1, n - 1)``, the reference's quirk (gaussian.wgsl:329-347)."""
+    ``min(1, n - 1)``, the reference's quirk (gaussian.wgsl:329-347).  The
+    sort and the ramp read the stored positions, also in 4DGS, as in the
+    reference (rasterize_ref.py:217-246)."""
+    cloud = as_float32(cloud)
     dev = cloud.device
     if model_transform is None:
         model_transform = torch.eye(4, dtype=torch.float32, device=dev)
@@ -189,7 +194,7 @@ def render_oracle(
     wp = apply_transform(model_transform, cloud.position)
     max_d = torch.linalg.norm(wp[order[min(1, n - 1)]] - camera.world_position)
     min_d = torch.linalg.norm(wp[order[n - 1]] - camera.world_position)
-    splats = project_gaussians(cloud, camera, settings, model_transform, depth_minmax=(min_d, max_d))
+    splats = project_gaussians(cloud, camera, settings, model_transform, depth_minmax=(min_d, max_d), time=time)
     splats["mask"] = splats["mask"] & sentinel_mask
     return composite_splats(splats, order, camera.width, camera.height, background,
                             bbox=settings.visualize_bounding_box)

@@ -1,8 +1,9 @@
 """Tile-binned renderer: binning, parameter packing and the pipeline.
 
 The counterpart of the JAX package's ``ops/rasterize_tile.py``
-``render_tiled(..., compositor="pallas")`` for 3DGS with OBB or AABB bounds
-and for 2DGS surfels, in every rasterize, draw and sort mode the port has
+``render_tiled(..., compositor="pallas")`` for 3DGS with OBB or AABB bounds,
+2DGS surfels and 4DGS (which bins and composites as 3DGS, OBB or AABB, at
+the frame time), in every rasterize, draw and sort mode
 (the DEPTH ramp's range from the sorted-entry quirk, :func:`depth_range`),
 serving and training alike.  It reproduces that path's integer artifacts
 exactly:
@@ -55,7 +56,7 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
     tile_ndc,
 )
 from bevy_gaussian_splatting_tpu_torch.ops.gaussian_2d import surfel_affine_coeffs
-from bevy_gaussian_splatting_tpu_torch.ops.project import project_gaussians
+from bevy_gaussian_splatting_tpu_torch.ops.project import as_float32, project_gaussians
 from bevy_gaussian_splatting_tpu_torch.ops.transforms import apply_transform
 
 TILE = 16  # pixels per tile side
@@ -92,11 +93,12 @@ def tile_budget(n: int) -> int:
 
 
 def project_for_binning(
-    cloud, camera: Camera, settings: CloudSettings, model_transform=None, depth_minmax=None
+    cloud, camera: Camera, settings: CloudSettings, model_transform=None, depth_minmax=None, time=None
 ) -> dict:
-    """``project_gaussians`` with the sentinel cull of its radix key
-    (``sort_key``) folded into ``mask``, as ``render_tiled`` prepares them."""
-    splats = project_gaussians(cloud, camera, settings, model_transform, depth_minmax=depth_minmax)
+    """``project_gaussians`` at ``time`` (default ``settings.time``) with the
+    sentinel cull of its radix key (``sort_key``) folded into ``mask``, as
+    ``render_tiled`` prepares them."""
+    splats = project_gaussians(cloud, camera, settings, model_transform, depth_minmax=depth_minmax, time=time)
     splats["mask"] = splats["mask"] & (splats["sort_key"] != sort_ops.SENTINEL_KEY)
     return splats
 
@@ -140,10 +142,11 @@ def tile_rects(splats: dict, width: int, height: int):
     return tx0, ty0, rect_w, rect_h, active
 
 
-def pair_count(cloud, camera: Camera, settings: CloudSettings, model_transform=None) -> torch.Tensor:
-    """Exact (gaussian, tile) pair count of this frame (int64 scalar tensor):
-    N-sized work only, the budget-sizing prepass."""
-    splats = project_for_binning(cloud, camera, settings, model_transform)
+def pair_count(cloud, camera: Camera, settings: CloudSettings, model_transform=None, time=None) -> torch.Tensor:
+    """Exact (gaussian, tile) pair count of this frame at ``time`` (default
+    ``settings.time``; int64 scalar tensor): N-sized work only, the
+    budget-sizing prepass."""
+    splats = project_for_binning(cloud, camera, settings, model_transform, time=time)
     _, _, rect_w, rect_h, _ = tile_rects(splats, camera.width, camera.height)
     return torch.sum(rect_w * rect_h)
 
@@ -281,7 +284,10 @@ def depth_range(cloud, camera: Camera, settings: CloudSettings, model_transform=
     (gaussian.wgsl:329-347): the distances of back-sorted entries ``n - 1``
     and ``min(1, n - 1)``, sentinels included, found by reductions
     (``sort.back_sorted_entry_indices``), as the JAX package's
-    ``render_tiled`` finds them (rasterize_tile.py:1150-1164)."""
+    ``render_tiled`` finds them (rasterize_tile.py:1150-1164).  The
+    positions are the stored ones, also in 4DGS: the reference's ramp reads
+    the unshifted positions, so the range takes no time."""
+    cloud = as_float32(cloud)
     if model_transform is None:
         model_transform = torch.eye(4, dtype=torch.float32, device=cloud.device)
     back_key = sort_ops.radix_depth_key(
@@ -369,11 +375,14 @@ def render_tiled(
     background: Optional[torch.Tensor] = None,
     pairs_max: Optional[int] = None,
     differentiable: bool = True,
+    time=None,
 ) -> torch.Tensor:
     """Render -> [H, W, 4] linear premultiplied RGBA on the cloud's device,
     differentiable in the cloud's tensors where they require grad.
     ``background`` is None or a solid [4] RGBA; ``pairs_max`` is the pair
-    budget (default: ``pairs_budget(N)``, the 6N cap).
+    budget (default: ``pairs_budget(N)``, the 6N cap); ``time`` the 4DGS
+    frame time (a number or a float32 scalar tensor, default
+    ``settings.time``).
 
     Compositing runs the kernels (``composite_core``), except for the
     bounding-box overlay with ``differentiable=True``: there, as in the JAX
@@ -385,8 +394,9 @@ def render_tiled(
         raise ValueError(f"image width must be a multiple of {TILE}")
     if background is not None and background.dim() != 1:
         raise NotImplementedError(
-            "full-image [H, W, 4] backgrounds arrive with slice 3 of the port"
+            "full-image [H, W, 4] backgrounds are not ported yet (ROADMAP.md Queue 1 item 4)"
         )
+    cloud = as_float32(cloud)
     h_pad = pad_to_tile(height)
     tx_count = width // TILE
     n = len(cloud)
@@ -395,7 +405,7 @@ def render_tiled(
     depth_minmax = None
     if settings.rasterize_mode == RasterizeMode.DEPTH:
         depth_minmax = depth_range(cloud, camera, settings, model_transform)
-    splats = project_for_binning(cloud, camera, settings, model_transform, depth_minmax)
+    splats = project_for_binning(cloud, camera, settings, model_transform, depth_minmax, time)
     params = pack_raster_params(splats, settings, width, height)
     mode = kernel_mode(settings)
     if settings.visualize_bounding_box and differentiable:

@@ -29,7 +29,8 @@ _RECOUNT_PERIOD = 16  # frames between pair-count refreshes per pipeline key
 
 
 def _current_bucket(key, settings, cloud, camera, model_transform) -> int:
-    """Adaptive pair-budget bucket (render/api.py:43-73 of the JAX package)."""
+    """Adaptive pair-budget bucket (render/api.py:43-73 of the JAX package),
+    counted at the frame's ``settings.time``."""
     state = _BUDGET_STATE.get(key)
     if state is not None:
         bucket, frame = state
@@ -44,6 +45,12 @@ def _current_bucket(key, settings, cloud, camera, model_transform) -> int:
     return bucket
 
 
+def budget_key(impl: str, settings: CloudSettings, width: int, height: int, cloud, device) -> tuple:
+    """The adaptive budget's key: what the JAX package keys its pipelines by
+    (render/api.py:675-678), with the device in place of the compositor."""
+    return (impl, settings.static_key(), width, height, len(cloud), type(cloud).__name__, str(device))
+
+
 def render(
     cloud,
     camera: Camera,
@@ -54,7 +61,9 @@ def render(
     adaptive_budget: bool = True,
     device: DeviceLike = None,
 ) -> torch.Tensor:
-    """Render one cloud -> [H, W, 4] linear premultiplied RGBA.
+    """Render one cloud -> [H, W, 4] linear premultiplied RGBA, a 4DGS cloud
+    at ``settings.time`` (as the JAX package's ``render()`` passes
+    ``jnp.float32(settings.time)``, render/api.py:699).
 
     ``device`` defaults to ``cuda`` and raises when there is no card; pass
     ``device="cpu"`` for the plain PyTorch versions.  Cloud and camera are
@@ -74,16 +83,19 @@ def render(
     width, height = camera.width, camera.height
 
     if impl == "oracle":
-        return render_oracle(cloud, camera, settings, model_transform, background)
+        return render_oracle(cloud, camera, settings, model_transform, background, time=settings.time)
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r} (expected 'auto' or 'oracle')")
 
     bucket = None
     if adaptive_budget:
-        key = (impl, settings.static_key(), width, height, len(cloud), str(dev))
+        # the cloud's class too (render/api.py:675-678): a 3D and a 4D cloud
+        # of one size never share a bucket
+        key = budget_key(impl, settings, width, height, cloud, dev)
         bucket = _current_bucket(key, settings, cloud, camera, model_transform)
     # a serving call, as the JAX package's render() builds its pipeline
     # (make_tiled_pipeline's differentiable=False): the overlay runs the kernel
     return rt.render_tiled(
-        cloud, camera, settings, model_transform, background, pairs_max=bucket, differentiable=False
+        cloud, camera, settings, model_transform, background, pairs_max=bucket, differentiable=False,
+        time=settings.time,
     )

@@ -29,7 +29,7 @@ from bevy_gaussian_splatting_tpu_torch.train.densify import (
     init_densify_state,
 )
 from bevy_gaussian_splatting_tpu_torch.train.losses import gaussian_splatting_loss
-from bevy_gaussian_splatting_tpu_torch.train.step import FIELDS, TrainableCloud, adam, train_step
+from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, adam, train_step
 
 
 def psnr_db(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -113,7 +113,7 @@ def convergence_psnr(
                 model.cloud(), dstate, k_budget=n // 8, scene_extent=float(np.max(hi - lo))
             )
             with torch.no_grad():
-                for name in FIELDS:
+                for name in model.fields:
                     getattr(model, name).copy_(getattr(new_cloud, name))
             opt = adam(model, lr)
 

@@ -3,8 +3,9 @@
 The JAX package keeps its step inline (``train/quality.py:113-124``,
 ``bench.py:158-169``, ``examples/training.py:41-53``):
 ``value_and_grad(loss o render_tiled(..., differentiable=True,
-compositor="pallas"))`` then an optax update.  Here the cloud's four fields
-are ``nn.Parameter``s of a :class:`TrainableCloud`, the render is
+compositor="pallas"))`` then an optax update.  Here the cloud's fields (of
+any cloud class: 3DGS, 4DGS, precomputed covariance) are ``nn.Parameter``s
+of a :class:`TrainableCloud`, the render is
 ``ops/rasterize_tile.render_tiled`` (differentiable through the hand-derived
 backward kernels) and the update is a ``torch.optim`` optimizer;
 :func:`adam` is ``optax.adam(lr)``'s update.
@@ -21,19 +22,24 @@ import torch
 from bevy_gaussian_splatting_tpu_torch.device import DeviceLike
 from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
 from bevy_gaussian_splatting_tpu_torch.models.cloud import Gaussian3dCloud, cloud_from_numpy
+from bevy_gaussian_splatting_tpu_torch.ops.project import as_float32
 from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
 from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import render_tiled
 from bevy_gaussian_splatting_tpu_torch.train.losses import mse
 
-FIELDS = tuple(f.name for f in dataclasses.fields(Gaussian3dCloud))
+FIELDS = tuple(f.name for f in dataclasses.fields(Gaussian3dCloud))  # a 3DGS cloud's
 
 
 class TrainableCloud(torch.nn.Module):
-    """A 3DGS cloud whose four fields are trainable parameters."""
+    """A cloud whose fields are trainable float32 parameters; ``fields``
+    names them, in the cloud class's order."""
 
-    def __init__(self, cloud: Gaussian3dCloud):
+    def __init__(self, cloud):
         super().__init__()
-        for name in FIELDS:
+        cloud = as_float32(cloud)
+        self.cloud_class = type(cloud)
+        self.fields = tuple(f.name for f in dataclasses.fields(cloud))
+        for name in self.fields:
             setattr(self, name, torch.nn.Parameter(getattr(cloud, name).detach().clone()))
 
     @classmethod
@@ -43,17 +49,17 @@ class TrainableCloud(torch.nn.Module):
         unless ``device`` says otherwise."""
         return cls(cloud_from_numpy(arrays, device))
 
-    def cloud(self) -> Gaussian3dCloud:
-        """A ``Gaussian3dCloud`` view of the parameters (no copy)."""
-        return Gaussian3dCloud(**{name: getattr(self, name) for name in FIELDS})
+    def cloud(self):
+        """A view of the parameters as the cloud class (no copy)."""
+        return self.cloud_class(**{name: getattr(self, name) for name in self.fields})
 
-    def grads(self) -> Gaussian3dCloud:
-        """The last step's gradients as a ``Gaussian3dCloud`` (no copy), the
+    def grads(self):
+        """The last step's gradients as the cloud class (no copy), the
         counterpart of the cloud-shaped gradient of ``jax.grad``."""
-        missing = [name for name in FIELDS if getattr(self, name).grad is None]
+        missing = [name for name in self.fields if getattr(self, name).grad is None]
         if missing:
             raise ValueError(f"no gradient for {missing}: run a training step first")
-        return Gaussian3dCloud(**{name: getattr(self, name).grad for name in FIELDS})
+        return self.cloud_class(**{name: getattr(self, name).grad for name in self.fields})
 
 
 def adam(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
@@ -71,15 +77,17 @@ def train_step(
     loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = mse,
     background: Optional[torch.Tensor] = None,
     pairs_max: Optional[int] = None,
+    time=None,
 ) -> torch.Tensor:
-    """Render ``model`` through ``camera``, take ``loss_fn(image, target)``,
+    """Render ``model`` through ``camera`` (a 4DGS cloud at ``time``,
+    default ``settings.time``), take ``loss_fn(image, target)``,
     back-propagate and step ``optimizer``.  Returns the loss (a detached
     scalar tensor; reading it waits for the card).  The gradients stay in
     the parameters' ``.grad`` until the next step."""
     optimizer.zero_grad(set_to_none=True)
     image = render_tiled(
         model.cloud(), camera, settings or CloudSettings(),
-        background=background, pairs_max=pairs_max,
+        background=background, pairs_max=pairs_max, time=time,
     )
     loss = loss_fn(image, target)
     loss.backward()

@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port (bevy_gaussian_splatting_tpu_torch) on one
 NVIDIA card.
 
-    python3 chip_smoke.py            # the whole run (50-95 s of script time on
-                                     # "NVIDIA H100 80GB HBM3, 700.00 W")
+    python3 chip_smoke.py            # the whole run (about 3 minutes of
+                                     # script time on "NVIDIA H100 80GB
+                                     # HBM3, 700.00 W")
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one
                                      # frame per size and mode and of one
                                      # training step, written to the output
@@ -12,7 +13,8 @@ NVIDIA card.
 Phases, each of which raises on failure (nothing is caught).  Phases 3-6 run
 with OBB bounds (``CloudSettings()``), then phases 3-5 and 7 with AABB bounds
 (``CloudSettings(aabb=True)``), then phase 8, then phases 3-6 with 2DGS
-surfels (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``):
+surfels (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``), then phase 9, then
+phases 10-13 for 4DGS with OBB and then AABB bounds:
 
   1. build   every kernel under bevy_gaussian_splatting_tpu_torch/csrc with
              nvcc for sm_90a, one nvcc per source, all started together,
@@ -78,12 +80,39 @@ surfels (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``):
   8. converge ``convergence_psnr()`` on the card at the JAX package's bench
              protocol (120 steps, 512 gaussians, 128x128; at least 15.91 dB,
              its 16.41 dB less 0.5) and at its CPU test protocol (60 steps,
-             192 gaussians, 48x48; at least 17.28 dB).
+             192 gaussians, 48x48; at least 17.28 dB);
+  9. flavours the other cloud flavours on the 1M bench scene (OBB) through
+             ``render()``, a warm-up and 5 timed frames each per size:
+             ``precompute_covariance_3d`` within 1e-6 of the quaternion and
+             scale render, f16 and bf16 storage within 2e-5 of the float32
+             render of the rounded cloud, ``set_sh_degree(cloud, 4)``
+             within 2e-6 of degree 3;
+ 10. kernels (4DGS) phase 3 on the JAX bench's 4DGS scene,
+             ``random_gaussians_4d_seeded(1M, seed=3)`` unscaled, at time
+             0.25, the cotangent from a render of the same cloud at 0.3; it
+             adds the pair truncation, the expansion's search blocks and the
+             reduce's blocks by windows;
+ 11. small   (4DGS) 2,000 gaussians: ``render()`` card against the oracle
+             and the CPU at times 0.25 and 0.75 (the image must move) and
+             the gradients card against CPU, each CPU bar the larger of the
+             fixed one and the CPU's own spread under a one-ulp quaternion
+             change (the OBB axis of a 4D splat is ill-conditioned), a frame
+             with a mask decided apart at its threshold held to the oracle
+             alone; the overlay, VELOCITY, and VELOCITY with the overlay
+             (the pixels where oracle and tiled path differ);
+ 12. main    (4DGS) the pair counts at times 0.25, 0.5 and 0.75 and the
+             budget of the worst, then a warm-up and 24 ``render()`` frames
+             at times 0.25 + 0.01 i per size, each through the expansion
+             and the compositor, then one VELOCITY and one overlay frame;
+ 13. train   (4DGS) a warm-up and 4 (512x512) or 2 (1920x1080) Adam steps
+             towards a render of the same cloud at time 0.3, every step
+             through all four kernels, finite.
 
 It prints the kernels line (one entry per kernel and mode: the four kernels
 in each of the three modes, then the expansion and the forward compositor of
-each mode's overlay frames, mode "<mode>+bbox": eighteen), the card's name
-and power limit, and
+each mode's overlay frames, mode "<mode>+bbox", then the same for 4DGS,
+modes "4d-obb", "4d-aabb", "4d-obb+bbox", "4d-aabb+bbox": thirty), the
+card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card it exits
 non-zero and prints no result.
 """
@@ -165,10 +194,24 @@ AABB_AFTER_DENSIFY = 2  # steps after densify_and_prune
 # is the JAX package's 16.41 dB (BENCH_r05.json) less the 0.5 dB its own test
 # allows (tests/test_train.py); the test protocol's floor is that test's.
 CONVERGE = ((120, 512, 128, 15.91), (60, 192, 48, 17.28))
-FIELDS = ("position_visibility", "spherical_harmonic", "rotation", "scale_opacity")
 # the rasterize modes beside COLOR (VELOCITY needs 4DGS), by name
 VIEW_RASTER_MODES_NAMES = ("DEPTH", "NORMAL", "POSITION", "OPTICAL_FLOW", "CLASSIFICATION")
 NORMAL_TRAIN_STEPS = 2  # timed Adam steps in NORMAL mode at 512x512, after a warm-up
+# 4DGS: the JAX bench's scene (bench.py:345, random_gaussians_4d_seeded(n,
+# seed=3), not rescaled), served at per-frame times 0.25 + 0.01 i
+# (bench.py:365) from (0, 0, 60), its pair budget from the worst of three
+# times (bench.py:352-357)
+SEED_4D = 3
+FRAMES_4D = 24
+PAIR_TIMES_4D = (0.25, 0.5, 0.75)
+TIME_4D = 0.25
+TARGET_TIME_4D = 0.3  # the training target: the same cloud at a later time
+TRAIN_STEPS_4D = {SIZES[0]: 4, SIZES[1]: 2}  # timed Adam steps, each size after a warm-up
+FLAVOUR_FRAMES = 5  # timed render() frames per flavour and size, after a warm-up
+COV_BAR = 1e-6  # precomputed covariance against quaternion and scale (tests/test_cov3d.py:85-98)
+HALF_BAR = 2e-5  # f16 / bf16 storage against the float32 render of the rounded cloud
+SH4_BAR = 2e-6  # SH degree 4 storage against degree 3 (tests/test_sh_degree.py:270-294)
+MASK_FLIP_ULPS = 16  # a mask decided apart card vs CPU within this of its threshold is rounding
 
 
 def log(*args):
@@ -421,23 +464,31 @@ def reduce_case(dslot, cum, n: int, label: str, reps: int):
     lib_err = float((lib - drank).abs().max())
     lib_ms = cuda_ms(lambda: torch.segment_reduce(owned_rows, "sum", lengths=lengths, axis=0), reps)
     b, by = bound(owned * cols * 4 + n * 4 + n * cols * 4, owned * cols, FP32_NO_FMA_OPS_PER_S)
-    staged = rd.rank_runs(cum, n, cols).staged
+    runs = rd.rank_runs(cum, n, cols)
     line = (f"segment_reduce equal over {n} ranks, {owned} slots x {cols} columns, {ms:.4f} ms (plain "
             f"{plain_ms:.4f}, bound {b:.4f} by {by}, torch.segment_reduce {lib_ms:.4f}, differs by {lib_err:.3e}), "
-            f"blocks staged {int(staged.sum())} of {staged.shape[0]}")
+            f"blocks staged {int(runs.staged.sum())} of {runs.staged.shape[0]}, in two or more windows "
+            f"{int((runs.windows >= 2).sum())}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib_ms), line
 
 
-def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dict:
+def phase_kernels(cloud, target_cloud, settings, width: int, height: int, target_time=None) -> dict:
     """Each kernel against its plain version on this frame's real inputs, in
-    the compositors' mode for ``settings``."""
+    the compositors' mode for ``settings``.  With ``target_time`` (4DGS) the
+    backward's cotangent comes from a render of ``cloud`` at that time, and
+    the line adds the pair truncation and the twins' counts of the
+    expansion's search blocks and the reduce's unstaged blocks."""
+    from bevy_gaussian_splatting_tpu_torch.models.settings import GaussianMode
     from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import expand as ex
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import reduce as rd
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 
     dev = cloud.device
     kmode = rt.kernel_mode(settings)
+    four_d = settings.gaussian_mode == GaussianMode.GAUSSIAN_4D
     mode = tf.MODES[kmode]
-    label = f"{mode} {width}x{height}"
+    label = f"{'4d ' if four_d else ''}{mode} {width}x{height}"
     camera = orbit_camera(0.0, width, height, dev)
     n = len(cloud)
     total = int(rt.pair_count(cloud, camera, settings))
@@ -446,7 +497,7 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     tx_count = width // rt.TILE
     num_tiles = tx_count * (rt.pad_to_tile(height) // rt.TILE)
 
-    if kmode == tf.MODE_OBB:
+    if kmode == tf.MODE_OBB and not four_d:
         # radix keys (the same in every mode): the card's against the CPU's,
         # counted (ROADMAP Queue 3)
         keys_card = splats["sort_key"].cpu()
@@ -482,7 +533,10 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     # the cotangent of a real loss: the bench objective against a render of
     # the moved cloud, through the epilogue
     with torch.no_grad():
-        target = rt.render_tiled(target_cloud, camera, settings, pairs_max=p_max)
+        if target_time is None:
+            target = rt.render_tiled(target_cloud, camera, settings, pairs_max=p_max)
+        else:
+            target = rt.render_tiled(cloud, camera, settings, pairs_max=p_max, time=target_time)
     gbar = cotangent(raw, target, width, height)
     bwd_args = (params, start, count, gbar, tx_count, width, height)
     dsorted, bwd, bwd_line = backward_case(bwd_args, chunk, kmode, label, walked, n_inside, 10)
@@ -494,6 +548,15 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int) -> dic
     log(f"[kernels {label}] pairs {total} p_max {p_max} chunk {chunk} | {exp_line} | {comp_line}")
     log(f"[kernels {label}] {bwd_line} | {red_line}")
     log(bbox_line)
+    if four_d:
+        search = int((ex.block_windows(table[0], p_max).path == 2).sum())
+        runs = rd.rank_runs(bins.cum, n, dsorted.shape[1])
+        longest = int(torch.diff(bins.cum.to(torch.int64), prepend=bins.cum.new_zeros(1)).max())
+        windows = torch.bincount(runs.windows).tolist()
+        log(f"[kernels {label}] at time {settings.time}: pairs {total}, p_max {p_max}, truncated "
+            f"{max(total - p_max, 0)}; expansion blocks on the per-slot search path {search}; reduce blocks "
+            f"unstaged {int((~runs.staged).sum())} of {runs.staged.shape[0]}, by windows of "
+            f"{rd.STAGE_FLOATS // dsorted.shape[1]} rows {windows} (longest rank {longest} rows)")
     return {
         "expand_pairs": expand,
         "composite_tiles_raw": comp,
@@ -546,9 +609,10 @@ def phase_kernels_converge() -> None:
             f"{fwd_line} | {bwd_line} | {red_line}")
 
 
-def small_grads(arrays: dict, camera, background, settings, device) -> dict:
+def small_grads(arrays: dict, camera, background, settings, device, target_time=None) -> dict:
     """Gradients of every cloud field of the bench objective against a
-    render of the moved cloud, on ``device``."""
+    render of the moved cloud (4DGS: of the same cloud at ``target_time``),
+    on ``device``."""
     from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
     from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import render_tiled
     from bevy_gaussian_splatting_tpu_torch.train.losses import mse
@@ -556,22 +620,28 @@ def small_grads(arrays: dict, camera, background, settings, device) -> dict:
 
     camera, background = camera.to(device), background.to(device)
     with torch.no_grad():
-        target = render_tiled(cloud_from_numpy(shifted_arrays(arrays), device), camera, settings, background=background)
+        if target_time is None:
+            target = render_tiled(cloud_from_numpy(shifted_arrays(arrays), device), camera, settings,
+                                  background=background)
+        else:
+            target = render_tiled(cloud_from_numpy(arrays, device), camera, settings, background=background,
+                                  time=target_time)
     model = TrainableCloud.from_numpy(arrays, device)
     mse(render_tiled(model.cloud(), camera, settings, background=background), target).backward()
-    return {name: getattr(model, name).grad.cpu() for name in FIELDS}
+    return {name: getattr(model, name).grad.cpu() for name in model.fields}
 
 
-def compare_small(label: str, arrays: dict, cam, settings, bg, oracle_only: bool = False):
+def compare_small(label: str, arrays: dict, cam, settings, bg, oracle_only: bool = False, cpu_bar=None):
     """``render()`` on the card against the port's oracle on the card (3e-5;
     2DGS 1e-4) and, unless ``oracle_only``, against the same call on the
-    CPU (2e-5; 2DGS 1e-4) -> the card's image."""
+    CPU (``cpu_bar``, default 2e-5; 2DGS 1e-4) -> the card's image."""
     from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODES
     from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import kernel_mode
     from bevy_gaussian_splatting_tpu_torch.render.api import render
 
     mode = MODES[kernel_mode(settings)]
+    cpu_bar = IMAGE_BAR[mode] if cpu_bar is None else cpu_bar
     card = cloud_from_numpy(arrays, "cuda")
     gpu = render(card, cam.to("cuda"), settings, background=bg.cuda())
     oracle = render(card, cam.to("cuda"), settings, background=bg.cuda(), impl="oracle")
@@ -581,9 +651,9 @@ def compare_small(label: str, arrays: dict, cam, settings, bg, oracle_only: bool
     if not oracle_only:
         cpu = render(cloud_from_numpy(arrays, "cpu"), cam, settings, background=bg, device="cpu")
         e_cpu = float((gpu.cpu() - cpu).abs().max())
-        line += f", card vs cpu {e_cpu:.3e} (bar {IMAGE_BAR[mode]})"
+        line += f", card vs cpu {e_cpu:.3e} (bar {cpu_bar:.3e})"
     log(line)
-    if not (e_cpu <= IMAGE_BAR[mode] and e_oracle <= ORACLE_BAR[mode]):
+    if not (e_cpu <= cpu_bar and e_oracle <= ORACLE_BAR[mode]):
         raise AssertionError(f"small render {label} disagrees: cpu {e_cpu:.3e}, oracle {e_oracle:.3e}")
     return gpu
 
@@ -626,17 +696,18 @@ def phase_small(settings) -> None:
                   settings.replace(visualize_bounding_box=True), bg)
 
 
-def grads_rel(g_card: dict, g_cpu: dict, label: str) -> dict:
-    """Per field max |card - cpu| / max |cpu|; raises above GRAD_BAR or on a
-    non-finite card gradient."""
+def grads_rel(g_card: dict, g_cpu: dict, label: str, bars: dict = None) -> dict:
+    """Per field max |card - cpu| / max |cpu|; raises above the field's bar
+    (``bars``, default GRAD_BAR) or on a non-finite card gradient."""
+    bars = bars or {}
     rel = {}
-    for name in FIELDS:
+    for name in g_cpu:
         if not bool(torch.isfinite(g_card[name]).all()):
             raise AssertionError(f"small gradients {label}: {name} not finite on the card")
         scale = float(g_cpu[name].abs().max())
         rel[name] = float((g_card[name] - g_cpu[name]).abs().max()) / max(scale, 1e-30)
-    if not all(v <= GRAD_BAR for v in rel.values()):
-        raise AssertionError(f"small gradients {label} disagree card vs cpu: {rel}")
+    if not all(v <= bars.get(k, GRAD_BAR) for k, v in rel.items()):
+        raise AssertionError(f"small gradients {label} disagree card vs cpu: {rel} (bars {bars or GRAD_BAR})")
     return rel
 
 
@@ -753,7 +824,7 @@ def phase_main(cloud, settings, profile: bool, rounds: int = TIMED_ROUNDS) -> di
             raise AssertionError(f"a backward kernel launched while serving at {label}")
         if set(composite_tiles_raw.instances) != {instance}:
             raise AssertionError(f"{label}: compositor instantiations {composite_tiles_raw.instances} launched")
-        bucket = api._BUDGET_STATE[("auto", settings.static_key(), width, height, len(cloud), str(dev))][0]
+        bucket = api._BUDGET_STATE[api.budget_key("auto", settings, width, height, cloud, dev)][0]
         log(
             f"[main {label}] pairs per pose {pairs} p_max {bucket} "
             f"lit {lit} | median {statistics.median(times):.3f} ms/frame over {len(times)} frames "
@@ -851,7 +922,7 @@ def checked_step(model, optimizer, camera, target, settings, loss_fn, p_max, lab
             raise AssertionError(f"{f.__name__} did not launch in the {label}")
     value = float(loss)
     # a field the loss does not read has no gradient (NORMAL mode reads no SH)
-    grads = {name: getattr(model, name).grad for name in FIELDS}
+    grads = {name: getattr(model, name).grad for name in model.fields}
     bad = [name for name, g in grads.items() if g is not None and not bool(torch.isfinite(g).all())]
     if not math.isfinite(value) or bad:
         raise AssertionError(f"{label}: loss {value}, non-finite gradients in {bad}")
@@ -936,7 +1007,6 @@ def phase_train_aabb(arrays: dict, settings, profile: bool) -> dict:
         init_densify_state,
     )
     from bevy_gaussian_splatting_tpu_torch.train.losses import mse
-    from bevy_gaussian_splatting_tpu_torch.train.step import FIELDS as MODEL_FIELDS
     from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, adam, shifted_arrays, train_step
 
     counters = train_counters()
@@ -978,7 +1048,7 @@ def phase_train_aabb(arrays: dict, settings, profile: bool) -> dict:
         model.cloud(), dstate, k_budget=len(model.cloud()) // 8, scene_extent=extent
     )
     with torch.no_grad():
-        for name in MODEL_FIELDS:
+        for name in model.fields:
             getattr(model, name).copy_(getattr(new_cloud, name))
     torch.cuda.synchronize()
     densify_ms = (time.perf_counter() - t0) * 1e3
@@ -1044,6 +1114,292 @@ def phase_converge() -> dict:
     return launches
 
 
+def mask_flips(arrays: dict, settings, camera) -> tuple:
+    """4DGS gaussians that the card and the CPU mask differently (the
+    projection's mask and its radix key's frustum test) -> (count, the
+    largest distance of a flipped gaussian from its nearest threshold, in
+    float32 ulps of that threshold, on the CPU's values): the temporal
+    marginal against 0.05, the clip x and y of the shifted and the stored
+    position against 1.1, z against 0 and 1.  Matrix products and exp may
+    round an ulp apart on the two devices, and each test is a step."""
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
+    from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
+    from bevy_gaussian_splatting_tpu_torch.ops.gaussian_4d import MARGINAL_MASK_THRESHOLD, conditional_cov3d
+    from bevy_gaussian_splatting_tpu_torch.ops.project import project_gaussians
+    from bevy_gaussian_splatting_tpu_torch.ops.transforms import world_to_clip
+
+    masks = {}
+    for dev in ("cpu", "cuda"):
+        sp = project_gaussians(cloud_from_numpy(arrays, dev), camera.to(dev), settings)
+        masks[dev] = (sp["mask"] & (sp["sort_key"] != sort_ops.SENTINEL_KEY)).cpu()
+    flip = masks["cpu"] != masks["cuda"]
+    if not bool(flip.any()):
+        return 0, 0.0
+    c = cloud_from_numpy(arrays, "cpu")
+    cond = conditional_cov3d(c.rotation, c.rotation_r, c.scale, c.timescale, c.timestamp,
+                             torch.full((), settings.time, dtype=torch.float32), settings.global_scale)
+
+    def ulps(v, threshold):
+        return (v - threshold).abs() / float(np.spacing(np.float32(threshold)))
+
+    near = [ulps(cond["opacity_modifier"], MARGINAL_MASK_THRESHOLD)]
+    for pos in (c.position + cond["delta_mean"], c.position):
+        clip = world_to_clip(pos, camera.clip_from_world)
+        near += [ulps(clip[:, 0].abs(), 1.1), ulps(clip[:, 1].abs(), 1.1), ulps(clip[:, 2], 0.0), ulps(clip[:, 2], 1.0)]
+    far = torch.stack(near).amin(dim=0)[flip]
+    return int(flip.sum()), float(far.max())
+
+
+def phase_small_4d(settings) -> None:
+    """4DGS on small inputs (2,000 gaussians of the 4DGS generator): at two
+    times each, ``render()`` card against the oracle and the CPU, and the
+    image must move with the time; gradients of every field card against
+    CPU (the target: the same cloud at ``TARGET_TIME_4D``); then the
+    overlay, VELOCITY, and VELOCITY with the overlay, whose boxes only the
+    oracle draws (VELOCITY zeroes every opacity: ROADMAP Queue 3)."""
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy, random_arrays_4d_seeded
+    from bevy_gaussian_splatting_tpu_torch.models.settings import RasterizeMode
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODES
+    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import kernel_mode
+    from bevy_gaussian_splatting_tpu_torch.render.api import render
+
+    bg = torch.tensor([0.2, 0.1, 0.4, 1.0])
+    mode = MODES[kernel_mode(settings)]
+    a = random_arrays_4d_seeded(2000, seed=SEED_4D)
+    s0 = settings.replace(time=TIME_4D)
+    # the CPU's own spread: the same calls with every quaternion one ulp up.
+    # The 4D covariance is diagonal in world axes (ROADMAP Queue 3), so in
+    # OBB the footprint's axis is decided by rounding where its 2D
+    # covariance is nearly diagonal; the card's products round otherwise
+    # than the CPU's.  A bar card vs CPU is the larger of the fixed bar
+    # and that spread (AABB has no axis: its spread stays far below)
+    nudged = {k: v.copy() for k, v in a.items()}
+    nudged["isotropic_rotations"] = np.nextafter(a["isotropic_rotations"], np.float32(np.inf))
+
+    def cpu_image(arrays, cam, st):
+        return render(cloud_from_numpy(arrays, "cpu"), cam, st, background=bg, device="cpu")
+
+    def held(label, cam, st):
+        # a gaussian at a mask threshold (the temporal marginal, the
+        # frustum), decided one way on each device, changes the image by
+        # its whole contribution: such a frame is held to the card's
+        # oracle, which shares the card's mask, and the flip is counted
+        flips, far = mask_flips(a, st, cam)
+        if flips and far > MASK_FLIP_ULPS:
+            raise AssertionError(f"4d mask card vs cpu ({label}): {flips} differ, up to {far:.1f} ulps from a "
+                                 "threshold")
+        if flips:
+            log(f"[small {label}] {flips} gaussian(s) within {far:.1f} ulps of a mask threshold decided apart "
+                "card vs cpu: held to the card's oracle only")
+        spread = float((cpu_image(nudged, cam, st) - cpu_image(a, cam, st)).abs().max())
+        return compare_small(f"{label} (cpu spread {spread:.3e})", a, cam, st, bg, oracle_only=bool(flips),
+                             cpu_bar=max(IMAGE_BAR[mode], spread)), spread
+
+    for width, height in ((128, 128), (128, 120)):
+        cam = orbit_camera(0.0, width, height, "cpu")
+        images = [held(f"4d {mode} time {t} {width}x{height}", cam, settings.replace(time=t))[0]
+                  for t in (TIME_4D, 0.75)]
+        moved = float((images[0] - images[1]).abs().max())
+        if not moved > 0.1:
+            raise AssertionError(f"4d {mode} {width}x{height}: the image does not move with the time ({moved:.3e})")
+        label = f"4d {mode} {width}x{height}"
+        g_cpu = small_grads(a, cam, bg, s0, "cpu", TARGET_TIME_4D)
+        g_card = small_grads(a, cam, bg, s0, "cuda", TARGET_TIME_4D)
+        g_spread = small_grads(nudged, cam, bg, s0, "cpu", TARGET_TIME_4D)
+        bars = {k: max(GRAD_BAR, float((g_spread[k] - g_cpu[k]).abs().max()) / max(float(g_cpu[k].abs().max()), 1e-30))
+                for k in g_cpu}
+        rel = grads_rel(g_card, g_cpu, label, bars)
+        log(f"[small {label}] image moved by {moved:.3e} between the times; gradients card vs cpu, max |diff| / "
+            "max |cpu| per field: " + ", ".join(f"{k} {v:.3e} (bar {bars[k]:.3e})" for k, v in rel.items())
+            + f"; a bar is the larger of {GRAD_BAR} and the CPU's own spread under a one-ulp quaternion change")
+    cam = orbit_camera(0.0, 128, 120, "cpu")
+    held(f"4d {mode} bbox 128x120", cam, s0.replace(visualize_bounding_box=True))
+    velocity = s0.replace(rasterize_mode=RasterizeMode.VELOCITY)
+    held(f"4d {mode} velocity 128x120", cam, velocity)
+    vb = velocity.replace(visualize_bounding_box=True)
+    tiled = render(cloud_from_numpy(a, "cuda"), cam.to("cuda"), vb, background=bg.cuda())
+    cpu = cpu_image(a, cam, vb)
+    oracle = render(cloud_from_numpy(a, "cuda"), cam.to("cuda"), vb, background=bg.cuda(), impl="oracle")
+    spread = float((cpu_image(nudged, cam, vb) - cpu).abs().max())
+    e_cpu = float((tiled.cpu() - cpu).abs().max())
+    differ = int(((tiled - oracle).abs().amax(dim=-1) > 1e-3).sum())
+    log(f"[small 4d {mode} velocity bbox 128x120] card vs cpu {e_cpu:.3e} (bar {max(IMAGE_BAR[mode], spread):.3e}, "
+        f"cpu spread {spread:.3e}); pixels where the oracle and the tiled path differ by > 1e-3: {differ} of "
+        f"{128 * 120}")
+    if not e_cpu <= max(IMAGE_BAR[mode], spread):
+        raise AssertionError(f"4d velocity overlay card vs cpu {e_cpu:.3e}")
+
+
+def phase_main_4d(cloud, settings, profile: bool) -> tuple:
+    """4DGS serving through ``render()`` at each size: the pair counts at
+    ``PAIR_TIMES_4D`` and the budget of the worst, then a warm-up and
+    ``FRAMES_4D`` frames at times 0.25 + 0.01 i, each through the expansion
+    and the compositor's (mode, no overlay) instantiation and no backward
+    kernel, finite and lit; then one VELOCITY frame and one overlay frame
+    -> (launches of the mode's frames, launches of the overlay frames)."""
+    from bevy_gaussian_splatting_tpu_torch.models.settings import RasterizeMode
+    from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.reduce import segment_reduce
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_bwd import composite_backward
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODES, composite_tiles_raw
+    from bevy_gaussian_splatting_tpu_torch.render import api
+
+    mode = MODES[rt.kernel_mode(settings)]
+    n = len(cloud)
+    serve = {"expand_pairs": 0, "composite_tiles_raw": 0}
+    overlay = {"expand_pairs": 0, "composite_tiles_raw": 0}
+    for f in (composite_backward, segment_reduce):
+        f.launches = 0
+
+    def frame(s, bbox: bool, label: str, lit_floor: float = LIT_FLOOR):
+        before = (expand_pairs.launches, composite_tiles_raw.instances.get((mode, bbox), 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = api.render(cloud, cam, s)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        after = (expand_pairs.launches, composite_tiles_raw.instances.get((mode, bbox), 0))
+        if not all(x > y for x, y in zip(after, before)):
+            raise AssertionError(f"{label}: a forward kernel did not launch")
+        counts = serve if not bbox else overlay
+        counts["expand_pairs"] += after[0] - before[0]
+        counts["composite_tiles_raw"] += after[1] - before[1]
+        lit = int((img[..., :3].abs().amax(dim=-1) > 1.0 / 255.0).sum())
+        if img.shape != (height, width, 4) or not bool(torch.isfinite(img).all()) or lit < lit_floor * width * height:
+            raise AssertionError(f"bad image at {label} ({lit} lit pixels)")
+        return dt, lit, [after[0] - before[0], after[1] - before[1]]
+
+    for width, height in SIZES:
+        label = f"4d {mode} {width}x{height}"
+        cam = orbit_camera(0.0, width, height, cloud.device)
+        counts = {t: int(rt.pair_count(cloud, cam, settings, time=t)) for t in PAIR_TIMES_4D}
+        worst = max(counts.values())
+        budget = rt.pairs_budget(n, worst)
+        log(f"[main {label}] pairs at times {', '.join(f'{t} {c}' for t, c in counts.items())}; budget of the worst "
+            f"{budget} (the cap at N {rt.pairs_budget(n)}), pairs past it (truncated, the farthest) {max(worst - budget, 0)}")
+        frame(settings.replace(time=TIME_4D), False, f"{label} warm-up")
+        times, per_frame = [], []
+        for i in range(FRAMES_4D):
+            dt, lit, launched = frame(settings.replace(time=TIME_4D + 0.01 * i), False, f"{label} frame {i}")
+            times.append(dt)
+            per_frame.append(launched)
+        if composite_backward.launches or segment_reduce.launches:
+            raise AssertionError(f"a backward kernel launched while serving at {label}")
+        bucket = api._BUDGET_STATE[api.budget_key("auto", settings, width, height, cloud, cloud.device)][0]
+        median = statistics.median(times)
+        log(f"[main {label}] render() bucket {bucket} | median {median:.3f} ms/frame over {len(times)} frames at "
+            f"times {TIME_4D}..{TIME_4D + 0.01 * (FRAMES_4D - 1):.2f} (min {min(times):.3f}, max {max(times):.3f}) | "
+            f"lit {lit} | launches per frame (expand_pairs, composite_tiles_raw[{mode}, False]) "
+            f"{sorted({tuple(c) for c in per_frame})}")
+        if profile:
+            profile_call(lambda: api.render(cloud, cam, settings.replace(time=TIME_4D + 0.05)),
+                         f"4d_{mode}_{width}x{height}", median)
+        # VELOCITY zeroes every opacity (ROADMAP Queue 3): no lit floor
+        dt_v, lit_v, _ = frame(settings.replace(time=TIME_4D, rasterize_mode=RasterizeMode.VELOCITY), False,
+                               f"{label} velocity", lit_floor=0.0)
+        dt_b, lit_b, _ = frame(settings.replace(time=TIME_4D, visualize_bounding_box=True), True, f"{label} bbox")
+        log(f"[main {label}] one VELOCITY frame {dt_v:.3f} ms, lit {lit_v}; one overlay frame {dt_b:.3f} ms, "
+            f"lit {lit_b} (the first frame of each pipeline key, its pair count included)")
+    return serve, overlay
+
+
+def phase_train_4d(arrays: dict, settings, profile: bool) -> dict:
+    """4DGS training through ``train_step`` on the 1M scene at
+    ``TIME_4D`` towards a render of the same cloud at ``TARGET_TIME_4D``:
+    per size a warm-up and ``TRAIN_STEPS_4D`` timed Adam steps, each through
+    all four kernels with a finite loss and finite gradients."""
+    from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODES
+    from bevy_gaussian_splatting_tpu_torch.train.losses import mse
+    from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, adam, train_step
+
+    mode = MODES[rt.kernel_mode(settings)]
+    counters = train_counters()
+    model = TrainableCloud.from_numpy(arrays, "cuda")
+    optimizer = adam(model, TRAIN_LR)
+    for f in counters:
+        f.launches = 0
+    s0 = settings.replace(time=TIME_4D)
+    for width, height in SIZES:
+        size = f"{width}x{height}"
+        camera = orbit_camera(0.0, width, height, "cuda")
+        with torch.no_grad():
+            pairs = int(rt.pair_count(model.cloud(), camera, s0))
+            p_max = rt.pairs_budget(len(model.cloud()), pairs)
+            target = rt.render_tiled(model.cloud(), camera, s0, pairs_max=p_max, time=TARGET_TIME_4D)
+        steps = [checked_step(model, optimizer, camera, target, s0, mse, p_max, f"4d {mode} {size} step {i}")
+                 for i in range(TRAIN_STEPS_4D[(width, height)] + 1)]
+        times = [dt for _, dt in steps[1:]]
+        median = statistics.median(times)
+        log(f"[train 4d {mode} {size}] pairs {pairs} p_max {p_max} truncated {max(pairs - p_max, 0)} | warm-up "
+            f"{steps[0][1]:.3f} ms, median {median:.3f} ms/step over {len(times)} Adam steps (min {min(times):.3f}, "
+            f"max {max(times):.3f}) | mse loss {steps[0][0]:.6e} -> {steps[-1][0]:.6e} | launches "
+            + ", ".join(f"{f.__name__} {f.launches}" for f in counters))
+        if profile:
+            profile_call(lambda: train_step(model, optimizer, camera, target, s0, mse, pairs_max=p_max),
+                         f"train_4d_{mode}_{size}", median)
+    return {f.__name__: f.launches for f in counters}
+
+
+def phase_flavours(arrays: dict) -> dict:
+    """The other cloud flavours on the 1M bench scene (OBB), served through
+    ``render()``: the precomputed covariance against the quaternion and
+    scale render (``COV_BAR``), f16 and bf16 storage against the float32
+    render of the rounded cloud (``HALF_BAR``), SH degree-4 storage against
+    degree 3 (``SH4_BAR``); a warm-up and ``FLAVOUR_FRAMES`` timed frames
+    each, every one through both forward kernels -> their launches."""
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import (
+        cloud_from_numpy,
+        precompute_covariance_3d,
+        set_sh_degree,
+    )
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import composite_tiles_raw
+    from bevy_gaussian_splatting_tpu_torch.render import api
+
+    settings = CloudSettings()
+    base = cloud_from_numpy(arrays, "cuda")
+    f16, bf16 = base.astype(torch.float16), base.astype(torch.bfloat16)
+    flavours = (
+        ("precompute_covariance_3d", precompute_covariance_3d(base), base, "the quaternion and scale render", COV_BAR),
+        ("f16 storage", f16, f16.astype(torch.float32), "the float32 render of the rounded cloud", HALF_BAR),
+        ("bf16 storage", bf16, bf16.astype(torch.float32), "the float32 render of the rounded cloud", HALF_BAR),
+        ("sh degree 4", set_sh_degree(base, 4), base, "the degree-3 render", SH4_BAR),
+    )
+    launches = {"expand_pairs": 0, "composite_tiles_raw": 0}
+
+    def counts():
+        return expand_pairs.launches, composite_tiles_raw.instances.get(("obb", False), 0)
+
+    for width, height in SIZES:
+        cam = orbit_camera(0.0, width, height, "cuda")
+        for name, cloud, ref_cloud, ref_name, bar in flavours:
+            ref = api.render(ref_cloud, cam, settings)
+            times = []
+            for i in range(FLAVOUR_FRAMES + 1):  # frame 0 warms up
+                before = counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = api.render(cloud, cam, settings)
+                torch.cuda.synchronize()
+                if i:
+                    times.append((time.perf_counter() - t0) * 1e3)
+                after = counts()
+                if not all(a > b for a, b in zip(after, before)):
+                    raise AssertionError(f"{name} {width}x{height}: a forward kernel did not launch")
+                launches["expand_pairs"] += after[0] - before[0]
+                launches["composite_tiles_raw"] += after[1] - before[1]
+            err = float((img - ref).abs().max())
+            lit = int((img[..., :3].abs().amax(dim=-1) > 1.0 / 255.0).sum())
+            log(f"[flavours {name} {width}x{height}] vs {ref_name} {err:.3e} (bar {bar}) | median "
+                f"{statistics.median(times):.3f} ms/frame over {len(times)} frames | lit {lit}")
+            if not (err <= bar and bool(torch.isfinite(img).all()) and lit >= LIT_FLOOR * width * height):
+                raise AssertionError(f"flavour {name} {width}x{height}: {err:.3e} against {ref_name}, {lit} lit")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true", help="write a per-kernel breakdown to chiprun_out/")
@@ -1056,7 +1412,7 @@ def main() -> int:
               "(set CUDA_VISIBLE_DEVICES to one)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy, random_arrays_4d_seeded
     from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode
     from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODES
     from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import kernel_mode
@@ -1110,6 +1466,33 @@ def main() -> int:
             train = {k: v + normal[k] for k, v in train.items()}
         launches[mode] = {k: serve.get(k, 0) + v for k, v in train.items()}
 
+    # the other cloud flavours on the same scene and path (OBB): their frames
+    # count with the OBB mode's
+    flavours = timed("flavours", phase_flavours, arrays)
+    launches["obb"] = {k: v + flavours.get(k, 0) for k, v in launches["obb"].items()}
+
+    # 4DGS, which bins and composites as OBB or AABB: the JAX bench's scene
+    t0 = time.perf_counter()
+    arrays4 = random_arrays_4d_seeded(N_GAUSSIANS, seed=SEED_4D)
+    cloud4 = cloud_from_numpy(arrays4, "cuda")
+    log(f"[scene 4d] {len(cloud4)} gaussians (random_gaussians_4d_seeded, seed {SEED_4D}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for aabb in (False, True):
+        settings = CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_4D, aabb=aabb, time=TIME_4D)
+        mode = "4d-" + MODES[kernel_mode(settings)]
+        for width, height in SIZES:
+            res = timed(f"kernels {mode} {width}x{height}", phase_kernels, cloud4, None, settings, width, height,
+                        target_time=TARGET_TIME_4D)
+            if (width, height) == SIZES[0]:
+                results[mode] = res
+                results[mode + "+bbox"] = {"composite_tiles_raw": res["composite_tiles_raw+bbox"],
+                                           "expand_pairs": res["expand_pairs"]}
+        timed(f"small {mode}", phase_small_4d, settings)
+        serve, overlay = timed(f"main {mode}", phase_main_4d, cloud4, settings, opts.profile)
+        train = timed(f"train {mode}", phase_train_4d, arrays4, settings, opts.profile)
+        launches[mode] = {k: serve.get(k, 0) + v for k, v in train.items()}
+        launches[mode + "+bbox"] = overlay
+
     kernels = []
     sources = {
         "expand_pairs": ("bevy_gaussian_splatting_tpu_torch/csrc/expand.cu",
@@ -1125,10 +1508,14 @@ def main() -> int:
     # in 2DGS), and the forward compositor's overlay instantiation (its
     # bbox=True branch, tile_fwd.py:289-312) and the expansion in each mode's
     # overlay frames, each with the launches of its own paths
-    entries = (
-        [(name, mode) for mode in ("obb", "aabb", "2d") for name in sources]
-        + [(name, f"{m}+bbox") for m in ("obb", "aabb", "2d") for name in ("expand_pairs", "composite_tiles_raw")]
-    )
+    # then the same for 4DGS frames and steps (modes "4d-obb", "4d-aabb")
+    three, four = ("obb", "aabb", "2d"), ("4d-obb", "4d-aabb")
+    entries = [
+        (name, mode) for group in (three, four) for mode, name in (
+            [(m, k) for m in group for k in sources]
+            + [(f"{m}+bbox", k) for m in group for k in ("expand_pairs", "composite_tiles_raw")]
+        )
+    ]
     for name, mode in entries:
         source, replaces = sources[name]
         n_launch = launches[mode][name]

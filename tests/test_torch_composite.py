@@ -140,7 +140,7 @@ def test_epilogue_background():
             torch.from_numpy(raw[:, :4].copy()), None if bg is None else torch.from_numpy(bg), 64, 48
         )
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-7, rtol=0)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         tfwd.composite_epilogue(torch.from_numpy(raw[:, :4].copy()), torch.zeros(48, 64, 4), 64, 48)
 
 

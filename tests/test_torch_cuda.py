@@ -1,9 +1,11 @@
 """PyTorch port on the card: each CUDA kernel against its plain version (the
 compositors in OBB, AABB and 2DGS mode, the forward's bounding-box overlay
-instantiation in each, the reduce at 10 and 16 columns; each compositor's
+instantiation in each, the reduce at 10 and 16 columns, also on runs
+longer than its staging buffer; each compositor's
 second launch bitwise equal to its first, and both on the adversarial rows
 of their per-warp cull), ``render()`` on the card against the same call on the CPU (also with the
-overlay and in the other rasterize and draw modes), and the training
+overlay, in the other rasterize and draw modes, for 4DGS and for f16 and
+bf16 storage), and the training
 gradients of every cloud field, card against CPU.
 
 These skip without an NVIDIA card.  On one, run them without the JAX-side
@@ -15,7 +17,12 @@ import pytest
 import torch
 
 from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
-from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy, random_arrays_3d_seeded, surfel_grid_arrays
+from bevy_gaussian_splatting_tpu_torch.models.cloud import (
+    cloud_from_numpy,
+    random_arrays_3d_seeded,
+    random_arrays_4d_seeded,
+    surfel_grid_arrays,
+)
 from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, DrawMode, GaussianMode, RasterizeMode
 from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import cull
@@ -32,6 +39,7 @@ from torch_port_cases import (
     adversarial_rows,
     expand_counts,
     expand_table,
+    long_run_counts,
     reduce_counts,
     special_rows,
 )
@@ -107,17 +115,32 @@ def test_expand_kernel_on_adversarial_counts(card, case, p_max):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_reduce_kernel_on_adversarial_counts(card, seed, cols):
     """Runs that start at odd slots (10-column runs 8-byte aligned), empty
-    ranks, a rank whose run is twice the staging buffer (its block sums
-    from device memory), also from a row view that starts one row into
-    its storage."""
+    ranks, a rank whose run is twice the staging buffer (its block sums it
+    from device memory between windows of the other ranks), also from a
+    row view that starts one row into its storage."""
     cum = reduce_counts(seed, cols, rd.STAGE_FLOATS).to(card)
     n = cum.shape[0]
-    assert not bool(rd.rank_runs(cum, n, cols).staged.all())
+    assert int(rd.rank_runs(cum, n, cols).alone.sum()) == 1
     rows = torch.randn((int(cum[-1]) + 38, cols), generator=torch.Generator().manual_seed(seed)).to(card)
     for dslot in (rows[:-1], rows[1:]):
         before = rd.segment_reduce.launches
         got = rd.segment_reduce(dslot, cum, n)
         assert rd.segment_reduce.launches == before + 1
+        assert torch.equal(got.view(torch.int32), rd.segment_reduce_plain(dslot, cum, n).view(torch.int32))
+
+
+@pytest.mark.parametrize("cols", [10, 16])
+def test_reduce_kernel_stages_long_runs_in_windows(card, cols):
+    """The 4DGS scene's shape at 1920x1080 (``long_run_counts``: 1M ranks,
+    about 6 slots each), where most blocks' runs pass the staging buffer:
+    bit-equal to the plain version, from an aligned and an unaligned row
+    view."""
+    cum = long_run_counts().to(card)
+    n = cum.shape[0]
+    assert int((rd.rank_runs(cum, n, cols).windows >= 2).sum()) > 1000
+    rows = torch.randn((int(cum[-1]) + 1, cols), generator=torch.Generator().manual_seed(cols)).to(card)
+    for dslot in (rows[:-1], rows[1:]):
+        got = rd.segment_reduce(dslot, cum, n)
         assert torch.equal(got.view(torch.int32), rd.segment_reduce_plain(dslot, cum, n).view(torch.int32))
 
 
@@ -311,6 +334,36 @@ def test_aabb_render_and_gradients_card_match_cpu(card, height):
     for f in FIELDS:
         assert bool(torch.isfinite(g_gpu[f]).all()), f
         assert float((g_gpu[f] - g_cpu[f]).abs().max()) <= GRAD_BAR * float(g_cpu[f].abs().max()), f
+
+
+@pytest.mark.parametrize("time", [0.25, 0.75])
+def test_4d_aabb_render_card_matches_cpu(card, time):
+    """4DGS serves through the OBB / AABB kernels; AABB has no footprint
+    axis, so its card and CPU images agree to the fixed bar (the OBB axis of
+    a 4D splat is ill-conditioned, ROADMAP Queue 3: chip_smoke.py holds it
+    to the CPU's own spread)."""
+    settings = CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_4D, aabb=True, time=time)
+    a = random_arrays_4d_seeded(500, seed=3)
+    bg = torch.tensor([0.2, 0.1, 0.4, 1.0])
+    cam = Camera.create(eye=(0.0, 0.0, 60.0), width=128, height=120, device="cpu")
+    cpu = render(cloud_from_numpy(a, "cpu"), cam, settings, background=bg, device="cpu")
+    before = tf.composite_tiles_raw.instances.get(("aabb", False), 0)
+    gpu = render(cloud_from_numpy(a, card), cam.to(card), settings, background=bg.to(card))
+    assert tf.composite_tiles_raw.instances.get(("aabb", False), 0) == before + 1
+    oracle = render(cloud_from_numpy(a, card), cam.to(card), settings, background=bg.to(card), impl="oracle")
+    assert float((gpu.cpu() - cpu).abs().max()) <= 2e-5
+    assert float((gpu - oracle).abs().max()) <= 3e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16], ids=["f16", "bf16"])
+def test_half_storage_render_on_the_card(card, dtype):
+    """f16 and bf16 storage reach the kernels as the rounded cloud's float32
+    values: the image is bit for bit the float32 render of the rounded
+    cloud."""
+    cloud = cloud_from_numpy(_scene("bench", 2000, 3), card)
+    cam = Camera.create(eye=(0.0, 0.0, 60.0), width=128, height=120, device=card)
+    half = cloud.astype(dtype)
+    assert torch.equal(render(half, cam), render(half.astype(torch.float32), cam))
 
 
 @pytest.mark.parametrize("kind,n,height,chunk", BWD_CASES + [("surfels", 16, 120, None)])

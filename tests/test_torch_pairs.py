@@ -8,7 +8,7 @@ most ``BLOCK_SLOTS`` ranks when no rank after the block's first owner has
 zero pairs, except past the capped total.  The binning gives such counts:
 inactive gaussians sort first and every active one covers at least one
 tile.  The reduce kernel owns ranks in blocks whose slots are one contiguous
-run.  No JAX: the port's projection and binning alone, on the CPU."""
+run, staged in windows of whole ranks where the run passes its buffer.  No JAX: the port's projection and binning alone, on the CPU."""
 
 import pytest
 import torch
@@ -18,7 +18,16 @@ from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, Gau
 from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import expand as ex
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import reduce as rd
-from torch_port_cases import CASES, EXPAND_COUNT_CASES, EYE, cloud_arrays, expand_counts, reduce_counts, torch_cloud
+from torch_port_cases import (
+    CASES,
+    EXPAND_COUNT_CASES,
+    EYE,
+    cloud_arrays,
+    expand_counts,
+    long_run_counts,
+    reduce_counts,
+    torch_cloud,
+)
 
 SETTINGS = {
     "obb": CloudSettings(),
@@ -155,13 +164,41 @@ def test_rank_runs_on_adversarial_counts(seed, cols):
     runs = rd.rank_runs(cum, n, cols)
     _assert_runs_tile(runs, cum, n)
     long_rank = int(torch.argmax(torch.diff(cum, prepend=cum.new_zeros(1))))
-    assert not bool(runs.staged[(runs.first <= long_rank) & (long_rank < runs.end)].any())
-    assert int(runs.staged.sum()) == runs.staged.shape[0] - 1
+    long_block = (runs.first <= long_rank) & (long_rank < runs.end)
+    # every block stages; the long rank, twice the buffer, alone from device
+    # memory between two windows of the other ranks (or one at an end)
+    assert bool(runs.staged.all())
+    assert torch.equal(runs.alone, long_block.to(torch.int64))
+    assert 1 <= int(runs.windows[long_block]) <= 2
+    assert bool((runs.windows[~long_block] == 1).all())
     # odd first slots: 10-column runs that start 8-byte aligned
     assert bool((runs.slot0 % 2 == 1).any())
-    # the staged runs, from the aligned float at or below their start, fit
+    # a block in one window: its run, from the aligned float at or below
+    # its start, fits the buffer
     f0 = runs.slot0 * cols
-    assert bool(((runs.slot1 * cols - (f0 - f0 % 4))[runs.staged] <= rd.STAGE_FLOATS).all())
+    one = (runs.windows == 1) & (runs.alone == 0)
+    assert bool(((runs.slot1 * cols - (f0 - f0 % 4))[one] <= rd.STAGE_FLOATS).all())
+
+
+@pytest.mark.parametrize("cols", [10, 16])
+def test_rank_runs_stage_long_runs_in_windows(cols):
+    """Counts shaped like the 4DGS scene's (``long_run_counts``): most
+    blocks' runs pass the staging buffer and stage in two to four windows
+    of whole ranks, where they used to be summed from device memory."""
+    cum = long_run_counts()
+    n = cum.shape[0]
+    runs = rd.rank_runs(cum, n, cols)
+    _assert_runs_tile(runs, cum, n)
+    assert bool(runs.staged.all()) and not bool(runs.alone.any())
+    # windows of whole ranks: at least the run's floats over the buffer, and
+    # one where the run fits
+    f0 = runs.slot0 * cols
+    span = runs.slot1 * cols - (f0 - f0 % 4)
+    assert bool((runs.windows >= -(-span // rd.STAGE_FLOATS)).all())
+    assert torch.equal(runs.windows == 1, span <= rd.STAGE_FLOATS)
+    counts = torch.bincount(runs.windows).tolist()
+    print(f"\n[{cols} columns] blocks by windows: {counts}")
+    assert counts[0] == 0 and counts[2] > runs.windows.shape[0] // 4 and len(counts) <= 5
 
 
 @pytest.mark.parametrize("n", [1, 192, 512, 20000, 33792, 1_000_000])

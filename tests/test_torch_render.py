@@ -84,9 +84,9 @@ def test_render_rejects_what_later_slices_bring():
     a = cloud_arrays("bench", 64, 0)
     cloud = torch_cloud(a)
     _, tc = cameras(32, 32)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(TypeError, match="Gaussian4dCloud"):
         api.render(cloud, tc, tsettings.CloudSettings(gaussian_mode=tsettings.GaussianMode.GAUSSIAN_4D), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         api.render(cloud, tc, background=torch.zeros(32, 32, 4), device="cpu")
     with pytest.raises(ValueError, match="impl"):
         api.render(cloud, tc, impl="tiled-pallas", device="cpu")
@@ -101,7 +101,7 @@ def test_adaptive_budget_bookkeeping():
     _, near = cameras(64, 64, (0.0, 0.0, 30.0))
     _, far = cameras(64, 64, (0.0, 0.0, 200.0))
     api._BUDGET_STATE.clear()
-    key = ("auto", tsettings.CloudSettings().static_key(), 64, 64, 400, "cpu")
+    key = api.budget_key("auto", tsettings.CloudSettings(), 64, 64, cloud, "cpu")
     settings = tsettings.CloudSettings()
     b0 = api._current_bucket(key, settings, cloud, near, None)
     assert b0 == trt.pairs_budget(400, int(trt.pair_count(cloud, near, settings)))

@@ -58,11 +58,15 @@ def cloud_arrays(kind: str, n: int, seed: int) -> dict:
 
 
 def jax_cloud(arrays: dict):
+    """The JAX package's cloud of the class that the field names say (as
+    the port's ``cloud_from_numpy`` tells them apart)."""
     import jax.numpy as jnp
 
     import bevy_gaussian_splatting_tpu as bgs
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_class
 
-    return bgs.Gaussian3dCloud(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    cls = getattr(bgs, cloud_class(arrays).__name__)
+    return cls(**{k: jnp.asarray(v) for k, v in arrays.items()})
 
 
 def torch_cloud(arrays: dict):
@@ -285,6 +289,15 @@ def expand_table(cum: torch.Tensor, seed: int = 0):
     rect_w[counts == 8160] = 120
     cols = [rect_w, rng.integers(0, 10, n), rng.integers(0, 10, n), rng.permutation(n)]
     return (cum, *(torch.from_numpy(np.asarray(c, np.int32)) for c in cols))
+
+
+def long_run_counts(seed: int = 0, n: int = 1_000_000, most: int = 12) -> torch.Tensor:
+    """Inclusive counts ``cum`` [n] int32 shaped like the 4DGS scene's at
+    1920x1080 (random_gaussians_4d_seeded(1M, seed=3): 6 pairs a rank on
+    average, the longest rank 90): 0 to ``most`` slots a rank, so that most
+    runs of 128 ranks pass the reduce's 6,144-float staging buffer."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.cumsum(rng.integers(0, most + 1, n)).astype(np.int32))
 
 
 def reduce_counts(seed: int, cols: int, stage_floats: int, n: int = 20000) -> torch.Tensor:
