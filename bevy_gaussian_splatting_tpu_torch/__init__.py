@@ -11,11 +11,17 @@ Ported so far, for 3DGS with OBB or AABB bounds, 2DGS surfels and temporal
 4DGS, in every rasterize, draw and sort mode, with or without the
 bounding-box overlay, for every cloud class (quaternion and scale storage,
 4DGS, precomputed covariance) at SH degrees 0-4 and in float32, float16 or
-bfloat16 storage: the serving forward render, ``render.api.render``, the
-training step, ``train.step.train_step`` (``ops.rasterize_tile.render_tiled``
-is differentiable in the cloud's tensors), and the training loop's pieces:
+bfloat16 storage: the serving forward render, ``render.api.render``, over a
+solid or a full-image background; frame-coherent serving,
+``render.api.InteractiveRenderer`` (the bin and replay split,
+``make_replay_pipeline``, and orbit cameras built on the device,
+``models.camera.orbit_camera_device``); several cameras at once,
+``render.multi_camera``; the training step, ``train.step.train_step``
+(``ops.rasterize_tile.render_tiled`` is differentiable in the cloud's
+tensors and the background), and the training loop's pieces:
 densification (``train.densify``, 3DGS) and the convergence benchmark,
-``train.quality.convergence_psnr``.
+``train.quality.convergence_psnr``; PNG files (``utils.image``) and the
+examples (``examples/``, run with ``python -m``).
 """
 
 __version__ = "0.1.0"
@@ -47,4 +53,4 @@ from bevy_gaussian_splatting_tpu_torch.models.settings import (  # noqa: F401
     SortMode,
     playback_update,
 )
-from bevy_gaussian_splatting_tpu_torch.models.camera import Camera  # noqa: F401
+from bevy_gaussian_splatting_tpu_torch.models.camera import Camera, orbit_camera_device  # noqa: F401

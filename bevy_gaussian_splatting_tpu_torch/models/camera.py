@@ -128,3 +128,59 @@ class Camera:
             width=int(width),
             height=int(height),
         )
+
+
+def _filled(shape: tuple, entries: dict, device) -> torch.Tensor:
+    """A float32 tensor of zeros with ``entries`` (index -> value) set, made
+    on ``device`` by fills: a copy from pageable host memory would wait for
+    the card's queue to drain."""
+    t = torch.zeros(shape, dtype=torch.float32, device=device)
+    for index, value in entries.items():
+        t[index] = value
+    return t
+
+
+def orbit_camera_device(
+    orbit: torch.Tensor,
+    width: int,
+    height: int,
+    fov_y_radians: float = float(np.pi / 4.0),
+    z_near: float = 0.1,
+) -> Camera:
+    """The viewer's orbit camera built on ``orbit``'s device from one packed
+    float32 [6] (az, el, radius, target x, y, z), in the JAX package's op
+    order (models/camera.py:67-112): ``eye = target + r (cos(el) sin(az),
+    sin(el), cos(el) cos(az))``, looking at the target with +y up.
+
+    A serving loop uploads the six numbers instead of a host-built camera.
+    Unlike :meth:`Camera.create`, the camera position is computed on the
+    device too, so a depth key on the card may differ from the CPU's by
+    the rounding of a few operations (``chip_smoke.py`` counts them)."""
+    orbit = orbit.to(torch.float32)
+    dev = orbit.device
+    az, el, r = orbit[0], orbit[1], orbit[2]
+    target = orbit[3:6]
+    eye = target + r * torch.stack([torch.cos(el) * torch.sin(az), torch.sin(el), torch.cos(el) * torch.cos(az)])
+    up = _filled((3,), {(1,): 1.0}, dev)
+    f = target - eye
+    f = f / torch.linalg.vector_norm(f)
+    s = torch.linalg.cross(f, up)
+    s = s / torch.linalg.vector_norm(s)
+    u = torch.linalg.cross(s, f)
+    view = torch.stack([
+        torch.cat([s, -torch.dot(s, eye)[None]]),
+        torch.cat([u, -torch.dot(u, eye)[None]]),
+        torch.cat([-f, torch.dot(f, eye)[None]]),
+        _filled((4,), {(3,): 1.0}, dev),
+    ])
+    m = _perspective_infinite_reverse_rh_np(fov_y_radians, width / height, z_near)
+    proj = _filled((4, 4), {ij: float(m[ij]) for ij in zip(*np.nonzero(m))}, dev)
+    return Camera(
+        view_from_world=view,
+        clip_from_view=proj,
+        viewport=_filled((4,), {(2,): float(width), (3,): float(height)}, dev),
+        prev_clip_from_world=proj @ view,
+        world_position=-view[:3, :3].T @ view[:3, 3],
+        width=int(width),
+        height=int(height),
+    )

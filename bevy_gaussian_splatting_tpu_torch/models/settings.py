@@ -64,12 +64,17 @@ class RadixSortDepthBits(enum.Enum):
 
     @property
     def key_shift(self) -> int:
-        """Reference: ShaderDefines::for_radix_depth_bits, src/render/mod.rs:715-722."""
-        return 32 - self.value
+        """``ops.sort.key_shift`` of this width."""
+        from bevy_gaussian_splatting_tpu_torch.ops import sort
+
+        return sort.key_shift(self.value)
 
     @property
     def digit_places(self) -> int:
-        return self.value // 8
+        """``ops.sort.digit_places`` of this width."""
+        from bevy_gaussian_splatting_tpu_torch.ops import sort
+
+        return sort.digit_places(self.value)
 
 
 class SortMode(enum.Enum):

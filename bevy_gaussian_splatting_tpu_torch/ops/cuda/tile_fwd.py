@@ -385,20 +385,27 @@ composite_tiles_raw.instances = {}
 
 
 def composite_epilogue(out_raw: torch.Tensor, background, width: int, height: int) -> torch.Tensor:
-    """Raw kernel rows [T, 4, 256] -> [H, W, 4] with a solid [4] background
-    blended under the splats (tile_fwd.py:435-472)."""
+    """Raw kernel rows [T, 4, 256] -> [H, W, 4] with the background blended
+    under the splats (tile_fwd.py:435-472): a solid [4] RGBA, or a full
+    image [H, W, 4] (``height`` the padded grid's) blended per pixel.
+    Differentiable in ``out_raw`` and ``background``."""
     tx_count = width // TILE
     ty_count = height // TILE
     accum = out_raw[:, :3, :].transpose(1, 2)  # [T, 256, 3]
     trans = out_raw[:, 3, :]  # [T, 256]
     alpha_out = 1.0 - trans
     if background is not None:
-        if background.dim() != 1:
-            raise NotImplementedError(
-                "full-image [H, W, 4] backgrounds are not ported yet (ROADMAP.md Queue 1 item 4)"
+        if background.dim() == 1:
+            bg_rgb, bg_a = background[:3], background[3]
+        else:
+            bg_tiles = (
+                background.reshape(ty_count, TILE, tx_count, TILE, 4)
+                .permute(0, 2, 1, 3, 4)
+                .reshape(tx_count * ty_count, PIX, 4)
             )
-        accum = accum + trans[..., None] * background[:3]
-        alpha_out = alpha_out + trans * background[3]
+            bg_rgb, bg_a = bg_tiles[..., :3], bg_tiles[..., 3]
+        accum = accum + trans[..., None] * bg_rgb
+        alpha_out = alpha_out + trans * bg_a
     tile_img = torch.cat([accum, alpha_out[..., None]], dim=-1)
     return (
         tile_img.reshape(ty_count, tx_count, TILE, TILE, 4)

@@ -29,6 +29,7 @@ moves it to its XLA compositor; served, it runs the kernel.
 
 Heights that are not a multiple of 16 render on a padded tile grid with
 fragments in the true frame (``full_height``); the pad rows are cropped.
+A full-image background is padded with zero rows to the grid first.
 """
 
 from __future__ import annotations
@@ -367,6 +368,12 @@ def composite_tiles(
     return torch.cat([accum, trans[:, None, :]], dim=1)
 
 
+def supports(settings: CloudSettings) -> bool:
+    """Whether the tiled renderer takes ``settings`` (rasterize_tile.py:59):
+    every mode is ported, so always."""
+    return True
+
+
 def render_tiled(
     cloud,
     camera: Camera,
@@ -376,31 +383,40 @@ def render_tiled(
     pairs_max: Optional[int] = None,
     differentiable: bool = True,
     time=None,
+    width: Optional[int] = None,
+    height: Optional[int] = None,
+    pairs_hint: Optional[int] = None,
 ) -> torch.Tensor:
     """Render -> [H, W, 4] linear premultiplied RGBA on the cloud's device,
-    differentiable in the cloud's tensors where they require grad.
-    ``background`` is None or a solid [4] RGBA; ``pairs_max`` is the pair
-    budget (default: ``pairs_budget(N)``, the 6N cap); ``time`` the 4DGS
-    frame time (a number or a float32 scalar tensor, default
-    ``settings.time``).
+    differentiable in the cloud's tensors (and in ``background``) where
+    they require grad.  ``background`` is None, a solid [4] RGBA or a full
+    image [H, W, 4]; ``pairs_max`` is the pair budget (default:
+    ``pairs_budget(N, pairs_hint)``, the 6N cap without a hint); ``time``
+    the 4DGS frame time (a number or a float32 scalar tensor, default
+    ``settings.time``); ``width`` and ``height`` the image size (default
+    the camera's).
 
     Compositing runs the kernels (``composite_core``), except for the
     bounding-box overlay with ``differentiable=True``: there, as in the JAX
     package, the plain ``composite_tiles`` that autograd differentiates.
     ``render()`` serves with ``differentiable=False``, ``train_step``
     trains with the default."""
-    width, height = camera.width, camera.height
+    width = camera.width if width is None else int(width)
+    height = camera.height if height is None else int(height)
     if width % TILE:
         raise ValueError(f"image width must be a multiple of {TILE}")
-    if background is not None and background.dim() != 1:
-        raise NotImplementedError(
-            "full-image [H, W, 4] backgrounds are not ported yet (ROADMAP.md Queue 1 item 4)"
-        )
-    cloud = as_float32(cloud)
     h_pad = pad_to_tile(height)
+    if background is not None and background.dim() != 1:
+        if tuple(background.shape) != (height, width, 4):
+            raise ValueError(f"background must be [4] or [{height}, {width}, 4], got {tuple(background.shape)}")
+        if h_pad != height:
+            # full-image backgrounds pad along rows with zeros; the pad rows
+            # are cropped again below (rasterize_tile.py:1136-1145)
+            background = torch.cat([background, background.new_zeros((h_pad - height, width, 4))])
+    cloud = as_float32(cloud)
     tx_count = width // TILE
     n = len(cloud)
-    p_max = pairs_max if pairs_max is not None else pairs_budget(n)
+    p_max = pairs_max if pairs_max is not None else pairs_budget(n, pairs_hint)
 
     depth_minmax = None
     if settings.rasterize_mode == RasterizeMode.DEPTH:
@@ -423,3 +439,25 @@ def render_tiled(
         )
     img = composite_epilogue(out_raw, background, width, h_pad)
     return img[:height] if h_pad != height else img
+
+
+def make_tiled_pipeline(
+    settings: CloudSettings,
+    width: int,
+    height: int,
+    differentiable: bool = False,
+    pairs_hint: Optional[int] = None,
+    pairs_max: Optional[int] = None,
+):
+    """The forward pipeline of one (settings, size, budget) as a plain
+    closure ``fn(cloud, camera, model_transform, background, time)``
+    (rasterize_tile.py:1290).  PyTorch runs eagerly, so nothing is compiled
+    or cached: the closure only fixes the arguments."""
+
+    def fn(cloud, camera, model_transform=None, background=None, time=None):
+        return render_tiled(
+            cloud, camera, settings, model_transform, background, pairs_max=pairs_max,
+            differentiable=differentiable, time=time, width=width, height=height, pairs_hint=pairs_hint,
+        )
+
+    return fn

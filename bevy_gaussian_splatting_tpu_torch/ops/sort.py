@@ -12,6 +12,8 @@ so the unsigned 32-bit keys are carried in int64 tensors, masked to 32 bits.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -60,6 +62,18 @@ def sort_entries(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.sort(keys, stable=True)
 
 
+def sort_gaussians_radix(
+    position: torch.Tensor,
+    model_transform: torch.Tensor,
+    clip_from_world: torch.Tensor,
+    camera_position: torch.Tensor,
+    depth_bits: int = 32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full device sort, key generation then a stable sort -> (sorted
+    keys, sorted indices): back to front, culled (sentinel) entries last."""
+    return sort_entries(radix_depth_key(position, model_transform, clip_from_world, camera_position, depth_bits))
+
+
 def sort_gaussians_host(
     position: np.ndarray,
     model_transform: np.ndarray,
@@ -74,6 +88,85 @@ def sort_gaussians_host(
     diff = world - np.asarray(camera_position)
     dist2 = np.sum(diff * diff, axis=-1)
     return np.argsort(-dist2, kind="stable").astype(np.uint32)
+
+
+# -- radix digit bookkeeping (the reference's tests/radix.rs parity) ----------
+
+
+def digit_places(depth_bits: int) -> int:
+    """Radix passes for a key width (ShaderDefines::for_radix_depth_bits,
+    src/render/mod.rs:715-722)."""
+    return depth_bits // 8
+
+
+def key_shift(depth_bits: int) -> int:
+    """Right shift that keeps a key's top ``depth_bits`` bits."""
+    return 32 - depth_bits
+
+
+def digit_of(key, place: int, bits_per_digit: int = 8):
+    """Digit ``place`` of u32 keys, as radix_sort_a extracts it
+    (src/sort/radix.wgsl:100-102); numpy uint32 in and out."""
+    base = (1 << bits_per_digit) - 1
+    return (key >> np.uint32(place * bits_per_digit)) & np.uint32(base)
+
+
+def final_pass_parity(depth_bits: int) -> int:
+    """Which ping-pong buffer the last radix pass writes (tests/radix.rs:65-79):
+    the initial parity is ``digit_places % 2``, so that the last pass lands
+    in ``sorted_entries``."""
+    return digit_places(depth_bits) % 2
+
+
+# -- host re-sort scheduling (the reference's SortConfig / SortTrigger) -------
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def sort_due(moved: bool, now_ms: float, last_sort_ms: float, period_ms: float) -> bool:
+    """The reference's throttle (src/sort/mod.rs:76-86, 153-194): sort again
+    when the camera moved and at least ``period_ms`` passed since the last
+    sort."""
+    return moved and (now_ms - last_sort_ms) >= period_ms
+
+
+def throttle_period_ms(floor_ms: float, sort_ms: float) -> float:
+    """The throttle's period after a sort that took ``sort_ms``:
+    ``max(floor, 4 x the sort's duration)`` (std_sort.rs:121-129)."""
+    return max(floor_ms, 4.0 * sort_ms)
+
+
+class SortSchedule:
+    """The reference's host-sort throttle for SortMode.STD / SortMode.RAYON
+    (:func:`sort_due`, :func:`throttle_period_ms` with a floor of 1000 ms)."""
+
+    def __init__(self, period_ms: float = 1000.0):
+        self.period_ms = period_ms
+        self.last_sort_ms: float = -1e30
+        self.last_camera_position = None
+        self.order = None
+
+    def needs_sort(self, camera_position, now_ms: float) -> bool:
+        if self.order is None or self.last_camera_position is None:
+            return True
+        moved = not np.allclose(_host(camera_position), self.last_camera_position, atol=1e-6)
+        return sort_due(moved, now_ms, self.last_sort_ms, self.period_ms)
+
+    def maybe_sort(self, position, model_transform, camera_position, now_ms=None) -> np.ndarray:
+        """The back-to-front order [N] uint32, sorted again only when due."""
+        if now_ms is None:
+            now_ms = time.perf_counter() * 1e3
+        if self.needs_sort(camera_position, now_ms):
+            t0 = time.perf_counter()
+            self.order = sort_gaussians_host(_host(position), _host(model_transform), _host(camera_position))
+            self.period_ms = throttle_period_ms(1000.0, (time.perf_counter() - t0) * 1e3)
+            self.last_sort_ms = now_ms
+            self.last_camera_position = _host(camera_position).copy()
+        return self.order
 
 
 def back_sorted_entry_indices(back_key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (bevy_gaussian_splatting_tpu_torch) on one
 NVIDIA card.
 
-    python3 chip_smoke.py            # the whole run (about 3 minutes of
+    python3 chip_smoke.py            # the whole run (a few minutes of
                                      # script time on "NVIDIA H100 80GB
                                      # HBM3, 700.00 W")
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one
@@ -10,11 +10,13 @@ NVIDIA card.
                                      # training step, written to the output
                                      # directory
 
-Phases, each of which raises on failure (nothing is caught).  Phases 3-6 run
-with OBB bounds (``CloudSettings()``), then phases 3-5 and 7 with AABB bounds
-(``CloudSettings(aabb=True)``), then phase 8, then phases 3-6 with 2DGS
-surfels (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``), then phase 9, then
-phases 10-13 for 4DGS with OBB and then AABB bounds:
+Phases, each of which raises on failure (nothing is caught).  Phases 3-5,
+14-17 and 6 run with OBB bounds (``CloudSettings()``), then phases 3-5, 14
+and 7 with AABB bounds (``CloudSettings(aabb=True)``), then phase 8, then
+phases 3-5, 14 and 6 with 2DGS surfels
+(``CloudSettings(gaussian_mode=GAUSSIAN_2D)``), then phase 9, then phases
+10-13 for 4DGS with OBB (with phase 18 after 12) and then AABB bounds, then
+phase 19:
 
   1. build   every kernel under bevy_gaussian_splatting_tpu_torch/csrc with
              nvcc for sm_90a, one nvcc per source, all started together,
@@ -106,13 +108,48 @@ phases 10-13 for 4DGS with OBB and then AABB bounds:
              and the compositor, then one VELOCITY and one overlay frame;
  13. train   (4DGS) a warm-up and 4 (512x512) or 2 (1920x1080) Adam steps
              towards a render of the same cloud at time 0.3, every step
-             through all four kernels, finite.
+             through all four kernels, finite;
+ 14. serve   ``InteractiveRenderer(period_floor_ms=1e9)`` at 512x512, the
+             JAX bench's replay protocol (bench.py:246-300): ``render_orbit``
+             at el 0.2, radius 60, a sub-threshold move (az 1e-5: no more
+             pixels past 2e-3 from a fresh ``render()`` than the fresh
+             frames' own change under the move gives, as near-tied depths
+             swap; in OBB and AABB also within 2e-3 beyond that change at
+             each pixel), the same pose again (bitwise), then 3 windows of
+             24 orbit frames: one bin
+             across the orbit, the bin frame through the expansion once,
+             every replay frame through the mode's compositor and no
+             expansion.  ``InteractiveRenderer.render`` at a host camera
+             against ``render(impl="tiled")`` (2e-6, and whether bitwise);
+             the replay pipeline's bin and replay calls, then the bin
+             frame, replay frame and ``render()``, timed in turns; the
+             device time and idle share of a replay frame (profiler);
+ 15. orbit keys the radix keys of an orbit camera built on the card against
+             the same camera built on the CPU, on the 1M scene (counted),
+             and ``render_orbit`` card against CPU on 2,000 gaussians at
+             128x128, held to the JAX test's bars (mean < 1e-3, 99.5% of
+             pixels within 1e-2);
+ 16. multi-camera ``render_multi_camera`` at the four orbit poses at
+             512x512, each view bitwise its own ``render_tiled``;
+ 17. background a full-image [H, W, 4] background at 512x512 and 1920x1080
+             (pad rows cropped) against the bare frame blended under its
+             transmittance (1e-6); at 128x120 on 2,000 gaussians card
+             against CPU (2e-5) and the oracle (3e-5), and the background's
+             gradient card against CPU (1e-4 of its largest);
+ 18. serve 4D (OBB) a time sweep of ``render_orbit``: every frame one pass
+             (``oneshots``), through the expansion and the compositor; a
+             settled time then bins once and replays, both bitwise the
+             one-pass frame;
+ 19. examples the port's four examples (``examples/``), each on the card,
+             writing its PNG into the output directory.
 
 It prints the kernels line (one entry per kernel and mode: the four kernels
 in each of the three modes, then the expansion and the forward compositor of
 each mode's overlay frames, mode "<mode>+bbox", then the same for 4DGS,
-modes "4d-obb", "4d-aabb", "4d-obb+bbox", "4d-aabb+bbox": thirty), the
-card's name and power limit, and
+modes "4d-obb", "4d-aabb", "4d-obb+bbox", "4d-aabb+bbox": thirty; the
+launches of the expansion and the forward compositor count the serving,
+replay, multi-camera and 4D sweep frames too), the card's name and power
+limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card it exits
 non-zero and prints no result.
 """
@@ -120,6 +157,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import math
@@ -212,6 +250,18 @@ COV_BAR = 1e-6  # precomputed covariance against quaternion and scale (tests/tes
 HALF_BAR = 2e-5  # f16 / bf16 storage against the float32 render of the rounded cloud
 SH4_BAR = 2e-6  # SH degree 4 storage against degree 3 (tests/test_sh_degree.py:270-294)
 MASK_FLIP_ULPS = 16  # a mask decided apart card vs CPU within this of its threshold is rounding
+# serving (InteractiveRenderer), the JAX bench's replay protocol (bench.py:246-300)
+SERVE_EL = 0.2
+SERVE_RADIUS = 60.0
+SERVE_FRAMES = 24  # frames per orbit window
+SERVE_WINDOWS = 3
+SERVE_TURNS = 8  # turns of the timed bin frame, replay frame and render()
+# a replay after a sub-threshold move against a fresh render (tests/test_interactive.py), at each
+# pixel beyond the fresh frames' own change under the move (the 1M scene's depth swaps, 2DGS's validity)
+SERVE_STALE_BAR = 2e-3
+SERVE_HOST_BAR = 2e-6  # InteractiveRenderer.render against render(impl="tiled") (tests/test_interactive.py)
+SERVE_FRAMES_4D = 12  # one-pass frames of the 4D time sweep (bench.py:380-389)
+BG_BLEND_BAR = 1e-6  # a full-image background frame against the bare frame blended under its transmittance
 
 
 def log(*args):
@@ -1400,6 +1450,371 @@ def phase_flavours(arrays: dict) -> dict:
     return launches
 
 
+def orbit_host_camera(az: float, el: float, width: int, height: int, device):
+    """The host-built camera of an orbit pose at radius 60 about the origin."""
+    from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
+    from bevy_gaussian_splatting_tpu_torch.render.api import orbit_eye
+
+    return Camera.create(eye=orbit_eye(az, el, SERVE_RADIUS), target=(0.0, 0.0, 0.0), width=width, height=height,
+                         device=device)
+
+
+def serve_counts(instance) -> tuple:
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import composite_tiles_raw
+
+    return expand_pairs.launches, composite_tiles_raw.instances.get(instance, 0)
+
+
+def served(fn, instance, expands: int, label: str):
+    """``fn()`` ending in a synchronise -> (image, wall ms); raises unless it
+    launched the expansion ``expands`` times and the compositor's
+    ``instance`` once."""
+    before = serve_counts(instance)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = fn()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3
+    after = serve_counts(instance)
+    got = (after[0] - before[0], after[1] - before[1])
+    if got != (expands, 1):
+        raise AssertionError(f"{label}: launched (expand_pairs, composite_tiles_raw{list(instance)}) {got}, "
+                             f"expected ({expands}, 1)")
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{label}: non-finite image")
+    return img, dt
+
+
+def phase_serve(cloud, settings) -> dict:
+    """Frame-coherent serving at 512x512, the JAX bench's replay protocol
+    (bench.py:246-300): ``InteractiveRenderer(period_floor_ms=1e9)``,
+    ``render_orbit`` at el 0.2 and radius 60, a sub-threshold move, then
+    ``SERVE_WINDOWS`` windows of ``SERVE_FRAMES`` orbit frames; one bin, and
+    replay frames with no expansion.  Then the host-camera frame against
+    ``render(impl="tiled")``, the replay pipeline's bin and replay, the
+    renderer's bin frame, replay frame and ``render()``, timed in turns, and
+    the device time of a replay frame -> launches."""
+    from bevy_gaussian_splatting_tpu_torch.models.camera import orbit_camera_device
+    from bevy_gaussian_splatting_tpu_torch.models.settings import GaussianMode
+    from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.reduce import segment_reduce
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_bwd import composite_backward
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODES, composite_tiles_raw
+    from bevy_gaussian_splatting_tpu_torch.render import api
+
+    width, height = SIZES[0]
+    mode = MODES[rt.kernel_mode(settings)]
+    label = f"serve {mode} {width}x{height}"
+    instance = (mode, False)
+    el = SERVE_EL
+
+    def orbit(r, az):
+        return lambda: r.render_orbit(cloud, az, el, SERVE_RADIUS, width=width, height=height)
+
+    r = api.InteractiveRenderer(settings, period_floor_ms=1e9)
+    for f in (composite_backward, segment_reduce):
+        f.launches = 0
+    expand_pairs.launches = 0
+    composite_tiles_raw.instances.clear()
+    served(orbit(r, 0.0), instance, 1, f"{label} bin frame")
+    moved, _ = served(orbit(r, 1e-5), instance, 0, f"{label} sub-threshold move")
+    # a fresh render() at the same orbit camera (one built on the host moves
+    # rounding-decided splat edges: tests/test_interactive.py:168-169)
+    orbit_cam = orbit_camera_device(
+        torch.tensor([1e-5, el, SERVE_RADIUS, 0.0, 0.0, 0.0], device=cloud.device), width, height
+    )
+    fresh = api.render(cloud, orbit_cam, settings, impl="tiled")
+    d_stale = (moved - fresh).abs()
+    # the fresh frames' own change under the move: on the 1M scene
+    # near-tied depths swap.  The stale frame may differ from the fresh one
+    # in no more pixels past the bar than the fresh frames do, and, in OBB
+    # and AABB, by at most their change plus the bar at each pixel.  A 2DGS
+    # surfel's extent comes by cancellation (gaussian_2d.py): its falloff
+    # at a pixel may change by far more than the move, in a pixel whose
+    # tile the stale bins hold and the fresh ones do not, or the reverse
+    orbit_cam0 = orbit_camera_device(torch.tensor([0.0, el, SERVE_RADIUS, 0.0, 0.0, 0.0], device=cloud.device),
+                                     width, height)
+    d_fresh = (api.render(cloud, orbit_cam0, settings, impl="tiled") - fresh).abs()
+    e_moved, e_fresh = float(d_stale.max()), float(d_fresh.max())
+    e_excess = float((d_stale - d_fresh).max())
+    n_stale = int((d_stale.amax(dim=-1) > SERVE_STALE_BAR).sum())
+    n_fresh = int((d_fresh.amax(dim=-1) > SERVE_STALE_BAR).sum())
+    n_excess = int(((d_stale - d_fresh).amax(dim=-1) > SERVE_STALE_BAR).sum())
+    per_pixel = settings.gaussian_mode != GaussianMode.GAUSSIAN_2D
+    stale_ok = n_stale <= n_fresh and (e_excess <= SERVE_STALE_BAR or not per_pixel)
+    again, _ = served(orbit(r, 1e-5), instance, 0, f"{label} unchanged pose")
+    replay_bitwise = bool(torch.equal(again, moved))
+    window_ms = []
+    for w in range(SERVE_WINDOWS):
+        t0 = time.perf_counter()
+        for i in range(SERVE_FRAMES):
+            az = 2.0 * math.pi * (i + 1) / SERVE_FRAMES + w * 1e-3
+            img, _ = served(orbit(r, az), instance, 0, f"{label} window {w} frame {i}")
+        torch.cuda.synchronize()
+        window_ms.append((time.perf_counter() - t0) * 1e3 / SERVE_FRAMES)
+    stats = dict(r.stats)
+    lit = int((img[..., :3].abs().amax(dim=-1) > 1.0 / 255.0).sum())
+    log(f"[{label}] render_orbit el {el} radius {SERVE_RADIUS}: stats {stats}; sub-threshold move (az 1e-5) vs a "
+        f"fresh render() at its camera {e_moved:.3e}, fresh frames at az 0 and 1e-5 {e_fresh:.3e}; stale past the "
+        f"fresh frames' change by at most {e_excess:.3e} at a pixel, past {SERVE_STALE_BAR} in {n_excess} pixels (bar "
+        f"{SERVE_STALE_BAR if per_pixel else 'none: 2DGS'}); pixels past "
+        f"{SERVE_STALE_BAR}: stale {n_stale}, fresh frames {n_fresh} (bar: no more); replay at an unchanged pose bitwise "
+        f"{replay_bitwise}; {SERVE_WINDOWS} windows of {SERVE_FRAMES} orbit frames: "
+        + ", ".join(f"{t:.3f}" for t in window_ms) + f" ms/frame (the JAX bench's replay_ms: the best); lit {lit}")
+    if stats["bins"] != 1 or stats["oneshots"] != 0:
+        raise AssertionError(f"{label}: {stats}, expected one bin across the orbit")
+    if not stale_ok or not replay_bitwise:
+        raise AssertionError(f"{label}: stale frame {e_excess:.3e} past the fresh frames' change, {n_stale} pixels "
+                             f"past {SERVE_STALE_BAR} against {n_fresh}; replay bitwise {replay_bitwise}")
+    if lit < LIT_FLOOR * width * height:
+        raise AssertionError(f"{label}: only {lit} lit pixels")
+    launches = {"expand_pairs": expand_pairs.launches, "composite_tiles_raw": composite_tiles_raw.instances[instance]}
+    if composite_backward.launches or segment_reduce.launches:
+        raise AssertionError(f"{label}: a backward kernel launched while serving")
+
+    # a host camera: InteractiveRenderer.render against render(impl="tiled")
+    cam = orbit_host_camera(0.3, el, width, height, cloud.device)
+    host = api.InteractiveRenderer(settings, period_floor_ms=1e9).render(cloud, cam)
+    tiled = api.render(cloud, cam, settings, impl="tiled")
+    e_host = float((host - tiled).abs().max())
+    bucket = api._BUDGET_STATE[api.budget_key("tiled", settings, width, height, cloud, cloud.device)][0]
+
+    # the replay pipeline alone: bins at one pose, a replay at another
+    cam0, cam1 = (orbit_host_camera(az, el, width, height, cloud.device) for az in (0.0, 0.05))
+    bin_fn, replay_fn = api.make_replay_pipeline(settings, width, height, bucket)[:2]
+    bins = bin_fn(cloud, cam0)
+    bg0 = torch.zeros(4, device=cloud.device)
+    rows = int(bins[0].shape[0])
+    # timed in turns: the pipeline's bin and replay, then the renderer's bin
+    # frame, replay frame and render()
+    times = {k: [] for k in ("bin", "replay")}
+    for _ in range(SERVE_TURNS):
+        times["bin"].append(wall_ms(lambda: bin_fn(cloud, cam0)))
+        times["replay"].append(wall_ms(lambda: replay_fn(cloud, cam1, None, bg0, 0.0, *bins)))
+    frame_times = {k: [] for k in ("bin frame", "replay frame", "render()")}
+    for i in range(SERVE_TURNS):
+        az = 0.7 + 0.01 * i
+        r.period_ms = 0.0  # the next move bins
+        frame_times["bin frame"].append(served(orbit(r, az), instance, 1, f"{label} timed bin frame")[1])
+        frame_times["replay frame"].append(served(orbit(r, az + 0.005), instance, 0, f"{label} timed replay")[1])
+        cam = orbit_host_camera(az, el, width, height, cloud.device)
+        frame_times["render()"].append(served(lambda: api.render(cloud, cam, settings), instance, 1,
+                                              f"{label} timed render()")[1])
+    med = {k: statistics.median(v) for k, v in {**times, **frame_times}.items()}
+    log(f"[{label}] renderer.render at a host camera vs render(impl='tiled') {e_host:.3e} (bar {SERVE_HOST_BAR}), "
+        f"bitwise {e_host == 0.0}; the JAX package's pair-order replay (not ported) would gather {rows} cloud rows, "
+        f"{rows * cloud_row_bytes(cloud)} bytes")
+    log(f"[{label}] medians over {SERVE_TURNS} turns, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
+    if e_host > SERVE_HOST_BAR:
+        raise AssertionError(f"{label}: host-camera frame {e_host:.3e} from render(impl='tiled')")
+    r.period_ms = 1e9
+    profile_call(orbit(r, 0.75), f"replay_{mode}_{width}x{height}", med["replay frame"])
+    return launches
+
+
+def cloud_row_bytes(cloud) -> int:
+    """Bytes of one row of every field of a cloud."""
+    return sum(getattr(cloud, f.name)[0].numel() * getattr(cloud, f.name).element_size()
+               for f in dataclasses.fields(cloud))
+
+
+def wall_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_orbit_keys(cloud) -> None:
+    """Radix keys from an orbit camera built on the card against the same
+    camera built on the CPU, on the 1M scene; and a small ``render_orbit``
+    card against CPU at the JAX test's bars (tests/test_interactive.py:
+    168-169: mean |diff| < 1e-3, more than 99.5% of pixels within 1e-2)."""
+    from bevy_gaussian_splatting_tpu_torch.models.camera import orbit_camera_device
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
+    from bevy_gaussian_splatting_tpu_torch.ops.sort import radix_depth_key
+    from bevy_gaussian_splatting_tpu_torch.render import api
+
+    width, height = SIZES[0]
+    orbit = torch.tensor([0.3, SERVE_EL, SERVE_RADIUS, 0.0, 0.0, 0.0], dtype=torch.float32)
+    cams = {dev: orbit_camera_device(orbit.to(dev), width, height) for dev in ("cuda", "cpu")}
+    e_cam = max(float((getattr(cams["cuda"], f).cpu() - getattr(cams["cpu"], f)).abs().max())
+                for f in ("view_from_world", "prev_clip_from_world", "world_position"))
+    position = cloud.position
+    keys = {}
+    for dev, cam in cams.items():
+        pos = position.to(dev)
+        keys[dev] = radix_depth_key(pos, torch.eye(4, device=pos.device), cam.clip_from_world,
+                                    cam.world_position).cpu()
+    differ = int((keys["cuda"] != keys["cpu"]).sum())
+    host = orbit_host_camera(0.3, SERVE_EL, width, height, cloud.device)
+    host_keys = radix_depth_key(position, torch.eye(4, device=cloud.device), host.clip_from_world, host.world_position)
+    differ_host = int((host_keys.cpu() != keys["cuda"]).sum())
+    a = bench_arrays(2000, seed=3)
+    imgs = {dev: api.InteractiveRenderer(device=dev).render_orbit(cloud_from_numpy(a, dev), 0.3, SERVE_EL,
+                                                                  SERVE_RADIUS, width=128, height=128).cpu()
+            for dev in ("cuda", "cpu")}
+    diff = (imgs["cuda"] - imgs["cpu"]).abs()
+    mean, within = float(diff.mean()), float((diff < 1e-2).double().mean())
+    log(f"[orbit keys {width}x{height}] orbit camera card vs cpu, largest matrix difference {e_cam:.3e}; radix keys "
+        f"that differ card vs cpu {differ} of {len(keys['cpu'])} (against the host-built camera on the card "
+        f"{differ_host}); render_orbit bench2000 128x128 card vs cpu: max {float(diff.max()):.3e}, mean "
+        f"{mean:.3e} (bar 1e-3), share within 1e-2 {within:.6f} (bar 0.995)")
+    if not (mean < 1e-3 and within > 0.995):
+        raise AssertionError("render_orbit card vs cpu past the JAX test's bars")
+
+
+def phase_serve_4d(cloud, settings) -> dict:
+    """4DGS serving (bench.py:370-394): a time sweep of ``render_orbit``
+    renders every frame in one pass (``oneshots``), each through the
+    expansion and the compositor; a settled time then bins once and its
+    replays are bitwise the one-pass frame -> launches."""
+    from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODES, composite_tiles_raw
+    from bevy_gaussian_splatting_tpu_torch.render import api
+
+    width, height = SIZES[0]
+    mode = MODES[rt.kernel_mode(settings)]
+    instance = (mode, False)
+    label = f"serve 4d {mode} {width}x{height}"
+    r = api.InteractiveRenderer(settings, period_floor_ms=1e9)
+
+    def at(t):
+        return lambda: r.render_orbit(cloud, 0.0, SERVE_EL, SERVE_RADIUS, width=width, height=height, time=t)
+
+    cap = rt.pairs_budget(len(cloud))
+    log(f"[{label}] the JAX package's pair-order replay (not ported) would gather at the 6N cap {cap} rows of {cloud_row_bytes(cloud)} bytes, "
+        f"{cap * cloud_row_bytes(cloud)} bytes (the 1M cloud: {len(cloud) * cloud_row_bytes(cloud)})")
+    expand_pairs.launches = 0
+    composite_tiles_raw.instances.clear()
+    served(at(TIME_4D), instance, 1, f"{label} first frame")
+    first = dict(r.stats)
+    sweep = []
+    for i in range(SERVE_FRAMES_4D):
+        img, dt = served(at(TIME_4D + 0.01 * (i + 1)), instance, 1, f"{label} sweep frame {i}")
+        sweep.append(dt)
+    swept = dict(r.stats)
+    t_last = TIME_4D + 0.01 * SERVE_FRAMES_4D
+    binned, dt_bin = served(at(t_last), instance, 1, f"{label} settled bin")
+    replay, dt_replay = served(at(t_last), instance, 0, f"{label} settled replay")
+    bitwise = bool(torch.equal(binned, img)) and bool(torch.equal(replay, img))
+    launches = {"expand_pairs": expand_pairs.launches, "composite_tiles_raw": composite_tiles_raw.instances[instance]}
+    log(f"[{label}] first frame {first}, after a sweep of {SERVE_FRAMES_4D} times {swept}, settled "
+        f"{dict(r.stats)}; one-pass frames median {statistics.median(sweep):.3f} ms (the JAX bench's "
+        f"gs4d_rebin_ms), settled bin {dt_bin:.3f} ms, replay {dt_replay:.3f} ms; settled frames bitwise the "
+        f"one-pass frame {bitwise}")
+    if swept != {"bins": 1, "replays": 0, "oneshots": SERVE_FRAMES_4D}:
+        raise AssertionError(f"{label}: the time sweep counted {swept}")
+    if dict(r.stats) != {"bins": 2, "replays": 1, "oneshots": SERVE_FRAMES_4D} or not bitwise:
+        raise AssertionError(f"{label}: settled time {r.stats}, bitwise {bitwise}")
+    return launches
+
+
+def phase_multi_camera(cloud) -> dict:
+    """``render_multi_camera`` over the main phase's four orbit poses at
+    512x512 (OBB): each view bitwise its own ``render_tiled`` -> launches."""
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import composite_tiles_raw
+    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import render_tiled
+    from bevy_gaussian_splatting_tpu_torch.render.multi_camera import render_multi_camera
+
+    width, height = SIZES[0]
+    cams = [orbit_camera(az, width, height, cloud.device) for az in ORBIT_AZ]
+    expand_pairs.launches = 0
+    composite_tiles_raw.instances.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = render_multi_camera(cloud, cams)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3
+    launches = {"expand_pairs": expand_pairs.launches,
+                "composite_tiles_raw": composite_tiles_raw.instances.get(("obb", False), 0)}
+    if launches != {"expand_pairs": len(cams), "composite_tiles_raw": len(cams)}:
+        raise AssertionError(f"multi-camera launches {launches}")
+    equal = [bool(torch.equal(batch[i], render_tiled(cloud, c, CloudSettings(), differentiable=False)))
+             for i, c in enumerate(cams)]
+    log(f"[multi-camera obb {width}x{height}] {len(cams)} views {tuple(batch.shape)} in {dt:.3f} ms; each view "
+        f"bitwise its own render_tiled: {equal}")
+    if not all(equal) or not bool(torch.isfinite(batch).all()):
+        raise AssertionError("a multi-camera view differs from its own render")
+    return launches
+
+
+def background_image(width: int, height: int, device) -> torch.Tensor:
+    """A smooth full-image RGBA background."""
+    y = torch.linspace(0.0, 1.0, height, device=device)[:, None]
+    x = torch.linspace(0.0, 1.0, width, device=device)[None, :]
+    return torch.stack([0.2 + 0.6 * x.expand(height, width), 0.1 + 0.5 * y.expand(height, width),
+                        0.3 + 0.4 * x * y, 0.5 + 0.5 * x.expand(height, width)], dim=-1)
+
+
+def phase_background(cloud) -> None:
+    """Full-image [H, W, 4] backgrounds (OBB): a frame of the 1M scene at each
+    size against the frame without one blended under its transmittance (the
+    1080p pad rows are cropped); a small scene at 128x120 card against CPU
+    and against the oracle; the background's gradient card against CPU."""
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
+    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import render_tiled
+    from bevy_gaussian_splatting_tpu_torch.render import api
+
+    settings = CloudSettings()
+    for width, height in SIZES:
+        cam = orbit_camera(0.3, width, height, cloud.device)
+        bg = background_image(width, height, cloud.device)
+        img = api.render(cloud, cam, settings, background=bg)
+        bare = api.render(cloud, cam, settings)
+        want = bare + (1.0 - bare[..., 3:4]) * bg
+        err = float((img - want).abs().max())
+        log(f"[background obb {width}x{height}] full-image frame {tuple(img.shape)} vs the bare frame blended "
+            f"under its transmittance {err:.3e} (bar {BG_BLEND_BAR})")
+        if img.shape != (height, width, 4) or err > BG_BLEND_BAR:
+            raise AssertionError(f"full-image background at {width}x{height}: {err:.3e}")
+    a = bench_arrays(2000, seed=3)
+    width, height = 128, 120
+    cam = orbit_camera(0.0, width, height, "cpu")
+    bg = background_image(width, height, "cpu")
+    compare_small(f"obb bench2000 {width}x{height} full-image background", a, cam, settings, bg)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        b = bg.to(dev).clone().requires_grad_(True)
+        c = cloud_from_numpy(a, dev)
+        torch.mean((render_tiled(c, cam.to(dev), settings, background=b) - 0.5) ** 2).backward()
+        grads[dev] = b.grad.cpu()
+    rel = float((grads["cuda"] - grads["cpu"]).abs().max() / grads["cpu"].abs().max())
+    log(f"[background obb {width}x{height}] background gradient card vs cpu, max |diff| / max |cpu| {rel:.3e} "
+        f"(bar {GRAD_BAR})")
+    if rel > GRAD_BAR:
+        raise AssertionError(f"background gradient card vs cpu {rel:.3e}")
+
+
+def phase_examples() -> None:
+    """The port's four examples, each on the card, writing its PNG into the
+    output directory with the port's PNG writer, read back by its reader."""
+    from bevy_gaussian_splatting_tpu_torch.examples import minimal, multi_camera, train_multiview, training
+    from bevy_gaussian_splatting_tpu_torch.utils.image import load_png, non_black_pixel_count
+
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    for name, module in (("minimal", minimal), ("multi_camera", multi_camera), ("training", training),
+                         ("train_multiview", train_multiview)):
+        path = out / f"example_{name}.png"
+        t0 = time.perf_counter()
+        if module.main(["--out", str(path)]) != 0:
+            raise AssertionError(f"example {name} failed")
+        img = load_png(path)
+        lit = non_black_pixel_count(img)
+        log(f"[example {name}] {time.perf_counter() - t0:.2f} s, {path.name} {img.shape[1]}x{img.shape[0]}, "
+            f"{lit} non-black pixels")
+        if lit == 0 or not np.isfinite(img).all():
+            raise AssertionError(f"example {name} wrote an unlit image")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true", help="write a per-kernel breakdown to chiprun_out/")
@@ -1451,6 +1866,14 @@ def main() -> int:
         if mode == "obb":
             timed("small views", phase_small_views)
         serve = timed(f"main {mode}", phase_main, cloud, settings, opts.profile)
+        # the replay frames of the serving layer count with the mode's frames
+        replay = timed(f"serve {mode}", phase_serve, cloud, settings)
+        serve = {k: v + replay[k] for k, v in serve.items()}
+        if mode == "obb":
+            timed("orbit keys", phase_orbit_keys, cloud)
+            multi = timed("multi-camera", phase_multi_camera, cloud)
+            serve = {k: v + multi[k] for k, v in serve.items()}
+            timed("background", phase_background, cloud)
         launches[mode + "+bbox"] = timed(f"main {mode}+bbox", phase_main, cloud,
                                          settings.replace(visualize_bounding_box=True), False, rounds=1)
         if mode == "aabb":
@@ -1489,9 +1912,15 @@ def main() -> int:
                                            "expand_pairs": res["expand_pairs"]}
         timed(f"small {mode}", phase_small_4d, settings)
         serve, overlay = timed(f"main {mode}", phase_main_4d, cloud4, settings, opts.profile)
+        if not aabb:
+            sweep = timed(f"serve {mode}", phase_serve_4d, cloud4, settings)
+            serve = {k: v + sweep[k] for k, v in serve.items()}
         train = timed(f"train {mode}", phase_train_4d, arrays4, settings, opts.profile)
         launches[mode] = {k: serve.get(k, 0) + v for k, v in train.items()}
         launches[mode + "+bbox"] = overlay
+
+    del cloud4
+    timed("examples", phase_examples)
 
     kernels = []
     sources = {

@@ -140,8 +140,10 @@ def test_epilogue_background():
             torch.from_numpy(raw[:, :4].copy()), None if bg is None else torch.from_numpy(bg), 64, 48
         )
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-7, rtol=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tfwd.composite_epilogue(torch.from_numpy(raw[:, :4].copy()), torch.zeros(48, 64, 4), 64, 48)
+    full = rng.uniform(0, 1, (48, 64, 4)).astype(np.float32)
+    ref = jfwd.composite_epilogue(jnp.asarray(raw.reshape(-1, 256)), jnp.asarray(full), 64, 48)
+    got = tfwd.composite_epilogue(torch.from_numpy(raw[:, :4].copy()), torch.from_numpy(full), 64, 48)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-7, rtol=0)
 
 
 def test_compositor_checks_inputs():

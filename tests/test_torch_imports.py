@@ -40,7 +40,8 @@ def test_port_has_sources():
         "render/api.py", "ops/rasterize_tile.py", "ops/gaussian_2d.py", "ops/cuda/expand.py", "ops/cuda/tile_fwd.py",
         "ops/cuda/tile_bwd.py", "ops/cuda/cull.py", "ops/cuda/reduce.py", "ops/cuda/core.py",
         "train/__init__.py", "train/losses.py", "train/step.py", "train/densify.py", "train/quality.py",
-        "ops/gaussian_4d.py", "models/f16.py",
+        "ops/gaussian_4d.py", "models/f16.py", "render/multi_camera.py", "utils/image.py",
+        "examples/minimal.py", "examples/multi_camera.py", "examples/training.py", "examples/train_multiview.py",
     ):
         assert need in names
     for source in ("expand", "tile_fwd", "tile_bwd", "reduce"):

@@ -86,10 +86,13 @@ def test_render_rejects_what_later_slices_bring():
     _, tc = cameras(32, 32)
     with pytest.raises(TypeError, match="Gaussian4dCloud"):
         api.render(cloud, tc, tsettings.CloudSettings(gaussian_mode=tsettings.GaussianMode.GAUSSIAN_4D), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        api.render(cloud, tc, background=torch.zeros(32, 32, 4), device="cpu")
+    # full-image backgrounds render; every tiled impl name is the one tiled path
+    bg = torch.rand(32, 32, 4, generator=torch.Generator().manual_seed(0))
+    img = api.render(cloud, tc, background=bg, device="cpu")
+    for impl in ("tiled", "tiled-pallas"):
+        np.testing.assert_array_equal(api.render(cloud, tc, background=bg, impl=impl, device="cpu").numpy(), img.numpy())
     with pytest.raises(ValueError, match="impl"):
-        api.render(cloud, tc, impl="tiled-pallas", device="cpu")
+        api.render(cloud, tc, impl="xla", device="cpu")
     _, odd = cameras(40, 32)
     with pytest.raises(ValueError, match="multiple of 16"):
         api.render(cloud, odd, device="cpu")
