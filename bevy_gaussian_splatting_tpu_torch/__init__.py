@@ -21,7 +21,12 @@ solid or a full-image background; frame-coherent serving,
 tensors and the background), and the training loop's pieces:
 densification (``train.densify``, 3DGS) and the convergence benchmark,
 ``train.quality.convergence_psnr``; PNG files (``utils.image``) and the
-examples (``examples/``, run with ``python -m``).
+examples (``examples/``, run with ``python -m``); cloud and scene files
+(``io/``: PLY, ``.gcloud`` / ``.gc4d`` in FlexBuffers or bincode2, ``.npz``,
+KHR glTF / GLB, ``io.loader.load_any``) and multi-cloud scene rendering
+(``render.scene``); selections, outliers and point-in-mesh (``query/``),
+cloud interpolation and particles (``morph/``) and the noise material
+(``ops.noise``).
 """
 
 __version__ = "0.1.0"

@@ -106,13 +106,30 @@ class Camera:
     ) -> "Camera":
         """Build a camera the way the reference viewer does (pan-orbit camera
         + Bevy's default ``PerspectiveProjection``: fov pi/4, near 0.1)."""
-        dev = resolve_device(device)
-        view = _look_at_rh_np(eye, target, up)
-        proj = _perspective_infinite_reverse_rh_np(
-            fov_y_radians, width / height, z_near
+        return Camera.from_matrices(
+            _look_at_rh_np(eye, target, up),
+            _perspective_infinite_reverse_rh_np(fov_y_radians, width / height, z_near),
+            width, height, prev_clip_from_world, device,
         )
-        if prev_clip_from_world is None:
-            prev_clip_from_world = proj @ view
+
+    @staticmethod
+    def from_matrices(
+        view_from_world,
+        clip_from_view,
+        width: int,
+        height: int,
+        prev_clip_from_world=None,
+        device: DeviceLike = None,
+    ) -> "Camera":
+        """A camera from any float32 [4, 4] view and projection matrices
+        (numpy arrays or tensors), e.g. a scene camera's inverse pose
+        (``render/scene.py``).  ``prev_clip_from_world`` defaults to
+        ``clip_from_view @ view_from_world``; the camera position is
+        computed on the host, as :meth:`create` does."""
+        dev = resolve_device(device)
+        view = np.asarray(_host(view_from_world), np.float32)
+        proj = np.asarray(_host(clip_from_view), np.float32)
+        prev = proj @ view if prev_clip_from_world is None else np.asarray(_host(prev_clip_from_world), np.float32)
         view_t = torch.from_numpy(view)
         return Camera(
             view_from_world=view_t.to(dev),
@@ -121,13 +138,32 @@ class Camera:
                 [0.0, 0.0, float(width), float(height)], dtype=torch.float32,
                 device=dev,
             ),
-            prev_clip_from_world=torch.from_numpy(
-                np.asarray(prev_clip_from_world, np.float32)
-            ).to(dev),
+            prev_clip_from_world=torch.from_numpy(prev).to(dev),
             world_position=(-view_t[:3, :3].T @ view_t[:3, 3]).to(dev),
             width=int(width),
             height=int(height),
         )
+
+
+def _host(m):
+    return m.detach().cpu().numpy() if isinstance(m, torch.Tensor) else m
+
+
+def look_at_rh(eye, target, up, device: DeviceLike = None) -> torch.Tensor:
+    """Right-handed view matrix (world -> view) as a float32 tensor, glam
+    ``Mat4::look_at_rh`` (``models/camera.py:31`` of the JAX package),
+    computed on the host."""
+    return torch.from_numpy(_look_at_rh_np(eye, target, up)).to(resolve_device(device))
+
+
+def perspective_infinite_reverse_rh(
+    fov_y_radians: float, aspect: float, z_near: float, device: DeviceLike = None
+) -> torch.Tensor:
+    """Bevy/glam ``Mat4::perspective_infinite_reverse_rh`` as a float32
+    tensor (``models/camera.py:136`` of the JAX package)."""
+    return torch.from_numpy(_perspective_infinite_reverse_rh_np(fov_y_radians, aspect, z_near)).to(
+        resolve_device(device)
+    )
 
 
 def _filled(shape: tuple, entries: dict, device) -> torch.Tensor:

@@ -258,6 +258,15 @@ def cloud_from_numpy(arrays: dict, device: DeviceLike = None):
     return cls(**out)
 
 
+def cloud_to_numpy(cloud) -> dict:
+    """The inverse of :func:`cloud_from_numpy`: the cloud's fields as float32
+    numpy arrays on the host, keyed by field name (what the encoders write)."""
+    return {
+        f.name: getattr(cloud, f.name).detach().to(torch.float32).cpu().numpy()
+        for f in dataclasses.fields(cloud)
+    }
+
+
 def set_sh_degree(cloud, degree: int):
     """The cloud at another SH storage degree: coefficients past ``degree``
     dropped, missing ones zero (what rebuilding the reference with another

@@ -14,9 +14,9 @@ Phases, each of which raises on failure (nothing is caught).  Phases 3-5,
 14-17 and 6 run with OBB bounds (``CloudSettings()``), then phases 3-5, 14
 and 7 with AABB bounds (``CloudSettings(aabb=True)``), then phase 8, then
 phases 3-5, 14 and 6 with 2DGS surfels
-(``CloudSettings(gaussian_mode=GAUSSIAN_2D)``), then phase 9, then phases
-10-13 for 4DGS with OBB (with phase 18 after 12) and then AABB bounds, then
-phase 19:
+(``CloudSettings(gaussian_mode=GAUSSIAN_2D)``), then phases 9 and 20, then
+phases 10-13 for 4DGS with OBB (with phase 18 after 12) and then AABB bounds,
+then phase 19:
 
   1. build   every kernel under bevy_gaussian_splatting_tpu_torch/csrc with
              nvcc for sm_90a, one nvcc per source, all started together,
@@ -141,14 +141,32 @@ phase 19:
              settled time then bins once and replays, both bitwise the
              one-pass frame;
  19. examples the port's four examples (``examples/``), each on the card,
-             writing its PNG into the output directory.
+             writing its PNG into the output directory;
+ 20. io      (OBB) the 1M scene saved by the port's encoders as .gcloud
+             (FlexBuffers and bincode2), .npz, .ply and a .glb (with a second
+             65,536-row cloud moved by ``SCENE_SHIFT`` and the bench camera),
+             and 65,536-row 4D .gc4d (both codecs) and .ply4d and cov3d
+             .gcloud files, in a temporary directory, each loaded by
+             ``load_any`` on the card: the lossless formats bitwise the source
+             and their frame bitwise the in-memory frame, PLY and GLB bitwise
+             the CPU's decode of the same bytes, the 1M .gcloud by the
+             vectorised FlexBuffers path; save and load ms and bytes.
+             ``render_scene`` on the GLB at 512x512 and 1920x1080 bitwise its
+             two ``render()`` calls chained by hand, and at 128x120 (each
+             cloud cut to 65,536 rows) within 2e-5 of the CPU.  At 1M, card
+             against CPU: ``points_in_mesh`` in a 12-triangle box (flips
+             only at the box's faces or face diagonals, counted),
+             ``interpolate_clouds`` 1e-6, ten particle steps with duplicate
+             and inert behaviours 1e-5, ``_hash4`` bit-equal,
+             ``apply_noise`` 1e-5 on every 64th row; each result rendered
+             once.
 
 It prints the kernels line (one entry per kernel and mode: the four kernels
 in each of the three modes, then the expansion and the forward compositor of
 each mode's overlay frames, mode "<mode>+bbox", then the same for 4DGS,
 modes "4d-obb", "4d-aabb", "4d-obb+bbox", "4d-aabb+bbox": thirty; the
 launches of the expansion and the forward compositor count the serving,
-replay, multi-camera and 4D sweep frames too), the card's name and power
+replay, multi-camera, 4D sweep and io frames too), the card's name and power
 limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card it exits
 non-zero and prints no result.
@@ -262,6 +280,19 @@ SERVE_STALE_BAR = 2e-3
 SERVE_HOST_BAR = 2e-6  # InteractiveRenderer.render against render(impl="tiled") (tests/test_interactive.py)
 SERVE_FRAMES_4D = 12  # one-pass frames of the 4D time sweep (bench.py:380-389)
 BG_BLEND_BAR = 1e-6  # a full-image background frame against the bare frame blended under its transmittance
+# IO, scene, query, morph and noise (phase 20) on the 1M scene: 4D, cov3d and the scene's second cloud at a
+# smaller depth (paths that are not this slice's); the scene's CPU render at 128x120 on each cloud's first rows (a
+# CPU render of the 1M cloud alone takes about 22 s); apply_noise on the CPU on every NOISE_CPU_STRIDE-th row
+IO_SMALL_ROWS = 65_536
+SCENE_SHIFT = (4.0, 2.0, 12.0)  # the scene's second cloud, moved towards the camera
+SCENE_CPU_SIZE = (128, 120)
+SCENE_CPU_BAR = 2e-5  # render_scene card vs CPU (tests/test_torch_scene.py's bar against JAX)
+INTERP_BAR = 1e-6
+PARTICLE_BAR = 1e-5  # ten steps; duplicate behaviours sum in an unspecified order on the card
+PARTICLE_STEPS = 10
+NOISE_SH_BAR = 1e-5
+NOISE_CPU_STRIDE = 64
+MESH_BOUNDARY = 1e-5  # a point-in-mesh flip within this of a face or a face's diagonal (unit-box units) is rounding
 
 
 def log(*args):
@@ -1815,6 +1846,246 @@ def phase_examples() -> None:
             raise AssertionError(f"example {name} wrote an unlit image")
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def clouds_bitwise(a, b) -> bool:
+    return type(a) is type(b) and all(
+        same_bits(getattr(a, f.name).cpu(), getattr(b, f.name).cpu()) for f in dataclasses.fields(a))
+
+
+def phase_io(cloud, arrays: dict) -> dict:
+    """Cloud and scene files, scene rendering, query, morph and noise on the 1M
+    scene (OBB): save it with the port's encoders in every format, load each
+    with ``load_any`` on the card (lossless formats bitwise the source and
+    their frame bitwise the in-memory frame; PLY and GLB bitwise the CPU's
+    decode of the same bytes), ``render_scene`` on the GLB's two clouds,
+    then ``points_in_mesh``, ``interpolate_clouds``, ten particle steps,
+    ``_hash4`` and ``apply_noise`` card against CPU, each result rendered
+    once -> the forward kernels' launches."""
+    import tempfile
+
+    from bevy_gaussian_splatting_tpu_torch.device import resolve_device
+    from bevy_gaussian_splatting_tpu_torch.io import flexbuffers
+    from bevy_gaussian_splatting_tpu_torch.io.loader import load_any, save_cloud
+    from bevy_gaussian_splatting_tpu_torch.io.scene import GaussianScene, SceneCamera, SceneCloud
+    from bevy_gaussian_splatting_tpu_torch.io.scene import write_khr_gaussian_scene_glb
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import (
+        cloud_from_numpy,
+        precompute_covariance_3d,
+        random_arrays_4d_seeded,
+    )
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
+    from bevy_gaussian_splatting_tpu_torch.morph.interpolate import interpolate_clouds
+    from bevy_gaussian_splatting_tpu_torch.morph.particle import ParticleBehaviors, apply_particle_behaviors
+    from bevy_gaussian_splatting_tpu_torch.ops import noise
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import composite_tiles_raw
+    from bevy_gaussian_splatting_tpu_torch.query.raycast import points_in_mesh
+    from bevy_gaussian_splatting_tpu_torch.render import api
+    from bevy_gaussian_splatting_tpu_torch.render.scene import camera_from_scene, render_scene
+
+    settings = CloudSettings()
+    dev = resolve_device(None)
+    expand_pairs.launches = 0
+    composite_tiles_raw.instances.clear()
+
+    def frame(c, cam, **kw):
+        img = api.render(c, cam, settings, **kw)
+        lit = int((img[..., :3].abs().amax(dim=-1) > 1.0 / 255.0).sum())
+        if not bool(torch.isfinite(img).all()) or lit < LIT_FLOOR * cam.width * cam.height:
+            raise AssertionError(f"io: a frame of {tuple(img.shape)} is not finite or has only {lit} lit pixels")
+        return img
+
+    small = {k: v[:IO_SMALL_ROWS] for k, v in arrays.items()}
+    near = {k: v.copy() for k, v in bench_arrays(IO_SMALL_ROWS, seed=1).items()}
+    arrays4 = random_arrays_4d_seeded(IO_SMALL_ROWS, seed=SEED_4D)
+    cloud4 = cloud_from_numpy(arrays4, dev)
+    cov = precompute_covariance_3d(cloud_from_numpy(small, dev), f16_quantize=True)  # the file's f16 pairs
+    near_t = np.eye(4, dtype=np.float32)
+    near_t[:3, 3] = SCENE_SHIFT
+    cam_t = np.eye(4, dtype=np.float32)
+    cam_t[:3, 3] = (0.0, 0.0, 60.0)  # the bench camera: (0, 0, 60) looking down -z
+    scene_clouds = [SceneCloud("bench", cloud, np.eye(4, dtype=np.float32), settings, {}),
+                    SceneCloud("near", cloud_from_numpy(near, dev), near_t, settings, {})]
+    scene_cam = SceneCamera("bench_camera", cam_t, yfov_radians=float(np.pi / 4), znear=0.1)
+    cam512 = orbit_camera(0.0, *SIZES[0], dev)
+    ref = frame(cloud, cam512)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (file, cloud, codec, lossless); 4D and cov3d at IO_SMALL_ROWS
+        files = [("bench.gcloud", cloud, "flexbuffers", True), ("bench.bincode.gcloud", cloud, "bincode2", True),
+                 ("bench.npz", cloud, "flexbuffers", True), ("bench.ply", cloud, "flexbuffers", False),
+                 ("bench.glb", None, "flexbuffers", False),
+                 ("bench4d.gc4d", cloud4, "flexbuffers", True), ("bench4d.bincode.gc4d", cloud4, "bincode2", True),
+                 ("bench4d.ply4d", cloud4, "flexbuffers", False), ("bench_cov3d.gcloud", cov, "flexbuffers", True)]
+        scene = None
+        for name, src, codec, lossless in files:
+            path = str(Path(tmp) / name)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if src is None:
+                nbytes = write_khr_gaussian_scene_glb(scene_clouds, path, camera=scene_cam)
+            else:
+                nbytes = save_cloud(src, path, codec=codec)
+            enc_ms = (time.perf_counter() - t0) * 1e3
+            paths_before = dict(flexbuffers.read_columns.paths)
+            t0 = time.perf_counter()
+            loaded = load_any(path)
+            torch.cuda.synchronize()
+            dec_ms = (time.perf_counter() - t0) * 1e3
+            paths = {k: v - paths_before[k] for k, v in flexbuffers.read_columns.paths.items()}
+            got = loaded.clouds if src is None else [loaded]
+            if any(c.device != dev for c in (g.cloud if src is None else g for g in got)):
+                raise AssertionError(f"io {name}: loaded off the card")
+            if lossless:
+                check = "bitwise the source" if clouds_bitwise(loaded, src) else None
+            else:  # the same bytes decoded on the CPU
+                cpu = load_any(path, device="cpu")
+                pairs = zip(loaded.clouds, cpu.clouds) if src is None else [(loaded, cpu)]
+                check = "bitwise the CPU's decode" if all(
+                    clouds_bitwise(a.cloud if src is None else a, b.cloud if src is None else b)
+                    for a, b in pairs) else None
+            if check is None:
+                raise AssertionError(f"io {name}: the loaded cloud differs")
+            note = ""
+            if name == "bench.gcloud":
+                if paths != {"vectorised": 1, "general": 0}:
+                    raise AssertionError(f"io {name}: decoded by the FlexBuffers paths {paths}, not the vectorised one")
+                note = "; FlexBuffers decoded by the vectorised path"
+            if lossless and src is cloud:
+                if not same_bits(frame(loaded, cam512), ref):
+                    raise AssertionError(f"io {name}: its frame differs from the in-memory cloud's")
+                note += "; its 512x512 frame bitwise the in-memory frame"
+            if src is None:
+                scene = loaded
+            rows = sum(len(c.cloud) for c in loaded.clouds) if src is None else len(loaded)
+            log(f"[io {name}] {rows} rows, {nbytes} bytes | save {enc_ms:.1f} ms, load_any {dec_ms:.1f} ms "
+                f"(decode and upload) | {check}{note}")
+
+    # render_scene on the GLB: far to near, each image the next cloud's background
+    for width, height in SIZES:
+        cam = camera_from_scene(scene, width, height)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render_scene(scene, cam)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        far, nearc = scene.clouds  # the bench cloud at distance 60 renders first
+        by_hand = frame(nearc.cloud, cam, model_transform=torch.as_tensor(nearc.transform, device=dev),
+                        background=frame(far.cloud, cam, model_transform=torch.as_tensor(far.transform, device=dev)))
+        lit = int((img[..., :3].abs().amax(dim=-1) > 1.0 / 255.0).sum())
+        ok = same_bits(img, by_hand) and bool(torch.isfinite(img).all()) and lit >= LIT_FLOOR * width * height
+        log(f"[io render_scene {width}x{height}] 2 clouds ({len(far.cloud)} + {len(nearc.cloud)}), {ms:.1f} ms, lit "
+            f"{lit}, bitwise the two render() calls chained by hand: {same_bits(img, by_hand)}")
+        if not ok:
+            raise AssertionError(f"render_scene {width}x{height}")
+    cut = GaussianScene([dataclasses.replace(sc, cloud=type(sc.cloud)(**{
+        f.name: getattr(sc.cloud, f.name)[:IO_SMALL_ROWS] for f in dataclasses.fields(sc.cloud)}))
+        for sc in scene.clouds], scene.cameras)
+    cut_cpu = GaussianScene([dataclasses.replace(sc, cloud=sc.cloud.to("cpu")) for sc in cut.clouds], cut.cameras)
+    width, height = SCENE_CPU_SIZE
+    card = render_scene(cut, camera_from_scene(cut, width, height)).cpu()
+    t0 = time.perf_counter()
+    cpu = render_scene(cut_cpu, camera_from_scene(cut_cpu, width, height, device="cpu"), device="cpu")
+    err = float((card - cpu).abs().max())
+    log(f"[io render_scene {width}x{height}] the GLB's clouds cut to {IO_SMALL_ROWS} rows each, card vs CPU {err:.3e} "
+        f"(bar {SCENE_CPU_BAR}; CPU {time.perf_counter() - t0:.1f} s)")
+    if not err <= SCENE_CPU_BAR:
+        raise AssertionError(f"render_scene card vs CPU {err:.3e}")
+
+    # query, morph and noise at 1M, card against CPU, each result rendered once
+    cpu_cloud = cloud.to("cpu")
+    unit = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]],
+                    np.float32)
+    faces = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5], [0, 5, 4], [2, 3, 7], [2, 7, 6],
+                      [1, 2, 6], [1, 6, 5], [0, 4, 7], [0, 7, 3]], np.int32)
+    lo, hi = np.array([-10.0, -8.0, -2.0], np.float32), np.array([12.0, 9.0, 3.0], np.float32)
+    box = np.diag([*(hi - lo), 1.0]).astype(np.float32)
+    box[:3, 3] = lo
+    inside = points_in_mesh(cloud.position, unit, faces, torch.from_numpy(box)).cpu()
+    inside_cpu = points_in_mesh(cpu_cloud.position, unit, faces, torch.from_numpy(box))
+    flips = (inside != inside_cpu).nonzero()[:, 0]
+    q = (cpu_cloud.position[flips].numpy() - lo) / (hi - lo)  # the flips in the unit box's frame
+    edge = np.minimum(np.minimum(np.abs(q), np.abs(q - 1.0)).min(axis=1), np.abs(q[:, 1] - q[:, 2]) / np.sqrt(2.0))
+    boundary = int((edge <= MESH_BOUNDARY).sum())
+    log(f"[io points_in_mesh] 12-triangle box, {int(inside.sum())} of {len(inside)} inside; card vs CPU flips "
+        f"{len(flips)} ({boundary} within {MESH_BOUNDARY} of a face or a face diagonal)")
+    if boundary != len(flips):
+        raise AssertionError(f"points_in_mesh: {len(flips) - boundary} flips away from the mesh's boundary")
+    selected = cloud.with_visibility(inside.to(dev, torch.float32))
+
+    rhs = cloud_from_numpy({k: np.ascontiguousarray(v[::-1]) for k, v in arrays.items()}, dev)
+    mixed = interpolate_clouds(cloud, rhs, 0.37)
+    mixed_cpu = interpolate_clouds(cpu_cloud, rhs.to("cpu"), 0.37)
+    err_mix = max(float((getattr(mixed, f.name).cpu() - getattr(mixed_cpu, f.name)).abs().max())
+                  for f in dataclasses.fields(mixed))
+    log(f"[io interpolate_clouds] t 0.37, card vs CPU {err_mix:.3e} (bar {INTERP_BAR})")
+    if not err_mix <= INTERP_BAR:
+        raise AssertionError(f"interpolate_clouds card vs CPU {err_mix:.3e}")
+
+    n = len(cloud)
+    idx = (np.arange(n + n // 64) % n).astype(np.int32)  # rows 0 .. n/64 driven twice
+    idx[::97] = -1  # inert
+    beh_cpu = dataclasses.replace(ParticleBehaviors.random(len(idx), seed=7, device="cpu"),
+                                  indices=torch.from_numpy(idx))
+    beh = ParticleBehaviors(**{f.name: getattr(beh_cpu, f.name).to(dev) for f in dataclasses.fields(beh_cpu)})
+    moved, moved_cpu = cloud, cpu_cloud
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PARTICLE_STEPS):
+        moved, beh = apply_particle_behaviors(moved, beh, 1.0 / 30.0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / PARTICLE_STEPS
+    for _ in range(PARTICLE_STEPS):
+        moved_cpu, beh_cpu = apply_particle_behaviors(moved_cpu, beh_cpu, 1.0 / 30.0)
+    diff = (moved.position_visibility.cpu() - moved_cpu.position_visibility).abs().amax(dim=1)
+    twice = torch.zeros(n, dtype=torch.bool)
+    twice[: n // 64] = True
+    err_p = float(diff.max())
+    log(f"[io particles] {PARTICLE_STEPS} steps of {len(idx)} behaviours ({n // 64} rows driven twice, every 97th "
+        f"inert), {step_ms:.3f} ms/step; card vs CPU {err_p:.3e} (bar {PARTICLE_BAR}): rows driven once "
+        f"{float(diff[~twice].max()):.3e}, twice {float(diff[twice].max()):.3e}, rows differing {int((diff > 0).sum())}")
+    if not err_p <= PARTICLE_BAR:
+        raise AssertionError(f"particle steps card vs CPU {err_p:.3e}")
+
+    pos = cloud.position * 2.0
+    lattice = [torch.floor(pos[:, k]).to(torch.int32) for k in range(3)]
+    lattice.append(torch.arange(n, device=dev, dtype=torch.int32) % 48 - 24)  # negative w cells too
+    h = noise._hash4(*lattice, 3).cpu()
+    h_cpu = noise._hash4(*(c.cpu() for c in lattice), 3)
+    hash_flips = int((h != h_cpu).sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    noised = noise.apply_noise(cloud, scale=0.5, seed=1)
+    torch.cuda.synchronize()
+    noise_ms = (time.perf_counter() - t0) * 1e3
+    rows = torch.arange(0, n, NOISE_CPU_STRIDE)
+    sub = type(cpu_cloud)(**{f.name: getattr(cpu_cloud, f.name)[rows] for f in dataclasses.fields(cpu_cloud)})
+    sh_cpu = noise.apply_noise(sub, scale=0.5, seed=1).spherical_harmonic
+    sh_card = noised.spherical_harmonic[rows.to(dev)].cpu()
+    err_n = float((sh_card - sh_cpu).abs().max())
+    p_card = (cloud.position[rows.to(dev)] * 0.5).cpu()
+    p_cpu = sub.position * 0.5
+    cell_flips = int((torch.floor(p_card) != torch.floor(p_cpu)).any(dim=1).sum())
+    log(f"[io noise] _hash4 at {n} lattice points (negative cells included) card vs CPU: {hash_flips} differ; "
+        f"apply_noise {n} x {noised.spherical_harmonic.shape[1]} in {noise_ms:.1f} ms, card vs CPU on every "
+        f"{NOISE_CPU_STRIDE}th row {err_n:.3e} (bar {NOISE_SH_BAR}), lattice-cell flips {cell_flips}")
+    if hash_flips or not err_n <= NOISE_SH_BAR:
+        raise AssertionError(f"noise: {hash_flips} hashes differ, SH card vs CPU {err_n:.3e}")
+
+    for c in (selected, mixed, moved, noised):
+        frame(c, cam512)
+    launches = {"expand_pairs": expand_pairs.launches,
+                "composite_tiles_raw": composite_tiles_raw.instances.get(("obb", False), 0)}
+    if set(composite_tiles_raw.instances) != {("obb", False)} or min(launches.values()) <= 0:
+        raise AssertionError(f"io: forward launches {launches}, instantiations {composite_tiles_raw.instances}")
+    log(f"[io] launches expand_pairs {launches['expand_pairs']}, composite_tiles_raw[obb] "
+        f"{launches['composite_tiles_raw']}")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true", help="write a per-kernel breakdown to chiprun_out/")
@@ -1893,6 +2164,9 @@ def main() -> int:
     # count with the OBB mode's
     flavours = timed("flavours", phase_flavours, arrays)
     launches["obb"] = {k: v + flavours.get(k, 0) for k, v in launches["obb"].items()}
+    # cloud and scene files, scene rendering, query, morph and noise (OBB): their frames count with OBB's
+    io = timed("io", phase_io, cloud, arrays)
+    launches["obb"] = {k: v + io.get(k, 0) for k, v in launches["obb"].items()}
 
     # 4DGS, which bins and composites as OBB or AABB: the JAX bench's scene
     t0 = time.perf_counter()

@@ -76,6 +76,14 @@ def _target(name, width, height, bg, scale):
     return np.asarray(img) * np.float32(scale)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_value_and_grad(name, width, height, bg, scale):
+    """JAX's loss and gradients at the case's starting cloud, once per module:
+    the gradient test and the first SGD step share them."""
+    target = _target(name, width, height, bg, scale)
+    return jax.value_and_grad(_jax_loss_fn(width, height, bg, jnp.asarray(target)))(jax_cloud(_arrays(name)))
+
+
 def _port_loss_and_grads(arrays, width, height, bg, target):
     _, tc = cameras(width, height)
     model = TrainableCloud.from_numpy(arrays, "cpu")
@@ -90,7 +98,7 @@ def test_gradients_match_jax_pallas_training_path(case):
     name, width, height, bg, scale = case
     target = _target(name, width, height, bg, scale)
     arrays = _arrays(name)
-    j_loss, j_grads = jax.value_and_grad(_jax_loss_fn(width, height, bg, jnp.asarray(target)))(jax_cloud(arrays))
+    j_loss, j_grads = _jax_value_and_grad(name, width, height, bg, scale)
     t_loss, t_grads = _port_loss_and_grads(arrays, width, height, bg, target)
     assert abs(t_loss - float(j_loss)) <= 1e-5 * float(j_loss)
     for f in FIELDS:
@@ -132,8 +140,9 @@ def test_sgd_steps_match_jax():
     opt = optax.sgd(lr)
     state = opt.init(cloud)
     j_losses = []
-    for _ in range(3):
-        value, grads = loss_fn(cloud)
+    for step in range(3):
+        # the first step's gradients are the gradient test's (the same case)
+        value, grads = _jax_value_and_grad(name, width, height, None, 0.9) if step == 0 else loss_fn(cloud)
         updates, state = opt.update(grads, state)
         cloud = optax.apply_updates(cloud, updates)
         j_losses.append(float(value))
