@@ -26,7 +26,10 @@ examples (``examples/``, run with ``python -m``); cloud and scene files
 KHR glTF / GLB, ``io.loader.load_any``) and multi-cloud scene rendering
 (``render.scene``); selections, outliers and point-in-mesh (``query/``),
 cloud interpolation and particles (``morph/``) and the noise material
-(``ops.noise``).
+(``ops.noise``); streaming scenes and LOD chains (``stream/``), training
+checkpoints and tracing (``utils.checkpoint``, ``utils.trace``), the
+headless CLI and the browser viewer (``viewer.headless``,
+``viewer.serve``) and the tool CLIs (``tools/``), run with ``python -m``.
 """
 
 __version__ = "0.1.0"

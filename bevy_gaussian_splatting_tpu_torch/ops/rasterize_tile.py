@@ -65,16 +65,26 @@ PAIRS_HEADROOM = 1.25  # budget over a measured pair count
 XLA_CHUNK = 64  # pairs per chunk of composite_tiles (rasterize_tile.py:1115)
 
 
-def pairs_budget(n: int, hint: Optional[int] = None) -> int:
-    """Static (gaussian, tile) pair capacity (rasterize_tile.py:63).
+def pairs_budget(
+    n: int,
+    hint: Optional[int] = None,
+    headroom: float = PAIRS_HEADROOM,
+    quantum: Optional[int] = None,
+) -> int:
+    """Static (gaussian, tile) pair capacity (rasterize_tile.py:63-100).
 
     Without a hint: 6N, capped.  With a measured pair count: the next
-    1-1.5-2-3 bucket above ``PAIRS_HEADROOM * hint``.  Overflow truncates
+    1-1.5-2-3 bucket above ``headroom * hint``, or, with ``quantum``, the
+    next multiple of ``quantum`` above it (for a pair count measured on the
+    workload itself: every pair-proportional stage scales with the budget,
+    so the coarse buckets can cost up to half again).  Overflow truncates
     the farthest pairs."""
     cap = int(min(max(6 * n, 1 << 14), 3 << 22))
     if hint is None:
         return cap
-    need = max(int(hint * PAIRS_HEADROOM) + 1, 1 << 14)
+    need = max(int(hint * headroom) + 1, 1 << 14)
+    if quantum is not None:
+        return int(min((need + quantum - 1) // quantum * quantum, cap))
     bucket = 1 << 14
     while bucket < need:
         bucket *= 2

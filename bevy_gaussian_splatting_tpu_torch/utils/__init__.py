@@ -1,1 +1,2 @@
-"""Utilities: image encoding and PNG files (``utils/image.py``)."""
+"""Utilities: images, PNG and GIF files (``utils/image.py``), training
+checkpoints (``utils/checkpoint.py``) and tracing (``utils/trace.py``)."""

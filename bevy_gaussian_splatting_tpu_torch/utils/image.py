@@ -7,7 +7,9 @@ example copies that target into a PNG (examples/headless.rs:349-411).
 
 PNG files are written and read with the standard library alone (``zlib``,
 ``struct``): 8-bit RGBA, not interlaced.  The reader takes every PNG row
-filter, so it reads what other encoders write in that format too.
+filter, so it reads what other encoders write in that format too.  Animated
+GIFs (:func:`save_gif`, the JAX package's turntable GIF without PIL) are
+GIF89a with one fixed 6x6x6 colour cube and LZW written here.
 """
 
 from __future__ import annotations
@@ -147,3 +149,93 @@ def non_black_pixel_count(image, threshold: float = 1.0 / 255.0) -> int:
     pixels whose largest colour channel exceeds ``threshold``."""
     img = _host(image)
     return int((img[..., :3].max(axis=-1) > threshold).sum())
+
+
+GIF_LEVELS = 6  # levels per channel of the fixed palette (a 6x6x6 cube)
+GIF_MAX_ERROR = 255.0 / (GIF_LEVELS - 1) / 2.0  # largest u8 error of a channel
+
+
+def _lzw(indices: bytes, min_code_size: int = 8) -> bytes:
+    """GIF's variable-width LZW (GIF89a, appendix F) of palette indices,
+    least significant bit first, with a clear code whenever the table is
+    full."""
+    clear, end = 1 << min_code_size, (1 << min_code_size) + 1
+    out = bytearray()
+    acc = nbits = 0
+    size = min_code_size + 1
+
+    def emit(code: int) -> None:
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+
+    table: dict = {}
+    next_code = end + 1
+    emit(clear)
+    prefix = indices[0]
+    for b in indices[1:]:
+        key = (prefix << 8) | b
+        code = table.get(key)
+        if code is not None:
+            prefix = code
+            continue
+        emit(prefix)
+        if next_code < 4096:
+            table[key] = next_code
+            next_code += 1
+            # the decoder adds each entry one code later, so it widens after
+            # reading the code that follows entry 2**size
+            if next_code > (1 << size) and size < 12:
+                size += 1
+        else:
+            emit(clear)
+            table.clear()
+            next_code = end + 1
+            size = min_code_size + 1
+        prefix = b
+    emit(prefix)
+    emit(end)
+    if nbits:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def _sub_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255] for i in range(0, len(data), 255)) + b"\x00"
+
+
+def encode_gif(frames, delay_ms: int = 120, loop: int = 0) -> bytes:
+    """[H, W, 4] uint8 sRGB frames (the premultiplied colour over black; the
+    alpha is dropped) -> the bytes of a looping GIF89a.  Each channel is
+    rounded to the nearest of ``GIF_LEVELS`` levels of one global palette,
+    so it is within ``GIF_MAX_ERROR`` of the input."""
+    frames = [np.ascontiguousarray(f, dtype=np.uint8) for f in frames]
+    if not frames or any(f.ndim != 3 or f.shape[2] < 3 or f.shape[:2] != frames[0].shape[:2] for f in frames):
+        raise ValueError("expected one or more [H, W, 3 or 4] uint8 frames of one size")
+    height, width = frames[0].shape[:2]
+    step = 255.0 / (GIF_LEVELS - 1)
+    levels = np.round(np.arange(GIF_LEVELS) * step).astype(np.uint8)
+    cube = np.stack(np.meshgrid(levels, levels, levels, indexing="ij"), axis=-1).reshape(-1, 3)
+    palette = np.zeros((256, 3), np.uint8)
+    palette[: len(cube)] = cube
+    out = [b"GIF89a", struct.pack("<HHBBB", width, height, 0xF7, 0, 0), palette.tobytes(),
+           b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", loop) + b"\x00"]
+    for f in frames:
+        q = np.rint(f[..., :3].astype(np.float32) / np.float32(step)).astype(np.int32)
+        idx = (q[..., 0] * GIF_LEVELS + q[..., 1]) * GIF_LEVELS + q[..., 2]
+        out.append(b"\x21\xf9\x04\x00" + struct.pack("<H", max(0, round(delay_ms / 10))) + b"\x00\x00")
+        out.append(b"\x2c" + struct.pack("<HHHHB", 0, 0, width, height, 0))
+        out.append(b"\x08" + _sub_blocks(_lzw(idx.astype(np.uint8).tobytes())))
+    out.append(b"\x3b")
+    return b"".join(out)
+
+
+def save_gif(images, path, delay_ms: int = 120) -> None:
+    """Write [H, W, 4] linear RGBA frames (tensors or arrays) as a looping
+    animated GIF of their sRGB colour, ``delay_ms`` a frame."""
+    with open(path, "wb") as f:
+        f.write(encode_gif([to_srgb_u8(img) for img in images], delay_ms))

@@ -14,7 +14,7 @@ Phases, each of which raises on failure (nothing is caught).  Phases 3-5,
 14-17 and 6 run with OBB bounds (``CloudSettings()``), then phases 3-5, 14
 and 7 with AABB bounds (``CloudSettings(aabb=True)``), then phase 8, then
 phases 3-5, 14 and 6 with 2DGS surfels
-(``CloudSettings(gaussian_mode=GAUSSIAN_2D)``), then phases 9 and 20, then
+(``CloudSettings(gaussian_mode=GAUSSIAN_2D)``), then phases 9, 20 and 21, then
 phases 10-13 for 4DGS with OBB (with phase 18 after 12) and then AABB bounds,
 then phase 19:
 
@@ -140,8 +140,9 @@ then phase 19:
              (``oneshots``), through the expansion and the compositor; a
              settled time then bins once and replays, both bitwise the
              one-pass frame;
- 19. examples the port's four examples (``examples/``), each on the card,
-             writing its PNG into the output directory;
+ 19. examples the port's five examples (``examples/``; the streaming and
+             LOD flyby writes its frames by its environment knobs), each on
+             the card, writing its PNGs into the output directory;
  20. io      (OBB) the 1M scene saved by the port's encoders as .gcloud
              (FlexBuffers and bincode2), .npz, .ply and a .glb (with a second
              65,536-row cloud moved by ``SCENE_SHIFT`` and the bench camera),
@@ -159,14 +160,44 @@ then phase 19:
              ``interpolate_clouds`` 1e-6, ten particle steps with duplicate
              and inert behaviours 1e-5, ``_hash4`` bit-equal,
              ``apply_noise`` 1e-5 on every 64th row; each result rendered
-             once.
+             once;
+ 21. front ends (OBB) in a temporary working directory: the 1M scene
+             sliced on the card into a 4x4x1 grid (rows, cells and AABBs
+             bitwise the CPU's slice), saved as a streaming scene (bytes,
+             ms), a ``StreamingCloudScene(background=True)`` along a camera
+             path across the grid (after each update the resident ids are
+             the set the manifest's AABBs give, the resident cloud is
+             bitwise the CPU's concatenation of the chunk files, padded, and
+             its frame is finite; load and frame ms), ``build_lod_chain``
+             bitwise the CPU's; two Adam steps, ``save_checkpoint``,
+             ``load_checkpoint`` into a fresh model and Adam, and one more
+             step from each state, bitwise equal (bytes, save and load ms);
+             ``trace()`` around a ``render()``, whose Chrome trace must name
+             the compositor and expansion kernels, and the steps'
+             ``StageTimer`` spans; the headless CLI: ``--test-model`` at
+             512x512 (19,195 non-black pixels, as the JAX CLI; the PNG
+             within one u8 level of the CPU's), the 1M random cloud with
+             ``--benchmark 24`` (first frame s, steady-state ms/frame) and
+             every entry of ``examples/examples.json`` at 128x128 (each PNG
+             within one u8 level of the CPU's, lit); the browser viewer over
+             HTTP on the 1M scene at 512x512, 24 ``/frame`` requests along an
+             orbit, each PNG bitwise a second ``InteractiveRenderer``'s frame
+             encoded (both pinned to one bin; request, render and encode
+             ms), then ``/select`` (the host numpy count), ``/select/save``,
+             ``/select/invert``, ``/select/clear``, ``/export`` and
+             ``/info``; the tools: ``ply_to_gcloud --filter-sparse`` on a
+             65,536-row PLY (rows bitwise the CPU run's),
+             ``compare_aabb_obb``, ``surfel_plane`` and ``orbit_turntable
+             --gif`` (PNGs within one u8 level of the CPU's, the GIF's frame
+             count).
 
 It prints the kernels line (one entry per kernel and mode: the four kernels
 in each of the three modes, then the expansion and the forward compositor of
 each mode's overlay frames, mode "<mode>+bbox", then the same for 4DGS,
 modes "4d-obb", "4d-aabb", "4d-obb+bbox", "4d-aabb+bbox": thirty; the
 launches of the expansion and the forward compositor count the serving,
-replay, multi-camera, 4D sweep and io frames too), the card's name and power
+replay, multi-camera, 4D sweep, io and front-end frames too, and OBB's
+backward and reduce the front ends' checkpoint steps), the card's name and power
 limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card it exits
 non-zero and prints no result.
@@ -175,8 +206,10 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import statistics
@@ -293,6 +326,22 @@ PARTICLE_STEPS = 10
 NOISE_SH_BAR = 1e-5
 NOISE_CPU_STRIDE = 64
 MESH_BOUNDARY = 1e-5  # a point-in-mesh flip within this of a face or a face's diagonal (unit-box units) is rounding
+# front ends (phase 21) on the 1M scene
+STREAM_GRID = (4, 4, 1)
+STREAM_RADIUS = 12.0  # holds a few of the grid's 10 x 10 chunks
+STREAM_HEIGHT = 8.0  # the camera flies just above the scene's z extent (+-5)
+STREAM_PATH = ((-25.0, -15.0), (-15.0, -8.0), (-5.0, -2.0), (5.0, 3.0), (15.0, 8.0), (25.0, 15.0), (-25.0, -15.0))
+TEST_MODEL_NON_BLACK = 19_195  # the JAX CLI's --test-model at 512x512 (VERDICT.md:5)
+PNG_BAR = 1  # u8 levels, card against CPU
+HEADLESS_FRAMES = 24
+GALLERY_SIZE = 128
+VIEWER_FRAMES = 24
+VIEWER_AZ_STEP = 0.02  # radians between the orbit's requests
+VIEWER_EL = 0.3
+VIEWER_RADIUS = 60.0
+VIEWER_RECT = (200, 200, 320, 300)  # the /select rectangle, pixels at 512x512
+SPARSE_RADIUS = 0.5  # ply_to_gcloud's filter radius on the bench scene's density
+TRACE_KERNELS = ("composite_fwd_kernel", "expand_pairs_kernel")
 
 
 def log(*args):
@@ -1825,18 +1874,33 @@ def phase_background(cloud) -> None:
 
 
 def phase_examples() -> None:
-    """The port's four examples, each on the card, writing its PNG into the
-    output directory with the port's PNG writer, read back by its reader."""
-    from bevy_gaussian_splatting_tpu_torch.examples import minimal, multi_camera, train_multiview, training
+    """The port's five examples, each on the card, writing its PNGs into the
+    output directory with the port's PNG writer, read back by its reader
+    (the streaming flyby's last frame)."""
+    import os
+
+    from bevy_gaussian_splatting_tpu_torch.examples import (
+        minimal,
+        multi_camera,
+        streaming_lod,
+        train_multiview,
+        training,
+    )
     from bevy_gaussian_splatting_tpu_torch.utils.image import load_png, non_black_pixel_count
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     for name, module in (("minimal", minimal), ("multi_camera", multi_camera), ("training", training),
-                         ("train_multiview", train_multiview)):
+                         ("train_multiview", train_multiview), ("streaming_lod", streaming_lod)):
         path = out / f"example_{name}.png"
         t0 = time.perf_counter()
-        if module.main(["--out", str(path)]) != 0:
+        if name == "streaming_lod":  # its flyby frames, by its environment knobs
+            os.environ["FLY_OUT"] = str(out)
+            rc = module.main([])
+            path = out / f"flyby_{int(os.environ.get('FLY_FRAMES', 5)) - 1:02d}.png"
+        else:
+            rc = module.main(["--out", str(path)])
+        if rc != 0:
             raise AssertionError(f"example {name} failed")
         img = load_png(path)
         lit = non_black_pixel_count(img)
@@ -2086,6 +2150,401 @@ def phase_io(cloud, arrays: dict) -> dict:
     return launches
 
 
+def obb_counts() -> tuple:
+    """The four kernels' launch counters, the forward compositor's for its
+    3D OBB instantiation only."""
+    expand, fwd, bwd, red = train_counters()
+    return (expand.launches, fwd.instances.get(("obb", False), 0), bwd.launches, red.launches)
+
+
+OBB_NAMES = ("expand_pairs", "composite_tiles_raw", "composite_backward", "segment_reduce")
+
+
+@contextlib.contextmanager
+def obb_launches(totals: dict):
+    """Adds the block's OBB launches to ``totals``; the phase's frames of
+    other modes (the gallery's AABB, 2DGS and 4DGS examples) run outside
+    such blocks."""
+    before = obb_counts()
+    yield
+    for name, b, a in zip(OBB_NAMES, before, obb_counts()):
+        totals[name] += a - b
+
+
+def quiet_main(main_fn, argv) -> str:
+    """``main_fn(argv)`` with its standard output captured -> that output;
+    raises unless it returned 0."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    if rc != 0:
+        raise AssertionError(f"{main_fn.__module__}.main({argv}) returned {rc}: {buf.getvalue()}")
+    return buf.getvalue()
+
+
+def png_u8(path) -> np.ndarray:
+    from bevy_gaussian_splatting_tpu_torch.utils.image import decode_png
+
+    return decode_png(Path(path).read_bytes())
+
+
+def within_u8(card_png, cpu_png, label: str) -> int:
+    """The two PNGs' largest difference, which must be at most one u8 level
+    with some pixel lit -> the count of lit pixels."""
+    a, b = png_u8(card_png).astype(np.int32), png_u8(cpu_png).astype(np.int32)
+    diff = int(np.abs(a - b).max()) if a.shape == b.shape else None
+    lit = int((a[..., :3].max(axis=-1) > 0).sum())
+    if diff is None or diff > PNG_BAR or lit == 0:
+        raise AssertionError(f"{label}: card vs CPU PNG {a.shape} {b.shape} differ by {diff} levels, {lit} lit")
+    return lit
+
+
+def gif_frame_count(blob: bytes) -> tuple:
+    """(frames, width, height) of a GIF89a, from its block structure."""
+    if blob[:6] != b"GIF89a":
+        raise AssertionError("not a GIF89a file")
+    width, height, flags = int.from_bytes(blob[6:8], "little"), int.from_bytes(blob[8:10], "little"), blob[10]
+    pos, frames = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0), 0
+    while blob[pos] != 0x3B:
+        if blob[pos] == 0x21:  # extension: label, then data sub-blocks
+            pos += 2
+        else:  # image descriptor, optional local table, LZW minimum code size
+            frames += 1
+            local = blob[pos + 9]
+            pos += 10 + (3 << ((local & 7) + 1) if local & 0x80 else 0) + 1
+        while blob[pos]:
+            pos += blob[pos] + 1
+        pos += 1
+    return frames, width, height
+
+
+def phase_front_ends(cloud, arrays: dict) -> dict:
+    """Streaming and LOD, checkpoints, the trace, the headless CLI, the
+    browser viewer and the tool CLIs on the 1M scene (OBB), in a temporary
+    working directory -> the OBB launches of its frames and steps."""
+    import os
+    import tempfile
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from bevy_gaussian_splatting_tpu_torch.io.loader import load_cloud, save_cloud
+    from bevy_gaussian_splatting_tpu_torch.models.camera import Camera
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy, pad_cloud
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
+    from bevy_gaussian_splatting_tpu_torch.render import api
+    from bevy_gaussian_splatting_tpu_torch.stream import build_lod_chain, concat_clouds, slice_cloud
+    from bevy_gaussian_splatting_tpu_torch.stream.scene import StreamingCloudScene, save_streaming_scene
+    from bevy_gaussian_splatting_tpu_torch.stream.slice import aabb_distance
+    from bevy_gaussian_splatting_tpu_torch.tools import (
+        compare_aabb_obb,
+        orbit_turntable,
+        ply_to_gcloud,
+        surfel_plane,
+    )
+    from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, adam, shifted_arrays
+    from bevy_gaussian_splatting_tpu_torch.train.losses import mse
+    from bevy_gaussian_splatting_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from bevy_gaussian_splatting_tpu_torch.utils.image import encode_png, to_srgb_u8
+    from bevy_gaussian_splatting_tpu_torch.utils.trace import StageTimer, trace
+    from bevy_gaussian_splatting_tpu_torch.viewer import headless, serve
+
+    settings = CloudSettings()
+    launches = dict.fromkeys(OBB_NAMES, 0)
+    timer = StageTimer()
+    cpu_cloud = cloud.to("cpu")
+    n = len(cloud)
+    old_cwd = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="front_ends_")
+    os.chdir(tmp)
+    try:
+        # -- stream: slice, save, fly a camera across the grid, LOD ------------------------------------
+        chunks = slice_cloud(cloud, grid=STREAM_GRID)
+        chunks_cpu = slice_cloud(cpu_cloud, grid=STREAM_GRID)
+        if sum(len(c) for c in chunks) != n or [c.cell for c in chunks] != [c.cell for c in chunks_cpu] or not all(
+                clouds_bitwise(a.cloud, b.cloud) and np.array_equal(a.aabb_min, b.aabb_min)
+                and np.array_equal(a.aabb_max, b.aabb_max) for a, b in zip(chunks, chunks_cpu)):
+            raise AssertionError("stream: the card's slice differs from the CPU's")
+        t0 = time.perf_counter()
+        save_streaming_scene(chunks, "scene")
+        save_ms = (time.perf_counter() - t0) * 1e3
+        files = sorted(os.listdir("scene"))
+        nbytes = sum(os.path.getsize(os.path.join("scene", f)) for f in files if f.endswith(".gcloud"))
+        log(f"[front stream] slice_cloud grid {STREAM_GRID} on the card: {len(chunks)} chunks of "
+            f"{min(map(len, chunks))}-{max(map(len, chunks))} rows, {n} rows in all, rows and AABBs bitwise the "
+            f"CPU's; save_streaming_scene {len(files) - 1} files, {nbytes} bytes ({nbytes / n:.1f} B a row), "
+            f"{save_ms:.1f} ms")
+        del chunks, chunks_cpu
+        stream = StreamingCloudScene("scene", radius=STREAM_RADIUS, background=True)
+        entries, resident, cpu_chunks, load_ms, frame_ms = stream.entries, set(), {}, [], []
+        try:
+            for k, (x, y) in enumerate(STREAM_PATH):
+                eye = (x, y, STREAM_HEIGHT)
+                dist = [aabb_distance(e["aabb_min"], e["aabb_max"], eye) for e in entries]
+                resident = {i for i, d in enumerate(dist) if d <= STREAM_RADIUS} | {
+                    i for i in resident if dist[i] <= STREAM_RADIUS * stream.evict_factor}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stream.update(eye)
+                stream.wait_idle()
+                load_ms.append((time.perf_counter() - t0) * 1e3)
+                if stream.resident_ids() != sorted(resident):
+                    raise AssertionError(f"stream at {eye}: resident {stream.resident_ids()}, the manifest's AABBs "
+                                         f"give {sorted(resident)}")
+                got = stream.resident_cloud()
+                for i in resident - cpu_chunks.keys():
+                    cpu_chunks[i] = load_cloud(os.path.join("scene", entries[i]["file"]), device="cpu")
+                parts = [cpu_chunks[i] for i in sorted(resident)]
+                want = concat_clouds(parts) if len(parts) > 1 else parts[0]
+                size = 1 << max(8, int(np.ceil(np.log2(len(want)))))
+                if not clouds_bitwise(got, pad_cloud(want, size)):
+                    raise AssertionError(f"stream at {eye}: the resident cloud is not the CPU's concatenation")
+                cam = Camera.create(eye=eye, target=(x, y, 0.0), width=SIZES[0][0], height=SIZES[0][1], device="cuda")
+                with obb_launches(launches):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    img = api.render(got, cam, settings)
+                    torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+                lit = int((img[..., :3].amax(dim=-1) > 1.0 / 255.0).sum())
+                if not bool(torch.isfinite(img).all()) or lit == 0:
+                    raise AssertionError(f"stream at {eye}: frame not finite or unlit ({lit} lit)")
+                log(f"[front stream] update {k} eye {eye}: {len(resident)} chunks resident "
+                    f"{sorted(resident)} ({len(got)} rows padded), load {load_ms[-1]:.1f} ms, frame "
+                    f"{frame_ms[-1]:.1f} ms, {lit} lit; resident ids as the manifest's AABBs give, the cloud "
+                    "bitwise the CPU's concatenation of the chunk files")
+        finally:
+            stream.close()
+        log(f"[front stream] {len(STREAM_PATH)} updates, radius {STREAM_RADIUS}: load ms per update median "
+            f"{statistics.median(load_ms):.1f} (max {max(load_ms):.1f}), frame ms median "
+            f"{statistics.median(frame_ms):.1f}")
+        del cpu_chunks, got, want, parts
+        t0 = time.perf_counter()
+        chain = build_lod_chain(cloud, levels=3, ratio=0.25)
+        torch.cuda.synchronize()
+        lod_ms = (time.perf_counter() - t0) * 1e3
+        chain_cpu = build_lod_chain(cpu_cloud, levels=3, ratio=0.25)
+        if not all(clouds_bitwise(a, b) for a, b in zip(chain, chain_cpu)):
+            raise AssertionError("build_lod_chain: the card's levels differ from the CPU's")
+        log(f"[front lod] build_lod_chain(levels=3, ratio=0.25) on the card in {lod_ms:.1f} ms: levels of "
+            f"{[len(c) for c in chain]} rows, kept rows and compensated opacity bitwise the CPU's")
+        del chain, chain_cpu
+
+        # -- checkpoint: 2 Adam steps, save, load into a fresh model and Adam, one more step each ---------
+        model = TrainableCloud(cloud)
+        optimizer = adam(model, TRAIN_LR)
+        target_cloud = cloud_from_numpy(shifted_arrays(arrays), "cuda")
+        camera, p_max, _, target = train_target(model, target_cloud, settings, *SIZES[0])
+        del target_cloud
+        with obb_launches(launches):
+            for k in range(2):
+                with timer.span("train_step"):
+                    checked_step(model, optimizer, camera, target, settings, mse, p_max, f"checkpoint step {k}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timer.span("save_checkpoint"):
+            save_checkpoint("ckpt.npz", model, optimizer, step=2, extra={"p_max": p_max})
+        ckpt_save_ms = (time.perf_counter() - t0) * 1e3
+        ckpt_bytes = os.path.getsize("ckpt.npz")
+        fresh = TrainableCloud(cloud)
+        fresh_opt = adam(fresh, TRAIN_LR)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timer.span("load_checkpoint"):
+            _, _, step, extra = load_checkpoint("ckpt.npz", fresh, fresh_opt)
+            torch.cuda.synchronize()
+        ckpt_load_ms = (time.perf_counter() - t0) * 1e3
+        if step != 2 or int(extra["p_max"]) != p_max:
+            raise AssertionError(f"checkpoint: step {step}, extra {extra}")
+        with obb_launches(launches):
+            with timer.span("train_step"):
+                checked_step(model, optimizer, camera, target, settings, mse, p_max, "checkpoint live step")
+            with timer.span("train_step"):
+                checked_step(fresh, fresh_opt, camera, target, settings, mse, p_max, "checkpoint resumed step")
+        same = [same_bits(getattr(model, f).detach(), getattr(fresh, f).detach()) for f in model.fields]
+        log(f"[front checkpoint] {n} rows: {ckpt_bytes} bytes ({ckpt_bytes / n:.1f} B a row: fields and Adam's two "
+            f"moments), save {ckpt_save_ms:.1f} ms, load into a fresh model and Adam {ckpt_load_ms:.1f} ms; the step "
+            f"after it from the live and the loaded state bitwise equal: {all(same)} ({dict(zip(model.fields, same))})")
+        if not all(same):
+            raise AssertionError("checkpoint: the resumed step differs from the live one")
+        del model, optimizer, fresh, fresh_opt, target
+
+        # -- trace ------------------------------------------------------------------------------------
+        cam512 = orbit_camera(0.0, *SIZES[0], "cuda")
+        with obb_launches(launches):
+            with timer.span("traced render"):
+                with trace("trace") as prof:
+                    api.render(cloud, cam512, settings)
+        events = json.loads(Path(prof.trace_path).read_text())["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        named = {k: [name for name in kernels if k in name] for k in TRACE_KERNELS}
+        log(f"[front trace] {os.path.basename(prof.trace_path)}: {len(events)} events, {len(kernels)} kernel names; "
+            + ", ".join(f"{k}: {len(v)}" for k, v in named.items()))
+        if not all(named.values()):
+            raise AssertionError(f"trace: the Chrome trace names no {[k for k, v in named.items() if not v]}")
+        log(f"[front trace] StageTimer.report(): {timer.report()}")
+
+        # -- headless CLI -----------------------------------------------------------------------------
+        out = quiet_main(headless.main, ["--test-model", "--width", "512", "--height", "512", "-o", "tm.png"])
+        quiet_main(headless.main, ["--test-model", "--width", "512", "--height", "512", "-o", "tm_cpu.png",
+                                   "--device", "cpu"])
+        within_u8("tm.png", "tm_cpu.png", "headless --test-model")
+        count = int(out.rsplit("(", 1)[1].split()[1])
+        log(f"[front headless] --test-model 512x512: {count} non-black pixels (the JAX CLI: "
+            f"{TEST_MODEL_NON_BLACK}, VERDICT.md:5); PNG within {PNG_BAR} u8 level of the CPU's")
+        if count != TEST_MODEL_NON_BLACK:
+            raise AssertionError(f"headless --test-model: {count} non-black pixels")
+        with obb_launches(launches):
+            out = quiet_main(headless.main, ["--gaussian-count", str(n), "--eye", "0", "0", "60", "--benchmark",
+                                             str(HEADLESS_FRAMES), "-o", "bench.png"])
+        first = float(out.split("first frame (incl. kernel build): ")[1].split("s")[0])
+        steady = float(out.split("steady state: ")[1].split(" ms/frame")[0])
+        log(f"[front headless] --gaussian-count {n} --eye 0 0 60 --benchmark {HEADLESS_FRAMES} at 512x512: first "
+            f"frame {first:.3f} s, steady state {steady:.3f} ms/frame")
+        # a user's time to the first frame: a fresh process (the kernels' libraries already built on disk)
+        env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        cold = subprocess.run([sys.executable, "-m", "bevy_gaussian_splatting_tpu_torch.viewer.headless",
+                               "--gaussian-count", str(n), "--eye", "0", "0", "60", "-o", "cold.png"],
+                              capture_output=True, text=True, env=env, timeout=300)
+        cold_s = time.perf_counter() - t0
+        if cold.returncode != 0:
+            raise AssertionError(f"headless in a fresh process: {cold.stderr[-2000:]}")
+        cold_first = float(cold.stdout.split("first frame (incl. kernel build): ")[1].split("s")[0])
+        log(f"[front headless] a fresh process, --gaussian-count {n} at 512x512: {cold_s:.2f} s from start to the "
+            f"PNG written, its first frame {cold_first:.3f} s")
+        manifest = json.loads((ROOT / "examples" / "examples.json").read_text())
+        for ex in manifest["examples"]:
+            argv = ["--width", str(GALLERY_SIZE), "--height", str(GALLERY_SIZE), *ex["args"]]
+            args = headless.build_parser().parse_args(argv)
+            obb_3d = not args.aabb and args.gaussian_mode == "gaussian_3d"
+            t0 = time.perf_counter()
+            if obb_3d:
+                with obb_launches(launches):
+                    quiet_main(headless.main, [*argv, "-o", f"{ex['id']}.png"])
+            else:
+                quiet_main(headless.main, [*argv, "-o", f"{ex['id']}.png"])
+            card_ms = (time.perf_counter() - t0) * 1e3
+            quiet_main(headless.main, [*argv, "-o", f"{ex['id']}_cpu.png", "--device", "cpu"])
+            lit = within_u8(f"{ex['id']}.png", f"{ex['id']}_cpu.png", f"gallery {ex['id']}")
+            log(f"[front gallery {ex['id']}] {GALLERY_SIZE}x{GALLERY_SIZE}: {lit} lit pixels, within {PNG_BAR} u8 "
+                f"level of the CPU's; {card_ms:.1f} ms for the CLI on the card")
+
+        # -- the viewer over HTTP ---------------------------------------------------------------------
+        save_cloud(cloud, "bench.npz")
+        args = headless.build_parser().parse_args(["--input-cloud", "bench.npz", "--eye", "0", "0", "60",
+                                                   "--width", str(SIZES[0][0]), "--height", str(SIZES[0][1])])
+        state = serve.build_state_from_args(args)
+        state.interactive = api.InteractiveRenderer(state.settings, period_floor_ms=1e9)
+        second = api.InteractiveRenderer(state.settings, period_floor_ms=1e9)
+        server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(state, base_args=args))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def get(path: str) -> bytes:
+            with urllib.request.urlopen(base + path, timeout=120) as r:
+                return r.read()
+
+        try:
+            poses = [(VIEWER_AZ_STEP * i, VIEWER_EL, VIEWER_RADIUS) for i in range(VIEWER_FRAMES)]
+            api._BUDGET_STATE.clear()  # both renderers see one budget schedule
+            pngs, request_ms = [], []
+            with obb_launches(launches):
+                for az, el, r in poses:
+                    t0 = time.perf_counter()
+                    pngs.append(get(f"/frame?az={az!r}&el={el!r}&r={r!r}"))
+                    request_ms.append((time.perf_counter() - t0) * 1e3)
+            api._BUDGET_STATE.clear()
+            render_ms, encode_ms, equal = [], [], 0
+            with obb_launches(launches):
+                for (az, el, r), png in zip(poses, pngs):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    img = second.render_orbit(state.cloud, az, el, r, target=tuple(state.target), width=state.width,
+                                              height=state.height, background=state.background)
+                    u8 = to_srgb_u8(img)
+                    t1 = time.perf_counter()
+                    want = encode_png(u8)
+                    t2 = time.perf_counter()
+                    render_ms.append((t1 - t0) * 1e3)
+                    encode_ms.append((t2 - t1) * 1e3)
+                    equal += png == want
+            stats = dict(state.interactive.stats)
+            log(f"[front viewer] {len(state.cloud)} gaussians at {state.width}x{state.height}, {VIEWER_FRAMES} /frame "
+                f"requests along an orbit: median request {statistics.median(request_ms):.2f} ms, render only "
+                f"(render_orbit and the read-back) {statistics.median(render_ms):.2f} ms, PNG encode only "
+                f"{statistics.median(encode_ms):.2f} ms; first request {request_ms[0]:.1f} ms; renderer stats {stats}, "
+                f"second renderer {second.stats}; {equal} of {VIEWER_FRAMES} PNGs bitwise the second renderer's")
+            want_stats = {"bins": 1, "replays": VIEWER_FRAMES - 1, "oneshots": 0}
+            if equal != VIEWER_FRAMES or stats != want_stats or second.stats != want_stats:
+                raise AssertionError(f"viewer: {equal} PNGs equal, stats {stats} / {second.stats}")
+            az, el, r = poses[0]
+            rect = VIEWER_RECT
+            host = Camera.create(eye=api.orbit_eye(az, el, r), width=state.width, height=state.height, device="cpu")
+            clip = host.clip_from_view.numpy() @ host.view_from_world.numpy()
+            h = np.concatenate([cpu_cloud.position.numpy(), np.ones((n, 1), np.float32)], 1) @ clip.T
+            ndc = h[:, :2] / np.maximum(h[:, 3:4], 1e-8)
+            px, py = (ndc[:, 0] + 1.0) * 0.5 * state.width, (1.0 - ndc[:, 1]) * 0.5 * state.height
+            expect = int(((h[:, 3] > 1e-8) & (px >= rect[0]) & (px <= rect[2]) & (py >= rect[1])
+                          & (py <= rect[3])).sum())
+            body = get(f"/select?x0={rect[0]}&y0={rect[1]}&x1={rect[2]}&y1={rect[3]}&az={az}&el={el}&r={r}").decode()
+            saved = get("/select/save").decode()
+            kept = len(load_cloud("live_output.gcloud", device="cpu"))
+            inverted = get("/select/invert").decode()
+            cleared = get("/select/clear").decode()
+            t0 = time.perf_counter()
+            exported = get("/export").decode()
+            export_ms = (time.perf_counter() - t0) * 1e3
+            info = json.loads(get("/info"))
+            log(f"[front viewer] /select: {body!r} (host numpy count {expect}); /select/save: {saved!r}, the file "
+                f"loads to {kept} rows; /select/invert: {inverted!r}; /select/clear: {cleared!r}; /export: "
+                f"{exported!r} in {export_ms:.1f} ms; /info {info}")
+            if (body != f"selected {expect} gaussians" or kept != expect or expect == 0
+                    or inverted != f"selected {len(state.cloud) - expect} gaussians"
+                    or info["selected"] != len(state.cloud) or info["frames"] != VIEWER_FRAMES
+                    or os.path.getsize("viewer_export.glb") <= n * 4):
+                raise AssertionError("viewer: a selection, export or info route disagrees")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        del state, second
+
+        # -- tools ------------------------------------------------------------------------------------
+        small = cloud_from_numpy({k: v[:IO_SMALL_ROWS] for k, v in arrays.items()}, "cpu")
+        save_cloud(small, "small.ply")
+        sparse = ["--filter-sparse", "--radius", str(SPARSE_RADIUS)]
+        out = quiet_main(ply_to_gcloud.main, ["small.ply", "sparse.gcloud", *sparse])
+        quiet_main(ply_to_gcloud.main, ["small.ply", "sparse_cpu.gcloud", *sparse, "--device", "cpu"])
+        a, b = load_cloud("sparse.gcloud", device="cpu"), load_cloud("sparse_cpu.gcloud", device="cpu")
+        log(f"[front tools] ply_to_gcloud --filter-sparse --radius {SPARSE_RADIUS} on {IO_SMALL_ROWS} rows: "
+            f"{out.splitlines()[1]}; {len(a)} rows, bitwise the CPU run's: {clouds_bitwise(a, b)}")
+        if not clouds_bitwise(a, b) or not 0 < len(a) < IO_SMALL_ROWS:
+            raise AssertionError("ply_to_gcloud: the card's rows differ from the CPU run's")
+        for name, tool, argv in (("compare_aabb_obb", compare_aabb_obb, []), ("surfel_plane", surfel_plane, []),
+                                 ("orbit_turntable", orbit_turntable, ["--test-model", "--gif"])):
+            quiet_main(tool.main, [*argv, "-o", f"{name}.png"])
+            quiet_main(tool.main, [*argv, "-o", f"{name}_cpu.png", "--device", "cpu"])
+            lit = within_u8(f"{name}.png", f"{name}_cpu.png", name)
+            note = ""
+            if name == "orbit_turntable":
+                frames, w, h = gif_frame_count(Path("orbit_turntable.gif").read_bytes())
+                if frames != 8 or (w, h) != (128, 128):
+                    raise AssertionError(f"orbit_turntable --gif: {frames} frames of {w}x{h}")
+                note = f"; its GIF {frames} frames of {w}x{h}"
+            log(f"[front tools] {name}: {lit} lit pixels, within {PNG_BAR} u8 level of the CPU's{note}")
+    finally:
+        os.chdir(old_cwd)
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("[front] OBB launches " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"front ends: OBB launches {launches}")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true", help="write a per-kernel breakdown to chiprun_out/")
@@ -2165,8 +2624,11 @@ def main() -> int:
     flavours = timed("flavours", phase_flavours, arrays)
     launches["obb"] = {k: v + flavours.get(k, 0) for k, v in launches["obb"].items()}
     # cloud and scene files, scene rendering, query, morph and noise (OBB): their frames count with OBB's
-    io = timed("io", phase_io, cloud, arrays)
-    launches["obb"] = {k: v + io.get(k, 0) for k, v in launches["obb"].items()}
+    files = timed("io", phase_io, cloud, arrays)
+    launches["obb"] = {k: v + files.get(k, 0) for k, v in launches["obb"].items()}
+    # streaming, checkpoints, the trace, the CLIs and the viewer (OBB): their frames and steps count with OBB's
+    front = timed("front ends", phase_front_ends, cloud, arrays)
+    launches["obb"] = {k: v + front.get(k, 0) for k, v in launches["obb"].items()}
 
     # 4DGS, which bins and composites as OBB or AABB: the JAX bench's scene
     t0 = time.perf_counter()

@@ -96,6 +96,25 @@ def test_budget_functions(n):
         assert trt.pad_to_tile(v) == jrt.pad_to_tile(v)
 
 
+@pytest.mark.parametrize("quantum", [None, 4096])
+@pytest.mark.parametrize("headroom", [1.0, 1.10, 1.25])
+def test_pairs_budget_headroom_and_quantum(headroom, quantum):
+    """``pairs_budget``'s ``headroom`` and ``quantum`` (rasterize_tile.py:63-100):
+    equal to JAX's over sizes from below the ``1 << 14`` floor to past the
+    6N and 12,582,912 caps, and hints on both sides of every bucket."""
+    seen_cap = seen_floor = False
+    for n in (0, 1, 100, 2730, 5000, 65_536, 1_000_000, 2_097_152, 5_000_000):
+        cap = jrt.pairs_budget(n)
+        for hint in (0, 1, 17, 12_345, 14_894, 16_384, 24_576, 100_000, 1_458_725, 2_000_000, 6_000_000,
+                     9_000_000, 12_582_912, 20_000_000):
+            want = jrt.pairs_budget(n, hint, headroom=headroom, quantum=quantum)
+            assert trt.pairs_budget(n, hint, headroom=headroom, quantum=quantum) == want, (n, hint)
+            seen_cap |= want == cap and hint * headroom + 1 > cap
+            seen_floor |= want == 1 << 14 and hint * headroom + 1 <= 1 << 14
+    assert seen_cap and seen_floor
+    assert trt.pairs_budget(1000, 5000) == trt.pairs_budget(1000, 5000, headroom=trt.PAIRS_HEADROOM)
+
+
 def test_front_depth_perm_ties_and_inactive():
     rng = np.random.default_rng(3)
     keys = rng.integers(0, 40, 3000).astype(np.uint32)  # many ties

@@ -45,7 +45,10 @@ def test_port_has_sources():
         "examples/minimal.py", "examples/multi_camera.py", "examples/training.py", "examples/train_multiview.py",
         "models/camera.py", "io/ply.py", "io/bincode2.py", "io/flexbuffers.py", "io/gcloud.py", "io/loader.py",
         "io/scene.py", "render/scene.py", "query/select.py", "query/sparse.py", "query/raycast.py",
-        "morph/interpolate.py", "morph/particle.py", "ops/noise.py",
+        "morph/interpolate.py", "morph/particle.py", "ops/noise.py", "stream/__init__.py", "stream/slice.py",
+        "stream/lod.py", "stream/scene.py", "utils/checkpoint.py", "utils/trace.py", "viewer/headless.py",
+        "viewer/serve.py", "tools/ply_to_gcloud.py", "tools/compare_aabb_obb.py", "tools/surfel_plane.py",
+        "tools/orbit_turntable.py", "tools/render_thumbnails.py", "tools/build_www.py", "examples/streaming_lod.py",
     ):
         assert need in names
     for source in ("expand", "tile_fwd", "tile_bwd", "reduce"):
