@@ -29,7 +29,10 @@ cloud interpolation and particles (``morph/``) and the noise material
 (``ops.noise``); streaming scenes and LOD chains (``stream/``), training
 checkpoints and tracing (``utils.checkpoint``, ``utils.trace``), the
 headless CLI and the browser viewer (``viewer.headless``,
-``viewer.serve``) and the tool CLIs (``tools/``), run with ``python -m``.
+``viewer.serve``) and the tool CLIs (``tools/``), run with ``python -m``;
+and multi-rank band rendering and training on ``torch.distributed``
+(``parallel/``: the bounded band exchange, sharded renders and train steps
+over a mesh of process groups, spawned worlds, the scaling models).
 """
 
 __version__ = "0.1.0"

@@ -132,21 +132,58 @@ def _pixel_extents(splats: dict, width: int, height: int):
     return cx_px, cy_px, rx, ry
 
 
-def tile_rects(splats: dict, width: int, height: int):
-    """Clipped tile rectangle of every splat on the padded grid ->
-    (tx0, ty0, rect_w, rect_h, active), int64 with zeros where inactive."""
-    tx_count = width // TILE
+def _row_cells(splats: dict, width: int, height: int):
+    """Per-splat pixel extents, activity and clipped tile rows as floats ->
+    (cx, rx, ty0, ty1, active) on the padded grid, the quantities binning
+    and the band window share (rasterize_tile.py:186-202, :424-436)."""
     ty_count = pad_to_tile(height) // TILE
     cx, cy, rx, ry = _pixel_extents(splats, width, height)
     on_screen = (cx + rx >= 0.0) & (cx - rx <= width) & (cy + ry >= 0.0) & (cy - ry <= height)
     active = splats["mask"] & (rx > 0.0) & (ry > 0.0) & on_screen
+    ty0 = torch.clamp(torch.floor((cy - ry) / TILE), 0, ty_count - 1)
+    ty1 = torch.clamp(torch.floor((cy + ry) / TILE), 0, ty_count - 1)
+    return cx, rx, ty0, ty1, active
 
-    def cell(v, count):
-        v = torch.clamp(torch.floor(v / TILE), 0, count - 1)
+
+def tile_row_range(splats: dict, width: int, height: int):
+    """Clipped tile-row interval [ty0, ty1] of every splat on the padded
+    grid and its activity -> (ty0, ty1, active), int64 with zeros where
+    inactive: exactly the rows the band window of :func:`tile_rects` keeps
+    (rasterize_tile.py:186), so the bounded band exchange routes a splat to
+    precisely the bands whose binning keeps it."""
+    _, _, ty0, ty1, active = _row_cells(splats, width, height)
+    zero = torch.zeros_like(ty0)
+    return (
+        torch.where(active, ty0, zero).to(torch.int64),
+        torch.where(active, ty1, zero).to(torch.int64),
+        active,
+    )
+
+
+def tile_rects(splats: dict, width: int, height: int, tile_row0=None, band_tile_rows: Optional[int] = None):
+    """Clipped tile rectangle of every splat on the padded grid ->
+    (tx0, ty0, rect_w, rect_h, active), int64 with zeros where inactive.
+
+    With ``tile_row0`` (an int) and ``band_tile_rows``, the grid is the band
+    of tile rows [tile_row0, tile_row0 + band_tile_rows) of the full frame:
+    splats whose rows miss it turn inactive and the rows of the rest are
+    clipped into it, band-local (rasterize_tile.py:438-443).  The extents
+    stay in the full frame (``height`` the full height), so a band's pairs
+    are exactly its slice of the whole frame's."""
+    tx_count = width // TILE
+    cx, rx, ty0, ty1, active = _row_cells(splats, width, height)
+    if tile_row0 is not None:
+        rows = band_tile_rows
+        active = active & (ty1 >= tile_row0) & (ty0 <= tile_row0 + rows - 1)
+        ty0 = torch.clamp(ty0 - tile_row0, 0, rows - 1)
+        ty1 = torch.clamp(ty1 - tile_row0, 0, rows - 1)
+
+    def cell(v):
         return torch.where(active, v, torch.zeros_like(v)).to(torch.int64)
 
-    tx0, tx1 = cell(cx - rx, tx_count), cell(cx + rx, tx_count)
-    ty0, ty1 = cell(cy - ry, ty_count), cell(cy + ry, ty_count)
+    tx0 = cell(torch.clamp(torch.floor((cx - rx) / TILE), 0, tx_count - 1))
+    tx1 = cell(torch.clamp(torch.floor((cx + rx) / TILE), 0, tx_count - 1))
+    ty0, ty1 = cell(ty0), cell(ty1)
     zero = torch.zeros_like(tx0)
     rect_w = torch.where(active, tx1 - tx0 + 1, zero)
     rect_h = torch.where(active, ty1 - ty0 + 1, zero)
@@ -177,15 +214,18 @@ def front_depth_perm(back_key: torch.Tensor, active: Optional[torch.Tensor] = No
     return (n - 1) - pos
 
 
-def expansion_inputs(splats: dict, width: int, height: int, p_max: int):
+def expansion_inputs(
+    splats: dict, width: int, height: int, p_max: int, tile_row0=None, band_tile_rows: Optional[int] = None
+):
     """The expansion kernel's inputs -> ``((cum, rect_w, tx0, ty0, perm), total)``.
 
     Gaussians in front-to-back order, inactive ones first; ``cum`` holds the
     inclusive pair counts clamped at ``p_max`` (slot owners below ``p_max``
     are unchanged by the clamp, and the int32 table cannot overflow),
     ``perm`` the cloud index of each.  All int32 [N].  ``total`` is the
-    uncapped pair count (int64 scalar tensor)."""
-    tx0, ty0, rect_w, rect_h, active = tile_rects(splats, width, height)
+    uncapped pair count (int64 scalar tensor).  ``tile_row0`` and
+    ``band_tile_rows`` window a band (:func:`tile_rects`)."""
+    tx0, ty0, rect_w, rect_h, active = tile_rects(splats, width, height, tile_row0, band_tile_rows)
     perm = front_depth_perm(splats["sort_key"], active)
     cum = torch.cumsum((rect_w * rect_h)[perm], dim=0)
     total = cum[-1] if cum.numel() else cum.new_zeros(())
@@ -197,9 +237,15 @@ def expansion_inputs(splats: dict, width: int, height: int, p_max: int):
     return table, total
 
 
-def bin_gaussians(splats: dict, width: int, height: int, p_max: int):
+def bin_gaussians(
+    splats: dict, width: int, height: int, p_max: int, tile_row0=None, band_tile_rows: Optional[int] = None
+):
     """Sorted (tile, pair) assignment -> ``(g_s, tile_s, valid_s, total,
     order, rank, cum, perm)``.
+
+    With ``tile_row0`` and ``band_tile_rows`` it bins the band of tile rows
+    [tile_row0, tile_row0 + band_tile_rows) of the full ``height`` frame,
+    with band-local tile ids and sentinel (rasterize_tile.py:360, :438-443).
 
     ``g_s`` / ``tile_s`` [p_max] int32: cloud index and tile of each pair,
     sorted by tile, front to back within a tile; slots past the total carry
@@ -213,8 +259,9 @@ def bin_gaussians(splats: dict, width: int, height: int, p_max: int):
     ``gidx_s``); ``cum`` [N] int32, the inclusive pair counts clamped at
     ``p_max``; ``perm`` [N] int32, the cloud index of each depth rank."""
     tx_count = width // TILE
-    sentinel = tx_count * (pad_to_tile(height) // TILE)
-    table, total = expansion_inputs(splats, width, height, p_max)
+    rows = pad_to_tile(height) // TILE if tile_row0 is None else band_tile_rows
+    sentinel = tx_count * rows
+    table, total = expansion_inputs(splats, width, height, p_max, tile_row0, band_tile_rows)
     tile, g_cloud, rank = expand_pairs(*table, p_max, tx_count, sentinel)
     # born depth-ordered: a stable sort on the tile alone keeps depth order
     tile_s, order = torch.sort(tile, stable=True)
@@ -280,11 +327,16 @@ class TileBins(NamedTuple):
     perm: torch.Tensor  # [N] int32 cloud index of each depth rank
 
 
-def tile_bins(splats: dict, width: int, height: int, p_max: int) -> TileBins:
-    """Bin a frame on the padded tile grid: tile ranges with counts clipped
-    at ``k_max``, plus the inverse maps the backward needs."""
-    num_tiles = (width // TILE) * (pad_to_tile(height) // TILE)
-    g_s, tile_s, _, _, order, _, cum, perm = bin_gaussians(splats, width, height, p_max)
+def tile_bins(
+    splats: dict, width: int, height: int, p_max: int, tile_row0=None, band_tile_rows: Optional[int] = None
+) -> TileBins:
+    """Bin a frame on the padded tile grid, or on the band that
+    ``tile_row0`` and ``band_tile_rows`` window (:func:`bin_gaussians`): tile
+    ranges with counts clipped at ``k_max``, plus the inverse maps the
+    backward needs."""
+    rows = pad_to_tile(height) // TILE if tile_row0 is None else band_tile_rows
+    num_tiles = (width // TILE) * rows
+    g_s, tile_s, _, _, order, _, cum, perm = bin_gaussians(splats, width, height, p_max, tile_row0, band_tile_rows)
     start, end = tile_ranges(tile_s, num_tiles)
     count = torch.clamp(end - start, max=tile_budget(splats["mask"].shape[0]))
     return TileBins(g_s, start, count, order, cum, perm)
@@ -323,6 +375,7 @@ def composite_tiles(
     full_height: int,
     k_max: int,
     mode: int = MODE_OBB,
+    y0: int = 0,
 ) -> torch.Tensor:
     """Front-to-back compositing with the bounding-box overlay in plain
     PyTorch, differentiable by autograd -> raw [T, 4, 256] (rows 0-2
@@ -339,14 +392,18 @@ def composite_tiles(
     recomputed in the backward (``torch.utils.checkpoint``), as JAX remats
     it.  The chunks past every tile's count blend nothing (alpha 0 adds 0
     and multiplies T by 1, exactly), so the loop stops after the last
-    chunk that some tile reaches instead of at ``ceil(k_max / chunk)``."""
+    chunk that some tile reaches instead of at ``ceil(k_max / chunk)``.
+
+    ``y0`` is the first pixel row of a band of the ``full_height`` frame
+    (the tile grid is the band's): the JAX compositor's ``pixel_y0``, the
+    sharded overlay's training route (parallel/render.py:356-364)."""
     num_tiles = tile_start.shape[0]
     p_max, cols = params_sorted.shape
     dev = params_sorted.device
     padded = torch.cat(
         [params_sorted * pair_valid[:, None].to(params_sorted.dtype), params_sorted.new_zeros((1, cols))]
     )
-    x, y = tile_ndc(torch.arange(num_tiles, device=dev), tx_count, width, full_height)
+    x, y = tile_ndc(torch.arange(num_tiles, device=dev), tx_count, width, full_height, y0)
     if mode != MODE_2D:  # vp units; the 2DGS falloff works in NDC
         x, y = x * float(width), y * float(full_height)
     px, py = x[:, None, :], y[:, None, :]

@@ -16,7 +16,7 @@ and 7 with AABB bounds (``CloudSettings(aabb=True)``), then phase 8, then
 phases 3-5, 14 and 6 with 2DGS surfels
 (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``), then phases 9, 20 and 21, then
 phases 10-13 for 4DGS with OBB (with phase 18 after 12) and then AABB bounds,
-then phase 19:
+then phases 19 and 22:
 
   1. build   every kernel under bevy_gaussian_splatting_tpu_torch/csrc with
              nvcc for sm_90a, one nvcc per source, all started together,
@@ -189,15 +189,36 @@ then phase 19:
              65,536-row PLY (rows bitwise the CPU run's),
              ``compare_aabb_obb``, ``surfel_plane`` and ``orbit_turntable
              --gif`` (PNGs within one u8 level of the CPU's, the GIF's frame
-             count).
+             count);
+ 22. parallel multi-rank band rendering and training (``parallel/``): the
+             kernels built above, a gloo world of 4 spawned ranks sharing the
+             card (they load the built libraries): the gloo collectives the
+             path uses checked on CUDA tensors; on the 1M bench scene at
+             512x512 (4 bands of 128 rows) OBB, AABB and 2DGS frames with the
+             all-gather and the bounded exchange (budget and pair hint from
+             ``plan_exchange(with_pairs=True)``) and a 4D OBB frame at time
+             0.25, each held on rank 0 to the one-device ``render_tiled`` of
+             the padded cloud (3e-5, 2DGS 3e-4; 4D: under 1% of values past
+             3e-5, none past 0.1) with the count of pixels that differ at
+             all, the OBB frame twice (bitwise); one sharded OBB and AABB
+             training step whose gradients each rank holds to the one-device
+             gradients of the same loss (1e-3 of a field's largest); a
+             (camera 2, tiles 2) frame and training step; each rank's
+             CUDA-event ms per frame and step, the exchange bytes received per
+             rank, and the work ratio (the ranks' device time by the profiler
+             over one rank's frame of the whole cloud); then a NCCL world of
+             one rank (this process): one band bitwise ``render_tiled`` in
+             each mode, and two ranks on one card refused.  Four ranks on one
+             card measure work, not scaling.
 
 It prints the kernels line (one entry per kernel and mode: the four kernels
 in each of the three modes, then the expansion and the forward compositor of
 each mode's overlay frames, mode "<mode>+bbox", then the same for 4DGS,
 modes "4d-obb", "4d-aabb", "4d-obb+bbox", "4d-aabb+bbox": thirty; the
 launches of the expansion and the forward compositor count the serving,
-replay, multi-camera, 4D sweep, io and front-end frames too, and OBB's
-backward and reduce the front ends' checkpoint steps), the card's name and power
+replay, multi-camera, 4D sweep, io, front-end and band frames too, and OBB's
+and AABB's backward and reduce the front ends' checkpoint steps and the band
+steps, each rank's launches reported to this process), the card's name and power
 limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card it exits
 non-zero and prints no result.
@@ -2545,6 +2566,397 @@ def phase_front_ends(cloud, arrays: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: multi-rank band rendering and training (parallel/)
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 4  # a gloo world on the one card
+PARALLEL_SIZE = SIZES[0]  # 512 rows: 4 bands of 8 tile rows
+# every sharded frame must be bitwise the one-device frame (same chunk grid
+# and k_max per band); the JAX tests' bars are printed beside it as a
+# secondary reading (tests/test_parallel.py:48-69, test_4dgs_temporal: the
+# share of pixels past 3e-5 under 0.01, the max under 0.1)
+PARALLEL_BAR = {"obb": 3e-5, "aabb": 3e-5, "2d": 3e-4}
+PARALLEL_4D_BARS = (3e-5, 0.01, 0.1)
+# sharded vs one-device gradients, of each field's largest magnitude: only the
+# order of the sums over bands differs (5.6e-8 at most on the H100, PERF.md)
+PARALLEL_GRAD_REL = 1e-6
+PARALLEL_REPS = 5  # timed frames and steps per rank
+PARALLEL_AZ = (0.0, 0.3)  # the multi-camera batch's orbit poses
+_RANK_SCENES: dict = {}  # a phase-22 rank's scenes, built once in its own process
+
+
+def _p22_settings(mode: str):
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode
+
+    return {
+        "obb": CloudSettings(), "aabb": CloudSettings(aabb=True),
+        "2d": CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_2D),
+        "4d-obb": CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_4D, time=TIME_4D),
+    }[mode]
+
+
+def _p22_scene(kind: str):
+    """(cloud, target cloud) of the 1M bench scene ("3d") or the 4D bench
+    scene ("4d", no target) on the card, made from the seed in this rank."""
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy, random_arrays_4d_seeded
+    from bevy_gaussian_splatting_tpu_torch.train.step import shifted_arrays
+
+    if kind not in _RANK_SCENES:
+        if kind == "3d":
+            a = bench_arrays(N_GAUSSIANS, seed=0)
+            _RANK_SCENES[kind] = (cloud_from_numpy(a, "cuda"), cloud_from_numpy(shifted_arrays(a), "cuda"))
+        else:
+            _RANK_SCENES[kind] = (cloud_from_numpy(random_arrays_4d_seeded(N_GAUSSIANS, seed=SEED_4D), "cuda"), None)
+    return _RANK_SCENES[kind]
+
+
+def _p22_counts() -> tuple:
+    expand, fwd, bwd, red = train_counters()
+    return expand.launches, dict(fwd.instances), bwd.launches, red.launches
+
+
+def _p22_delta(before: tuple, key: tuple) -> dict:
+    """Launches since ``before``, the forward compositor's of instantiation ``key``."""
+    now = _p22_counts()
+    return {"expand_pairs": now[0] - before[0],
+            "composite_tiles_raw": now[1].get(key, 0) - before[1].get(key, 0),
+            "composite_backward": now[2] - before[2], "segment_reduce": now[3] - before[3]}
+
+
+def _p22_events_ms(fn, reps: int) -> float:
+    """ms per run of ``fn`` between CUDA events on this rank's stream (the
+    other ranks' work on the shared card and the collectives' host waits
+    fall inside)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _p22_rows(mesh, n_total: int) -> slice:
+    from bevy_gaussian_splatting_tpu_torch.parallel.render import TILES_AXIS
+
+    n_local = n_total // mesh.shape[TILES_AXIS]
+    band = mesh.get_local_rank(TILES_AXIS)
+    return slice(band * n_local, (band + 1) * n_local)
+
+
+def _p22_probe() -> dict:
+    """Each collective the sharded path uses, on CUDA tensors with this
+    world's backend -> what it returned, checked."""
+    import torch.distributed as dist
+
+    r, w = dist.get_rank(), dist.get_world_size()
+    x = torch.full((3, 2), float(r), device="cuda")
+    out = torch.empty((3 * w, 2), device="cuda")
+    dist.all_gather_into_tensor(out, x)
+    a2a = torch.empty((2 * w, 2), device="cuda")
+    dist.all_to_all_single(a2a, torch.arange(4.0 * w, device="cuda").reshape(2 * w, 2) + 100 * r)
+    s = torch.ones(2, device="cuda") * (r + 1)
+    dist.all_reduce(s)
+    m = torch.tensor([float(r)], device="cuda")
+    dist.all_reduce(m, op=dist.ReduceOp.MAX)
+    sent = torch.arange(4.0 * w).reshape(2 * w, 2)
+    want = torch.cat([sent[2 * r : 2 * r + 2] + 100 * src for src in range(w)])
+    ok = (torch.equal(out[:, 0].cpu(), torch.arange(w).repeat_interleave(3).float())
+          and torch.equal(a2a.cpu(), want) and s[0].item() == w * (w + 1) / 2 and m.item() == w - 1)
+    return {"backend": dist.get_backend(), "ok": bool(ok), "device": torch.cuda.get_device_name(0)}
+
+
+def _p22_render(mode: str, exchange: str, repeat: bool = False) -> dict:
+    """One sharded frame at 512x512 (the bounded exchange sized by
+    ``plan_exchange(with_pairs=True)``), rank 0 held to the one-device
+    ``render_tiled`` of the padded cloud, then PARALLEL_REPS timed frames."""
+    import torch.distributed as dist
+
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import pad_cloud
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODES
+    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import kernel_mode, render_tiled
+    from bevy_gaussian_splatting_tpu_torch.parallel.exchange import exchange_bytes_per_device
+    from bevy_gaussian_splatting_tpu_torch.parallel.render import (
+        make_mesh,
+        make_sharded_render,
+        plan_exchange,
+        shard_cloud,
+        shard_multiple,
+    )
+
+    settings = _p22_settings(mode)
+    cloud, _ = _p22_scene("4d" if mode.startswith("4d") else "3d")
+    width, height = PARALLEL_SIZE
+    at = TIME_4D if mode.startswith("4d") else 0.0
+    cam = orbit_camera(0.0, width, height, "cuda")
+    mesh = make_mesh()
+    n_bands = mesh.shape["tiles"]
+    budget = pairs = None
+    if exchange == "bounded":
+        _, budget, pairs = plan_exchange(cloud, cam, settings, width, height, mesh, time=at, with_pairs=True)
+    shard = shard_cloud(cloud, mesh)
+    fn = make_sharded_render(mesh, settings, width, height, exchange=exchange, band_budget=budget, pairs_hint=pairs)
+    key = (MODES[kernel_mode(settings)], False)
+    before = _p22_counts()
+    img = fn(shard, cam, time=at)
+    again = fn(shard, cam, time=at) if repeat else None
+    ms = _p22_events_ms(lambda: fn(shard, cam, time=at), PARALLEL_REPS)
+    n_total = len(shard) * n_bands
+    cols = 20 if mode == "2d" else 14
+    out = {"rank": dist.get_rank(), "ms": ms, "launches": _p22_delta(before, key), "budget": budget,
+           "band_pairs": pairs, "bytes": exchange_bytes_per_device(n_total, n_bands, cols, budget)}
+    if dist.get_rank() == 0:
+        ref = render_tiled(pad_cloud(cloud, shard_multiple(n_bands)), cam, settings, differentiable=False, time=at)
+        d = (img - ref).abs()
+        out.update(max_err=float(d.max()), diff_pixels=int((d > 0).any(dim=-1).sum()),
+                   share_3e5=float((d > 3e-5).float().mean()), finite=bool(torch.isfinite(img).all()),
+                   lit=float((img[..., :3].abs() > 1.0 / 255.0).any(dim=-1).float().mean()),
+                   bitwise_repeat=same_bits(img, again) if repeat else None)
+    return out
+
+
+def _p22_reference_grads(padded, target_imgs, cams, settings) -> dict:
+    """The one-device gradient of the mean squared error over ``cams``, each
+    against its target, on the whole padded cloud."""
+    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import render_tiled
+    from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud
+
+    model = TrainableCloud(padded)
+    width, height = PARALLEL_SIZE
+    loss = sum(torch.sum((render_tiled(model.cloud(), cam, settings) - t) ** 2) for cam, t in zip(cams, target_imgs))
+    (loss / (len(cams) * height * width * 4)).backward()
+    return {name: getattr(model, name).grad for name in model.fields}
+
+
+def _p22_grad_rel(grads: dict, ref: dict, rows: slice) -> dict:
+    """max |sharded - one-device| over this rank's rows, of each field's
+    largest one-device magnitude (the whole cloud's)."""
+    return {name: float((grads[name] - ref[name][rows]).abs().max() / ref[name].abs().max().clamp(min=1e-30))
+            for name in grads}
+
+
+def _p22_train(mode: str) -> dict:
+    """One sharded training step (MSE towards the shifted scene's frame),
+    its gradients against the one-device gradients of the same loss, then
+    PARALLEL_REPS timed steps."""
+    import torch.distributed as dist
+
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import pad_cloud
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MODES
+    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import kernel_mode, render_tiled
+    from bevy_gaussian_splatting_tpu_torch.parallel.render import make_mesh, make_train_step, shard_cloud, shard_multiple
+
+    settings = _p22_settings(mode)
+    cloud, target_cloud = _p22_scene("3d")
+    width, height = PARALLEL_SIZE
+    cam = orbit_camera(0.0, width, height, "cuda")
+    mesh = make_mesh()
+    mult = shard_multiple(mesh.shape["tiles"])
+    with torch.no_grad():
+        target = render_tiled(pad_cloud(target_cloud, mult), cam, settings, differentiable=False)
+    step, init = make_train_step(mesh, settings, width, height, learning_rate=TRAIN_LR)
+    state = init(shard_cloud(cloud, mesh))
+    key = (MODES[kernel_mode(settings)], False)
+    before = _p22_counts()
+    loss = float(step(state, cam, target))
+    grads = {name: getattr(state.model, name).grad.clone() for name in state.model.fields}
+    ms = _p22_events_ms(lambda: step(state, cam, target), PARALLEL_REPS)
+    launches = _p22_delta(before, key)
+    padded = pad_cloud(cloud, mult)
+    rel = _p22_grad_rel(grads, _p22_reference_grads(padded, [target], [cam], settings), _p22_rows(mesh, len(padded)))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    return {"rank": dist.get_rank(), "loss": loss, "rel": rel, "finite": finite, "ms": ms, "launches": launches}
+
+
+def _p22_multicam() -> dict:
+    """A (camera 2, tiles 2) frame of two orbit poses against the one-device
+    frames, and one multi-camera training step's gradients against the
+    one-device gradients of the mean over both views."""
+    import torch.distributed as dist
+
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import pad_cloud
+    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import render_tiled
+    from bevy_gaussian_splatting_tpu_torch.parallel.render import (
+        make_mesh,
+        make_sharded_render_multicam,
+        make_train_step_multicam,
+        shard_cloud,
+        shard_multiple,
+    )
+
+    settings = _p22_settings("obb")
+    cloud, target_cloud = _p22_scene("3d")
+    width, height = PARALLEL_SIZE
+    cams = [orbit_camera(az, width, height, "cuda") for az in PARALLEL_AZ]
+    mesh = make_mesh(camera_parallel=2)
+    mult = shard_multiple(mesh.shape["tiles"])
+    padded = pad_cloud(cloud, mult)
+    shard = shard_cloud(cloud, mesh)
+    with torch.no_grad():
+        refs = [render_tiled(padded, cam, settings, differentiable=False) for cam in cams]
+        targets = torch.stack([render_tiled(pad_cloud(target_cloud, mult), cam, settings, differentiable=False)
+                               for cam in cams])
+    before = _p22_counts()
+    imgs = make_sharded_render_multicam(mesh, settings, width, height)(shard, cams)
+    err = max(float((imgs[i] - refs[i]).abs().max()) for i in range(len(cams)))
+    bitwise = all(same_bits(imgs[i], refs[i]) for i in range(len(cams)))
+    step, init = make_train_step_multicam(mesh, settings, width, height, learning_rate=TRAIN_LR)
+    state = init(shard)
+    loss = float(step(state, cams, targets))
+    launches = _p22_delta(before, ("obb", False))
+    grads = {name: getattr(state.model, name).grad for name in state.model.fields}
+    rel = _p22_grad_rel(grads, _p22_reference_grads(padded, list(targets), cams, settings),
+                        _p22_rows(mesh, len(padded)))
+    return {"rank": dist.get_rank(), "err": err, "bitwise": bitwise, "loss": loss, "rel": rel,
+            "launches": launches, "mesh": mesh.shape}
+
+
+def _p22_work_ratio(exchange: str) -> dict:
+    """``scaling.measured_work_ratio`` of the OBB frame: the ranks' device
+    time (profiler) over one rank's frame of the whole cloud."""
+    from bevy_gaussian_splatting_tpu_torch.parallel.render import make_mesh, plan_exchange
+    from bevy_gaussian_splatting_tpu_torch.parallel.scaling import measured_work_ratio
+
+    settings = _p22_settings("obb")
+    cloud, _ = _p22_scene("3d")
+    width, height = PARALLEL_SIZE
+    cam = orbit_camera(0.0, width, height, "cuda")
+    mesh = make_mesh()
+    budget = pairs = None
+    if exchange == "bounded":
+        _, budget, pairs = plan_exchange(cloud, cam, settings, width, height, mesh, with_pairs=True)
+    return measured_work_ratio(cloud, cam, settings, width, height, mesh, iters=3, exchange=exchange,
+                               band_budget=budget, pairs_hint=pairs)
+
+
+def phase_parallel(launches: dict) -> None:
+    """Phase 22: a gloo world of PARALLEL_RANKS ranks sharing the card, then
+    a NCCL world of one rank (this process).  Adds the band path's launches
+    to ``launches[mode]``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import pad_cloud
+    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import render_tiled
+    from bevy_gaussian_splatting_tpu_torch.parallel import distributed as pdist
+    from bevy_gaussian_splatting_tpu_torch.parallel.render import make_mesh, make_sharded_render, shard_cloud
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    def add(mode: str, counts: dict) -> None:
+        for name, v in counts.items():
+            launches[mode][name] += v
+
+    log("[parallel] four ranks sharing one card measure work, not scaling: their frames and steps "
+        "time-share the card, and gloo moves every exchange through host memory")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with pdist.World(PARALLEL_RANKS, "gloo", "file://" + tmp + "/gloo", device="cuda:0",
+                         timeout_s=600.0) as world:
+            log(f"[parallel] gloo world of {PARALLEL_RANKS} ranks on cuda:0 up in {time.perf_counter() - t0:.2f} s")
+            probe = world.run(_p22_probe)
+            if not all(p["ok"] for p in probe):
+                raise AssertionError(f"gloo collectives on CUDA tensors: {probe}")
+            log("[parallel] gloo on CUDA tensors: all_gather_into_tensor, all_to_all_single, all_reduce "
+                "(sum, max) checked on every rank")
+            for mode in ("obb", "aabb", "2d", "4d-obb"):
+                for exchange in ("allgather", "bounded"):
+                    if mode == "4d-obb" and exchange == "bounded":
+                        continue
+                    t0 = time.perf_counter()
+                    out = world.run(_p22_render, mode, exchange, mode == "obb" and exchange == "allgather")
+                    r0 = out[0]
+                    for o in out:
+                        add(mode, o["launches"])
+                    if not (r0["finite"] and r0["lit"] >= LIT_FLOOR):
+                        raise AssertionError(f"[parallel {mode} {exchange}] frame not finite or unlit: {r0}")
+                    if mode == "4d-obb":
+                        bar, share, top = PARALLEL_4D_BARS
+                        ok = r0["share_3e5"] < share and r0["max_err"] < top
+                        bar_text = f"share past {bar:g} {r0['share_3e5']:.3g} (< {share}), max {r0['max_err']:.3g}"
+                    else:
+                        ok = r0["max_err"] <= PARALLEL_BAR[mode]
+                        bar_text = f"max |sharded - one device| {r0['max_err']:.3g} (bar {PARALLEL_BAR[mode]:g})"
+                    same = "bitwise" if r0["diff_pixels"] == 0 else (
+                        f"NOT bitwise: {r0['diff_pixels']} of {PARALLEL_SIZE[0] * PARALLEL_SIZE[1]} pixels differ")
+                    log(f"[parallel {mode} {exchange} {PARALLEL_SIZE[0]}x{PARALLEL_SIZE[1]}] {bar_text}; {same}"
+                        + (f"; same-seed repeat {'bitwise' if r0['bitwise_repeat'] else 'NOT bitwise'}"
+                           if r0["bitwise_repeat"] is not None else "")
+                        + f"; budget {r0['budget']}, band pairs {r0['band_pairs']}; exchange bytes received per "
+                        f"rank {r0['bytes']}; CUDA-event ms per frame by rank "
+                        + ", ".join(f"{o['ms']:.3f}" for o in out)
+                        + f"; launches {sum(o['launches']['composite_tiles_raw'] for o in out)} compositor, "
+                        f"{sum(o['launches']['expand_pairs'] for o in out)} expansion; {time.perf_counter() - t0:.2f} s")
+                    if not ok or r0["diff_pixels"] != 0 or (r0["bitwise_repeat"] is False):
+                        raise AssertionError(f"[parallel {mode} {exchange}] failed: {r0}")
+            for mode in ("obb", "aabb"):
+                out = world.run(_p22_train, mode)
+                for o in out:
+                    add(mode, o["launches"])
+                worst = {k: max(o["rel"][k] for o in out) for k in out[0]["rel"]}
+                log(f"[parallel train {mode} {PARALLEL_SIZE[0]}x{PARALLEL_SIZE[1]}] loss {out[0]['loss']:.6g}; "
+                    f"gradients vs one device, max rel by field {json.dumps(worst)} (bar {PARALLEL_GRAD_REL:g}); "
+                    "CUDA-event ms per step by rank " + ", ".join(f"{o['ms']:.3f}" for o in out)
+                    + f"; launches {json.dumps({k: sum(o['launches'][k] for o in out) for k in out[0]['launches']})}")
+                if not all(o["finite"] for o in out) or max(worst.values()) > PARALLEL_GRAD_REL:
+                    raise AssertionError(f"[parallel train {mode}] gradients off: {worst}")
+                if any(o["launches"][k] <= 0 for o in out for k in o["launches"]):
+                    raise AssertionError(f"[parallel train {mode}] a kernel did not launch: {out}")
+            out = world.run(_p22_multicam)
+            for o in out:
+                add("obb", o["launches"])
+            worst = {k: max(o["rel"][k] for o in out) for k in out[0]["rel"]}
+            log(f"[parallel multicam {out[0]['mesh']}] frames vs one device max {out[0]['err']:.3g} (bar "
+                f"{PARALLEL_BAR['obb']:g}), {'bitwise' if out[0]['bitwise'] else 'NOT bitwise'}; step loss "
+                f"{out[0]['loss']:.6g}, gradients max rel by field {json.dumps(worst)} (bar {PARALLEL_GRAD_REL:g})")
+            if (out[0]["err"] > PARALLEL_BAR["obb"] or not out[0]["bitwise"]
+                    or max(worst.values()) > PARALLEL_GRAD_REL):
+                raise AssertionError(f"[parallel multicam] off: {out[0]['err']}, {worst}")
+            for exchange in ("allgather", "bounded"):
+                out = world.run(_p22_work_ratio, exchange)
+                ratio = out[0]
+                log(f"[parallel work ratio obb {exchange}] sum of the {PARALLEL_RANKS} ranks' device ms per frame "
+                    f"{ratio[PARALLEL_RANKS]:.3f} / one rank's on the whole cloud {ratio[1]:.3f} = "
+                    f"{ratio['work_ratio']:.3f} (profiler: kernels and copies)")
+        # the NCCL world of one: this process, its own card
+        t0 = time.perf_counter()
+        pdist.initialize("file://" + tmp + "/nccl", 1, 0, "nccl", "cuda")
+        try:
+            mesh = make_mesh()
+            cloud, _ = _p22_scene("3d")
+            width, height = PARALLEL_SIZE
+            cam = orbit_camera(0.0, width, height, "cuda")
+            for mode in ("obb", "aabb", "2d"):
+                settings = _p22_settings(mode)
+                before = _p22_counts()
+                img = make_sharded_render(mesh, settings, width, height)(shard_cloud(cloud, mesh), cam)
+                add(mode, _p22_delta(before, (mode, False)))
+                ref = render_tiled(pad_cloud(cloud, 256), cam, settings, differentiable=False)
+                log(f"[parallel nccl 1 rank {mode}] sharded frame vs render_tiled "
+                    f"{'bitwise' if same_bits(img, ref) else 'NOT bitwise'}, max {float((img - ref).abs().max()):.3g}")
+                if not same_bits(img, ref):
+                    raise AssertionError(f"[parallel nccl {mode}] one band is not render_tiled bitwise")
+            # NCCL refuses two ranks on one card (the rendezvous store names each rank's card)
+            store = dist.HashStore()
+            store.set("bgs_card/1", f"{__import__('socket').gethostname()}/"
+                                    f"{torch.cuda.get_device_properties(0).uuid}")
+            try:
+                pdist._check_devices(store, 2, 0, torch.device("cuda", 0))
+                raise AssertionError("two ranks on one card were not refused")
+            except ValueError as exc:
+                log(f"[parallel nccl] two ranks on one card refused: {exc}")
+        finally:
+            dist.destroy_process_group()
+        _RANK_SCENES.clear()
+        log(f"[parallel nccl] {time.perf_counter() - t0:.2f} s")
+    log(f"[parallel] phase {time.perf_counter() - t_phase:.2f} s")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true", help="write a per-kernel breakdown to chiprun_out/")
@@ -2657,6 +3069,8 @@ def main() -> int:
 
     del cloud4
     timed("examples", phase_examples)
+    # multi-rank band rendering and training: the band launches count with their modes'
+    timed("parallel", phase_parallel, launches)
 
     kernels = []
     sources = {

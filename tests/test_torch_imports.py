@@ -49,6 +49,8 @@ def test_port_has_sources():
         "stream/lod.py", "stream/scene.py", "utils/checkpoint.py", "utils/trace.py", "viewer/headless.py",
         "viewer/serve.py", "tools/ply_to_gcloud.py", "tools/compare_aabb_obb.py", "tools/surfel_plane.py",
         "tools/orbit_turntable.py", "tools/render_thumbnails.py", "tools/build_www.py", "examples/streaming_lod.py",
+        "parallel/__init__.py", "parallel/exchange.py", "parallel/render.py", "parallel/distributed.py",
+        "parallel/scaling.py",
     ):
         assert need in names
     for source in ("expand", "tile_fwd", "tile_bwd", "reduce"):
