@@ -17,18 +17,29 @@ The root map holds one column per cloud field, a vector of row structs
                     [{cov3d: [u32; 3], opacity: u32}] (f16 pairs,
                     ``models/f16.py``), position_visibility, spherical_harmonic
 
-The codec is ``io/flexbuffers.py``; the columns go in the C++ encoder's
-order, so a 3D file is byte for byte what the JAX package's native encoder
-writes.  The ``.npz`` keeps the JAX package's field names and its
-``__format__`` entry, so either package reads the other's files.
+3D and 4D files go through the native codec (``native/gsplat_native.cpp``)
+by default, as in the JAX package: its files are byte for byte the JAX
+package's default files.  Decoding dispatches as the JAX package's does: a
+buffer that the native probe refuses (not a cloud map, a 4D harmonic width
+other than 144, a 3D width of 0) goes to the FlexBuffers reader
+``io/flexbuffers.py``; one it took that then decodes short raises.
+``decode_paths`` counts the decoder each call took.  ``use_native=False``
+runs the port's own FlexBuffers writer and reader: it lays out the columns
+in the C++ encoder's order, so a 3D file is the native file byte for byte,
+a 4D one differs in the order of the key strings only.  The covariance
+flavour has no native path, in either package.  The ``.npz`` keeps the JAX
+package's field names and its ``__format__`` entry, so either package reads
+the other's files.
 """
 
 from __future__ import annotations
 
 import io as _io
+from typing import Optional
 
 import numpy as np
 
+from bevy_gaussian_splatting_tpu_torch import native
 from bevy_gaussian_splatting_tpu_torch.device import DeviceLike
 from bevy_gaussian_splatting_tpu_torch.io import flexbuffers
 from bevy_gaussian_splatting_tpu_torch.models.cloud import (
@@ -63,6 +74,13 @@ _ORDER_3D = ("position_visibility", "rotation", "scale_opacity", "spherical_harm
 _ORDER_4D = ("position_visibility", "isotropic_rotations", "scale_opacity", "spherindrical_harmonic",
              "timestamp_timescale")
 _ORDER_COV3D = (COV3D_COLUMN, "position_visibility", "spherical_harmonic")
+# the native codec's arguments and results, in the C ABI's order
+_NATIVE_3D = ("position_visibility", "spherical_harmonic", "rotation", "scale_opacity")
+_NATIVE_4D = ("position_visibility", "spherindrical_harmonic", "isotropic_rotations", "scale_opacity",
+              "timestamp_timescale")
+_NATIVE_KEYS = {False: ("pv", "sh", "rot", "so"), True: ("pv", "sh", "iso", "so", "ts")}
+
+decode_paths = {"native": 0, "flexbuffers": 0}
 
 
 def _encode(arrays: dict, order) -> bytes:
@@ -81,20 +99,46 @@ def _decode(data: bytes, order) -> dict:
     return flexbuffers.read_columns(data, [(name, _COLUMNS[name]) for name in order])
 
 
-def encode_gcloud_3d(cloud: Gaussian3dCloud) -> bytes:
-    return _encode(cloud_to_numpy(cloud), _ORDER_3D)
+def encode_gcloud_3d(cloud: Gaussian3dCloud, use_native: bool = True) -> bytes:
+    arrays = cloud_to_numpy(cloud)
+    if use_native:
+        return native.encode_gcloud_3d_native(*(arrays[name] for name in _NATIVE_3D))
+    return _encode(arrays, _ORDER_3D)
 
 
-def encode_gcloud_4d(cloud: Gaussian4dCloud) -> bytes:
-    return _encode(cloud_to_numpy(cloud), _ORDER_4D)
+def encode_gcloud_4d(cloud: Gaussian4dCloud, use_native: bool = True) -> bytes:
+    arrays = cloud_to_numpy(cloud)
+    if use_native:
+        return native.encode_gcloud_4d_native(*(arrays[name] for name in _NATIVE_4D))
+    return _encode(arrays, _ORDER_4D)
 
 
-def decode_gcloud_3d(data: bytes, device: DeviceLike = None) -> Gaussian3dCloud:
-    return cloud_from_numpy(_decode(data, _ORDER_3D), device)
+def _decode_native(data: bytes, want_4d: bool, names) -> Optional[dict]:
+    """The native decoder's columns by field name -> None where it leaves
+    the buffer to the FlexBuffers reader, or where the buffer holds the
+    other dimension's cloud (the reader then raises, as the JAX package's
+    Python decoder does)."""
+    columns = native.decode_gcloud_native(data)
+    if columns is None or columns["is4d"] != want_4d:
+        return None
+    decode_paths["native"] += 1
+    return dict(zip(names, (columns[k] for k in _NATIVE_KEYS[want_4d])))
 
 
-def decode_gcloud_4d(data: bytes, device: DeviceLike = None) -> Gaussian4dCloud:
-    return cloud_from_numpy(_decode(data, _ORDER_4D), device)
+def decode_gcloud_3d(data: bytes, device: DeviceLike = None, use_native: bool = True) -> Gaussian3dCloud:
+    arrays = _decode_native(data, False, _NATIVE_3D) if use_native else None
+    if arrays is None:
+        decode_paths["flexbuffers"] += 1
+        arrays = _decode(data, _ORDER_3D)
+    return cloud_from_numpy(arrays, device)
+
+
+def decode_gcloud_4d(data: bytes, device: DeviceLike = None, use_native: bool = True) -> Gaussian4dCloud:
+    arrays = _decode_native(data, True, _NATIVE_4D) if use_native else None
+    if arrays is None:
+        decode_paths["flexbuffers"] += 1
+        arrays = _decode(data, _ORDER_4D)
+    return cloud_from_numpy(arrays, device)
 
 
 def encode_gcloud_cov3d(cloud: Gaussian3dCovCloud) -> bytes:

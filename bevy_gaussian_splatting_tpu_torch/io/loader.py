@@ -11,7 +11,9 @@ package's ``io/loader.py`` with a ``device`` for what it loads:
 
 A loaded cloud's tensors are made on ``device`` from the decoded host
 arrays, so it goes into ``render()`` or an ``InteractiveRenderer`` on that
-device without another copy.
+device without another copy.  ``.ply``, ``.gcloud`` and ``.gc4d`` are read
+and written by the native runtime (``native/``) at the codecs' defaults, as
+in the JAX package's loader.
 """
 
 from __future__ import annotations

@@ -1,6 +1,5 @@
-"""PLY import and export for 3D and 4D gaussian clouds, the numpy decoder of
-the JAX package's ``io/ply.py`` (its ``use_native=False`` path) with the
-reference loader's activations (src/io/ply.rs):
+"""PLY import and export for 3D and 4D gaussian clouds, the JAX package's
+``io/ply.py`` with the reference loader's activations (src/io/ply.rs):
 
   3D (parse_ply_3d, ply.rs:76-132): opacity sigmoid (ply.rs:40-42); scale
   clamped to its row mean +- 4, then exp (ply.rs:105-116); rotation
@@ -10,6 +9,15 @@ reference loader's activations (src/io/ply.rs):
   4D (parse_ply_4d, ply.rs:185-247): x/y/z/t/st, feat_[rgb]_i
   spherindrical coefficients, raw sx/sy/sz and opacity, both quaternions
   normalised.
+
+``parse_ply_3d`` decodes bytes with the native decoder
+(``native/gsplat_native.cpp``, threaded over row ranges) by default, as the
+JAX package does: the same source and compiler flags, so the same bits.
+Where the native reader refuses a file by its status (a layout its header
+parser does not take: ASCII, big-endian, list properties, zero rows; a
+missing required property; a truncated body) the numpy decoder runs, and
+decodes or raises as the JAX package's does.  ``parse_ply_3d.paths`` counts
+the decoder each call took.  A native build that fails raises.
 
 Reference quirks kept (``strict_reference=False`` gives the correct
 mapping): the f_rest channel divides by 16 while the coefficient wraps
@@ -30,6 +38,7 @@ from typing import BinaryIO, Optional, Union
 
 import numpy as np
 
+from bevy_gaussian_splatting_tpu_torch import native
 from bevy_gaussian_splatting_tpu_torch.device import DeviceLike
 from bevy_gaussian_splatting_tpu_torch.models.cloud import (
     SH_4D_COEFF_COUNT,
@@ -156,16 +165,37 @@ def _infer_sh_degree_from_rest(n_rest: int) -> int:
     return degree
 
 
+def _header_rest_count(source: Union[bytes, bytearray]) -> int:
+    """The f_rest_* vertex properties declared as ``float`` or ``float32``,
+    counted in the header bytes only (the native path's degree inference)."""
+    end = source.find(b"end_header")
+    head = source[: end if end >= 0 else 4096]
+    return head.count(b"property float f_rest_") + head.count(b"property float32 f_rest_")
+
+
 def parse_ply_3d(
     source: Union[bytes, BinaryIO],
     strict_reference: bool = True,
+    use_native: bool = True,
     sh_degree: Optional[int] = None,
     device: DeviceLike = None,
 ) -> Gaussian3dCloud:
     """A 3DGS PLY (binary little-endian or ascii) -> ``Gaussian3dCloud`` on
     ``device``.  ``sh_degree``: the SH storage degree (the reference's
     sh0..sh4 feature); ``None`` infers it from the f_rest property count, an
-    explicit degree truncates or zero-extends."""
+    explicit degree truncates or zero-extends.  ``use_native``: bytes go to
+    the native decoder first (module docstring); file objects and
+    ``use_native=False`` take the numpy decoder."""
+    if use_native and isinstance(source, (bytes, bytearray)):
+        degree = sh_degree if sh_degree is not None else _infer_sh_degree_from_rest(_header_rest_count(source))
+        out = native.parse_ply_3d_native(
+            source, strict_reference, sh_width=sh_coeff_width(degree), sh_per_channel=num_sh_coefficients(degree)
+        )
+        if out is not None:
+            parse_ply_3d.paths["native"] += 1
+            names = ("position_visibility", "spherical_harmonic", "rotation", "scale_opacity")
+            return cloud_from_numpy(dict(zip(names, out)), device)
+    parse_ply_3d.paths["numpy"] += 1
     data = _read(source)
     _require(
         data,
@@ -216,6 +246,9 @@ def parse_ply_3d(
         },
         device,
     )
+
+
+parse_ply_3d.paths = {"native": 0, "numpy": 0}
 
 
 def parse_ply_4d(source: Union[bytes, BinaryIO], device: DeviceLike = None) -> Gaussian4dCloud:
@@ -271,10 +304,11 @@ def _ply_bytes(props: list, cols: list, n: int) -> bytes:
     return header + np.stack(cols, axis=1).astype("<f4").tobytes()
 
 
-def write_ply_3d(cloud: Gaussian3dCloud) -> bytes:
+def write_ply_3d(cloud: Gaussian3dCloud, include_padding: bool = True) -> bytes:
     """Standard channel-planar 3DGS PLY (binary little endian) with inverse
     activations (log scale, logit opacity), so ``parse_ply_3d(write_ply_3d(c),
-    strict_reference=False)`` round-trips."""
+    strict_reference=False)`` round-trips.  Every row is written, padding
+    rows too: ``include_padding`` is ignored, as in the JAX package."""
     a = cloud_to_numpy(cloud)
     pv, sh, rot, so = a["position_visibility"], a["spherical_harmonic"], a["rotation"], a["scale_opacity"]
     per_ch = num_sh_coefficients(sh_degree_from_width(sh.shape[1]))

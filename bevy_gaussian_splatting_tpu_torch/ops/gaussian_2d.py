@@ -166,3 +166,26 @@ def surfel_affine_power(A, B, C, dxn, dyn, width: int) -> torch.Tensor:
     s3d = us * us + vs * vs
     d2x2 = (dxn * dxn + dyn * dyn) * (2.0 * float(width) ** 2)
     return -0.5 * torch.minimum(s3d, d2x2)
+
+
+def surfel_fragment_power(
+    local_to_pixel: torch.Tensor, pixel_coord: torch.Tensor, mean_2d: torch.Tensor
+) -> torch.Tensor:
+    """-0.5 * min(ray-plane 3D distance^2, 2 * 2D distance^2) of a surfel at
+    a pixel (gaussian_2d.wgsl:134-156), unfolded: ``local_to_pixel``
+    ``[..., 3, 3]``, ``pixel_coord`` and ``mean_2d`` ``[..., 2]`` in the
+    reference's fragment frame.  The planes through the pixel are crossed
+    as ``jnp.cross`` crosses them (:func:`_cross`), then divided by the
+    clamped ``pz`` (two divides, the JAX function's operations; the
+    compositors take the folded :func:`surfel_affine_power`)."""
+    deltas = mean_2d - pixel_coord
+    t0, t1, t2 = local_to_pixel[..., :, 0], local_to_pixel[..., :, 1], local_to_pixel[..., :, 2]
+    hu = pixel_coord[..., 0:1] * t2 - t0
+    hv = pixel_coord[..., 1:2] * t2 - t1
+    p = _cross(hu, hv)
+    pz = torch.where(p[..., 2].abs() > 1e-12, p[..., 2], torch.full_like(p[..., 2], 1e-12))
+    us = p[..., 0] / pz
+    vs = p[..., 1] / pz
+    sigmas_3d = us * us + vs * vs
+    sigmas_2d = 2.0 * (deltas * deltas).sum(dim=-1)
+    return -0.5 * torch.minimum(sigmas_3d, sigmas_2d)

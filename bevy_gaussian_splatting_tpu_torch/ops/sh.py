@@ -176,6 +176,17 @@ def srgb_to_linear(srgb: torch.Tensor) -> torch.Tensor:
     )
 
 
+def linear_to_srgb(linear: torch.Tensor) -> torch.Tensor:
+    """Per-channel sRGB OETF, the inverse of :func:`srgb_to_linear`: the
+    encode of the reference's Rgba8UnormSrgb render target
+    (src/render/mod.rs:914-982)."""
+    return torch.where(
+        linear <= 0.0031308,
+        linear * 12.92,
+        1.055 * torch.pow(torch.clamp(linear, min=1e-12), 1.0 / 2.4) - 0.055,
+    )
+
+
 def world_to_local_direction(direction: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
     """Rotate a world-space ray direction into the cloud's local frame using
     the normalized model-transform basis (src/render/gaussian.wgsl:186-203)."""

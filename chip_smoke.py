@@ -20,7 +20,9 @@ then phases 19 and 22:
 
   1. build   every kernel under bevy_gaussian_splatting_tpu_torch/csrc with
              nvcc for sm_90a, one nvcc per source, all started together,
-             and print what ptxas reports for each kernel (registers,
+             and beside them the native host runtime
+             (bevy_gaussian_splatting_tpu_torch/native/gsplat_native.cpp)
+             with g++; print what ptxas reports for each kernel (registers,
              shared memory, spills), and the backward compositor's
              dynamic shared memory and resident blocks per SM in each
              mode;
@@ -150,8 +152,17 @@ then phases 19 and 22:
              .gcloud files, in a temporary directory, each loaded by
              ``load_any`` on the card: the lossless formats bitwise the source
              and their frame bitwise the in-memory frame, PLY and GLB bitwise
-             the CPU's decode of the same bytes, the 1M .gcloud by the
-             vectorised FlexBuffers path; save and load ms and bytes.
+             the CPU's decode of the same bytes, the 1M .ply and .gcloud by
+             the native decoders; save and load ms and bytes.  The native
+             runtime against the numpy and FlexBuffers paths it replaced as
+             the default: the 1M .ply and .gcloud and the 65,536-row .gc4d
+             loaded each way in turns (medians of ``NATIVE_TURNS``), the
+             .gcloud and .gc4d array-equal both ways, the PLY within 1e-5
+             (the JAX package's bar between its two decoders; differing
+             elements counted), the native 3D bytes those of the port's
+             FlexBuffers writer, the native 4D bytes read array-equal by the
+             FlexBuffers reader; ``radix_sort_pairs`` of 1M seeded pairs
+             equal to a stable argsort, both timed.
              ``render_scene`` on the GLB at 512x512 and 1920x1080 bitwise its
              two ``render()`` calls chained by hand, and at 128x120 (each
              cloud cut to 65,536 rows) within 2e-5 of the CPU.  At 1M, card
@@ -347,6 +358,11 @@ PARTICLE_STEPS = 10
 NOISE_SH_BAR = 1e-5
 NOISE_CPU_STRIDE = 64
 MESH_BOUNDARY = 1e-5  # a point-in-mesh flip within this of a face or a face's diagonal (unit-box units) is rounding
+# the native runtime against the numpy / FlexBuffers paths (phase 20): turns of each load, the PLY bar between the
+# two decoders (the JAX package's, tests/test_io.py:276), the radix sort's pairs
+NATIVE_TURNS = 5
+NATIVE_PLY_BAR = 1e-5
+SORT_PAIRS = 1_000_000
 # front ends (phase 21) on the 1M scene
 STREAM_GRID = (4, 4, 1)
 STREAM_RADIUS = 12.0  # holds a few of the grid's 10 x 10 chunks
@@ -418,13 +434,21 @@ def orbit_camera(az: float, width: int, height: int, device):
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bevy_gaussian_splatting_tpu_torch import native
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
 
     t0 = time.perf_counter()
-    build.build_all()
-    seconds = time.perf_counter() - t0
-    log(f"[build] {', '.join(build.SOURCES)} built for sm_90a in {seconds:.2f} s")
+    with ThreadPoolExecutor(1) as pool:  # g++ for the host runtime beside the nvccs
+        host = pool.submit(native.load)
+        build.build_all()
+        seconds = time.perf_counter() - t0
+        host.result()
+    log(f"[build] {', '.join(build.SOURCES)} built for sm_90a in {seconds:.2f} s; the native host runtime "
+        f"({native.CXX} {' '.join(native.FLAGS)}) ready at {time.perf_counter() - t0:.2f} s: "
+        f"{native.library_path().name}")
     for name in build.SOURCES:
         for kernel, usage in build.ptxas_usage(name):
             log(f"[build] ptxas {name}.cu {kernel}: {usage}")
@@ -1940,19 +1964,143 @@ def clouds_bitwise(a, b) -> bool:
         same_bits(getattr(a, f.name).cpu(), getattr(b, f.name).cpu()) for f in dataclasses.fields(a))
 
 
+def card_name_and_limit() -> str:
+    """``nvidia-smi``'s name and power limit of the card, as its CSV line gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def decoder_paths() -> dict:
+    """The decode counters of the port's IO: the PLY decoders, the .gcloud
+    decoders and the FlexBuffers reader's two paths."""
+    from bevy_gaussian_splatting_tpu_torch.io import flexbuffers, gcloud, ply
+
+    return {**{f"ply {k}": v for k, v in ply.parse_ply_3d.paths.items()},
+            **{f"gcloud {k}": v for k, v in gcloud.decode_paths.items()},
+            **{f"flexbuffers {k}": v for k, v in flexbuffers.read_columns.paths.items()}}
+
+
+def io_native_turns(tmp: Path, cloud, cloud4) -> None:
+    """The native runtime against the decoders it replaced as the default, on
+    the files phase 20 saved in ``tmp``: each file loaded by ``load_any``
+    (native) and by the port's numpy decoder of the same bytes
+    (``use_native=False``: the PLY decoder, the FlexBuffers reader), in
+    turns; agreement; the encoders' bytes; the radix sort against a stable
+    argsort.  Host times on the card's machine, each beside the card's name
+    and power limit."""
+    from bevy_gaussian_splatting_tpu_torch import native
+    from bevy_gaussian_splatting_tpu_torch.io import flexbuffers
+    from bevy_gaussian_splatting_tpu_torch.io import gcloud as gcloud_codec
+    from bevy_gaussian_splatting_tpu_torch.io import ply as ply_codec
+    from bevy_gaussian_splatting_tpu_torch.io.loader import load_any
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_to_numpy
+
+    card = card_name_and_limit()
+    numpy_decoders = {
+        "bench.ply": (lambda data: ply_codec.parse_ply_3d(data, use_native=False), "ply"),
+        "bench.gcloud": (lambda data: gcloud_codec.decode_gcloud_3d(data, use_native=False), "gcloud"),
+        "bench4d.gc4d": (lambda data: gcloud_codec.decode_gcloud_4d(data, use_native=False), "gcloud"),
+    }
+    for name, (decode, counter) in numpy_decoders.items():
+        path = str(tmp / name)
+
+        def load_numpy():
+            with open(path, "rb") as f:
+                return decode(f.read())
+
+        ways = {"native": lambda: load_any(path), "numpy": load_numpy}
+        times, loaded = {"native": [], "numpy": []}, {}
+        before = decoder_paths()
+        for turn in range(NATIVE_TURNS):
+            for way in ("native", "numpy") if turn % 2 == 0 else ("numpy", "native"):
+                loaded.pop(way, None)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loaded[way] = ways[way]()
+                torch.cuda.synchronize()
+                times[way].append((time.perf_counter() - t0) * 1e3)
+        paths = {k: v - before[k] for k, v in decoder_paths().items() if v != before[k]}
+        slow = "numpy" if counter == "ply" else "flexbuffers"
+        if paths.get(f"{counter} native") != NATIVE_TURNS or paths.get(f"{counter} {slow}") != NATIVE_TURNS:
+            raise AssertionError(f"io native {name}: decoders taken {paths}")
+        med = {way: statistics.median(t) for way, t in times.items()}
+        for way in ("native", "numpy"):
+            log(f"[io native {name}] {way}: median {med[way]:.1f} ms of {NATIVE_TURNS} turns "
+                f"({', '.join(f'{t:.1f}' for t in times[way])}; read, decode, upload) | {card}")
+        a, b = cloud_to_numpy(loaded["native"]), cloud_to_numpy(loaded["numpy"])
+        if name == "bench.ply":
+            errs = {k: float(np.abs(a[k] - b[k]).max()) for k in a}
+            differ = {k: int((a[k] != b[k]).sum()) for k in a}
+            agree = (f"within {NATIVE_PLY_BAR} ({max(errs.values()):.3e} at most); elements that differ "
+                     + ", ".join(f"{k} {differ[k]} of {a[k].size}" for k in a))
+            ok = max(errs.values()) <= NATIVE_PLY_BAR
+        else:
+            ok = clouds_bitwise(loaded["native"], loaded["numpy"])
+            agree = "array-equal" if ok else "DIFFER"
+        log(f"[io native {name}] {len(loaded['native'])} rows: speedup {med['numpy'] / med['native']:.2f}x "
+            f"(numpy median over native median) | native against numpy {agree}")
+        if not ok:
+            raise AssertionError(f"io native {name}: the two decoders disagree ({agree})")
+        loaded.clear()
+
+    with open(tmp / "bench.gcloud", "rb") as f:
+        native3 = f.read()
+    t0 = time.perf_counter()
+    again = gcloud_codec.encode_gcloud_3d(cloud)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    port3 = gcloud_codec.encode_gcloud_3d(cloud, use_native=False)
+    port_ms = (time.perf_counter() - t0) * 1e3
+    native4 = gcloud_codec.encode_gcloud_4d(cloud4)
+    before = dict(flexbuffers.read_columns.paths)
+    read4 = gcloud_codec.decode_gcloud_4d(native4, use_native=False)
+    vectorised = flexbuffers.read_columns.paths["vectorised"] - before["vectorised"]
+    same3, same4 = native3 == again == port3, clouds_bitwise(read4, cloud4)
+    ok = same3 and same4 and vectorised == 1
+    log(f"[io native encode] {len(cloud)}-row .gcloud: native {native_ms:.1f} ms, the port's FlexBuffers writer "
+        f"{port_ms:.1f} ms (read-back included), bytes equal: {same3} ({len(native3)} B) | the native .gc4d "
+        f"({len(native4)} B) read by the FlexBuffers reader's vectorised path array-equal: {same4} | {card}")
+    if not ok:
+        raise AssertionError("io native: the encoders' bytes or the 4D read-back differ")
+
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 2**32, SORT_PAIRS, dtype=np.uint64).astype(np.uint32)
+    keys[::3] %= 4096  # duplicate keys: the sort must be stable
+    values = np.arange(SORT_PAIRS, dtype=np.uint32)
+    sort_times = {"radix": [], "argsort": []}
+    for turn in range(NATIVE_TURNS):
+        for way in ("radix", "argsort") if turn % 2 == 0 else ("argsort", "radix"):
+            k, v = keys.copy(), values.copy()
+            t0 = time.perf_counter()
+            if way == "radix":
+                got = native.radix_sort_pairs(k, v)
+            else:
+                order = np.argsort(k, kind="stable")
+                want = (k[order], v[order])
+            sort_times[way].append((time.perf_counter() - t0) * 1e3)
+    equal = all(np.array_equal(g, w) for g, w in zip(got, want))
+    log(f"[io native radix_sort_pairs] {SORT_PAIRS} u32 pairs, a third of the keys below 4096: equal to a stable "
+        f"np.argsort: {equal} | median of {NATIVE_TURNS} turns: radix {statistics.median(sort_times['radix']):.2f} ms, "
+        f"argsort and gather {statistics.median(sort_times['argsort']):.2f} ms | {card}")
+    if not equal:
+        raise AssertionError("radix_sort_pairs differs from a stable argsort")
+
+
 def phase_io(cloud, arrays: dict) -> dict:
     """Cloud and scene files, scene rendering, query, morph and noise on the 1M
     scene (OBB): save it with the port's encoders in every format, load each
     with ``load_any`` on the card (lossless formats bitwise the source and
     their frame bitwise the in-memory frame; PLY and GLB bitwise the CPU's
-    decode of the same bytes), ``render_scene`` on the GLB's two clouds,
+    decode of the same bytes), the native runtime against the decoders it
+    replaced (``io_native_turns``), ``render_scene`` on the GLB's two clouds,
     then ``points_in_mesh``, ``interpolate_clouds``, ten particle steps,
     ``_hash4`` and ``apply_noise`` card against CPU, each result rendered
     once -> the forward kernels' launches."""
     import tempfile
 
     from bevy_gaussian_splatting_tpu_torch.device import resolve_device
-    from bevy_gaussian_splatting_tpu_torch.io import flexbuffers
     from bevy_gaussian_splatting_tpu_torch.io.loader import load_any, save_cloud
     from bevy_gaussian_splatting_tpu_torch.io.scene import GaussianScene, SceneCamera, SceneCloud
     from bevy_gaussian_splatting_tpu_torch.io.scene import write_khr_gaussian_scene_glb
@@ -2015,12 +2163,12 @@ def phase_io(cloud, arrays: dict) -> dict:
             else:
                 nbytes = save_cloud(src, path, codec=codec)
             enc_ms = (time.perf_counter() - t0) * 1e3
-            paths_before = dict(flexbuffers.read_columns.paths)
+            paths_before = decoder_paths()
             t0 = time.perf_counter()
             loaded = load_any(path)
             torch.cuda.synchronize()
             dec_ms = (time.perf_counter() - t0) * 1e3
-            paths = {k: v - paths_before[k] for k, v in flexbuffers.read_columns.paths.items()}
+            paths = {k: v - paths_before[k] for k, v in decoder_paths().items() if v != paths_before[k]}
             got = loaded.clouds if src is None else [loaded]
             if any(c.device != dev for c in (g.cloud if src is None else g for g in got)):
                 raise AssertionError(f"io {name}: loaded off the card")
@@ -2035,10 +2183,11 @@ def phase_io(cloud, arrays: dict) -> dict:
             if check is None:
                 raise AssertionError(f"io {name}: the loaded cloud differs")
             note = ""
-            if name == "bench.gcloud":
-                if paths != {"vectorised": 1, "general": 0}:
-                    raise AssertionError(f"io {name}: decoded by the FlexBuffers paths {paths}, not the vectorised one")
-                note = "; FlexBuffers decoded by the vectorised path"
+            want = {"bench.gcloud": {"gcloud native": 1}, "bench.ply": {"ply native": 1}}.get(name)
+            if want is not None:
+                if paths != want:
+                    raise AssertionError(f"io {name}: decoded by the paths {paths}, not {want}")
+                note = "; decoded by the native runtime"
             if lossless and src is cloud:
                 if not same_bits(frame(loaded, cam512), ref):
                     raise AssertionError(f"io {name}: its frame differs from the in-memory cloud's")
@@ -2048,6 +2197,7 @@ def phase_io(cloud, arrays: dict) -> dict:
             rows = sum(len(c.cloud) for c in loaded.clouds) if src is None else len(loaded)
             log(f"[io {name}] {rows} rows, {nbytes} bytes | save {enc_ms:.1f} ms, load_any {dec_ms:.1f} ms "
                 f"(decode and upload) | {check}{note}")
+        io_native_turns(Path(tmp), cloud, cloud4)
 
     # render_scene on the GLB: far to near, each image the next cloud's background
     for width, height in SIZES:
@@ -3107,10 +3257,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_name_and_limit()
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

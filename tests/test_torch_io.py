@@ -2,9 +2,11 @@
 package's: PLY, ``.gcloud`` / ``.gc4d`` in FlexBuffers (the port's own codec,
 ``io/flexbuffers.py``) and bincode2, ``.npz`` and the loader.  Every file is
 written here, by one package or the other, from clouds drawn from a seed;
-each side decodes the other's bytes.  The bars are array equality (the
-codecs are lossless, the PLY decoders the same numpy), and 1e-5 against the
-JAX package's C++ PLY decoder (``tests/test_io.py:265``).
+each side decodes the other's bytes.  The bar is array equality: the
+codecs are lossless, and each PLY decoder is held to its counterpart (the
+port's native decoder to the JAX package's C++ one, built from the same
+source with the same flags; numpy to numpy).  ``tests/test_torch_native.py``
+holds the native module itself.
 """
 
 import threading
@@ -16,7 +18,6 @@ import pytest
 import torch
 
 import torch_port_cases as cases
-from bevy_gaussian_splatting_tpu import native
 from bevy_gaussian_splatting_tpu.io import bincode2 as jbin
 from bevy_gaussian_splatting_tpu.io import gcloud as jgc
 from bevy_gaussian_splatting_tpu.io import loader as jloader
@@ -35,9 +36,6 @@ from bevy_gaussian_splatting_tpu_torch.models.cloud import (
     random_arrays_4d_seeded,
 )
 from bevy_gaussian_splatting_tpu_torch.render.api import InteractiveRenderer, render
-
-NATIVE = native.available()
-
 
 def jax_arrays(cloud) -> dict:
     import dataclasses
@@ -119,14 +117,18 @@ PLY_CASES = [
 
 @pytest.mark.parametrize("make,kw", [c[1:] for c in PLY_CASES], ids=[c[0] for c in PLY_CASES])
 def test_ply_3d_matches_jax(make, kw):
+    """Each package's default (the native decoder; numpy for ASCII, which
+    the native reader refuses) array-equal to the other's, and the numpy
+    decoders array-equal to each other."""
     data, _ = ply_bytes(**make)
+    before = dict(tply.parse_ply_3d.paths)
     port = tply.parse_ply_3d(data, device="cpu", **kw)
-    assert_same(jply.parse_ply_3d(data, use_native=False, **kw), port)
+    path = "native" if make.get("fmt", "binary") == "binary" else "numpy"
+    assert tply.parse_ply_3d.paths[path] == before[path] + 1
+    assert_same(jply.parse_ply_3d(data, use_native=True, **kw), port)
     assert len(port) == make.get("n", 6) + 32 - make.get("n", 6) % 32
-    if NATIVE and make.get("fmt", "binary") == "binary":
-        want = jax_arrays(jply.parse_ply_3d(data, use_native=True, **kw))
-        for k, v in cloud_to_numpy(port).items():
-            np.testing.assert_allclose(v, want[k], atol=1e-5, err_msg=k)
+    assert_same(jply.parse_ply_3d(data, use_native=False, **kw),
+                tply.parse_ply_3d(data, use_native=False, device="cpu", **kw))
 
 
 def test_ply_reference_collision_and_missing_property():
@@ -139,10 +141,11 @@ def test_ply_reference_collision_and_missing_property():
     np.testing.assert_array_equal(strict[:3, 3], cols["f_rest_15"])
     np.testing.assert_array_equal(loose[:3, 3], cols["f_rest_0"])
     bad = data.replace(b"property float rot_3\n", b"property float qq_3\n")
-    with pytest.raises(ValueError, match="missing required"):
-        tply.parse_ply_3d(bad, device="cpu")
-    with pytest.raises(ValueError, match="missing required"):
-        jply.parse_ply_3d(bad, use_native=False)
+    for use_native in (True, False):
+        with pytest.raises(ValueError, match="missing required"):
+            tply.parse_ply_3d(bad, use_native=use_native, device="cpu")
+        with pytest.raises(ValueError, match="missing required"):
+            jply.parse_ply_3d(bad, use_native=use_native)
 
 
 def ply_4d_bytes(n=5, seed=1):
@@ -189,9 +192,9 @@ def test_ply_4d_and_writers_match_jax(clouds):
 # ---------------------------------------------------------------------------
 
 PORT_ENCODE = {"3d": tgc.encode_gcloud_3d, "3d-sh1": tgc.encode_gcloud_3d, "4d": tgc.encode_gcloud_4d,
-               "cov3d": tgc.encode_gcloud_cov3d}
+               "cov3d": lambda c, use_native: tgc.encode_gcloud_cov3d(c)}
 PORT_DECODE = {"3d": tgc.decode_gcloud_3d, "3d-sh1": tgc.decode_gcloud_3d, "4d": tgc.decode_gcloud_4d,
-               "cov3d": tgc.decode_gcloud_cov3d}
+               "cov3d": lambda d, device, use_native: tgc.decode_gcloud_cov3d(d, device)}
 JAX_ENCODE = {"3d": jgc.encode_gcloud_3d, "3d-sh1": jgc.encode_gcloud_3d, "4d": jgc.encode_gcloud_4d,
               "cov3d": lambda c, use_native: jgc.encode_gcloud_cov3d(c)}
 JAX_DECODE = {"3d": jgc.decode_gcloud_3d, "3d-sh1": jgc.decode_gcloud_3d, "4d": jgc.decode_gcloud_4d,
@@ -201,43 +204,50 @@ KINDS = ("3d", "3d-sh1", "4d", "cov3d")
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_gcloud_port_bytes_decode_in_jax(clouds, kind):
-    """The port's bytes through JAX's Python decoder and, for 3D and 4D, its
-    C++ one; the 3D bytes are the C++ encoder's byte for byte (4D differs in
-    the order of the key strings only, which the C++ encoder does not sort)."""
+    """The bytes of both of the port's encoders (native, the default, and its
+    own FlexBuffers writer) through JAX's Python decoder and, for 3D and 4D,
+    its C++ one.  The native bytes are the C++ encoder's byte for byte in 3D
+    and 4D; the port's writer's 3D bytes too (its 4D bytes differ in the
+    order of the key strings only, which the C++ encoder does not sort)."""
     jc, tc = clouds[kind]
-    data = PORT_ENCODE[kind](tc)
-    decoders = [False] + ([True] if NATIVE and kind != "cov3d" else [])
-    for use_native in decoders:
-        got = JAX_DECODE[kind](data, use_native=use_native)
-        want = cloud_to_numpy(tc)
-        if kind == "cov3d":  # the file holds the covariance in f16 pairs
-            want = cloud_to_numpy(tgc.decode_gcloud_cov3d(data, device="cpu"))
-        for k, v in jax_arrays(got).items():
-            np.testing.assert_array_equal(v, want[k], err_msg=f"{k} native={use_native}")
-    if NATIVE and kind.startswith("3d"):
-        assert data == jgc.encode_gcloud_3d(jc, use_native=True)
+    for port_native in (True, False):
+        data = PORT_ENCODE[kind](tc, use_native=port_native)
+        for use_native in [False] + ([True] if kind != "cov3d" else []):
+            got = JAX_DECODE[kind](data, use_native=use_native)
+            want = cloud_to_numpy(tc)
+            if kind == "cov3d":  # the file holds the covariance in f16 pairs
+                want = cloud_to_numpy(tgc.decode_gcloud_cov3d(data, device="cpu"))
+            for k, v in jax_arrays(got).items():
+                np.testing.assert_array_equal(v, want[k], err_msg=f"{k} port native={port_native} native={use_native}")
+        if kind.startswith("3d") or (kind == "4d" and port_native):
+            assert data == JAX_ENCODE[kind](jc, use_native=True), port_native
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_gcloud_jax_bytes_decode_in_port(clouds, kind):
     """Both of JAX's encoders (C++ and the flatbuffers Builder) read by the
-    port array-equal to JAX's own decode: the C++ layout by the vectorised
-    path, the Builder's (widths per vector) by the general one."""
+    port's FlexBuffers reader array-equal to JAX's own decode: the C++ layout
+    by the vectorised path, the Builder's (widths per vector) by the general
+    one; and by the port's native decoder (the default; cov3d has no native
+    path), counted in ``decode_paths``."""
     jc, _ = clouds[kind]
-    encoders = [False] + ([True] if NATIVE and kind != "cov3d" else [])
-    for use_native in encoders:
+    for use_native in [False] + ([True] if kind != "cov3d" else []):
         data = JAX_ENCODE[kind](jc, use_native=use_native)
+        want = JAX_DECODE[kind](data, use_native=False)
         before = dict(flexbuffers.read_columns.paths)
-        port = PORT_DECODE[kind](data, device="cpu")
-        assert_same(JAX_DECODE[kind](data, use_native=False), port)
+        assert_same(want, PORT_DECODE[kind](data, device="cpu", use_native=False))
         path = "vectorised" if use_native else "general"
         assert flexbuffers.read_columns.paths[path] == before[path] + 1, (use_native, flexbuffers.read_columns.paths)
+        if kind != "cov3d":
+            before = dict(tgc.decode_paths)
+            assert_same(want, PORT_DECODE[kind](data, device="cpu", use_native=True))
+            assert tgc.decode_paths["native"] == before["native"] + 1, tgc.decode_paths
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_gcloud_vectorised_and_general_paths_agree(clouds, kind):
     _, tc = clouds[kind]
-    data = PORT_ENCODE[kind](tc)
+    data = PORT_ENCODE[kind](tc, use_native=False)  # the port's own writer
     spec = [(name, tgc._COLUMNS[name]) for name in flexbuffers.root_keys(data)]
     fast = flexbuffers.read_columns_vectorised(data, spec)
     slow = flexbuffers.read_columns_general(data, spec)
@@ -249,11 +259,15 @@ def test_gcloud_vectorised_and_general_paths_agree(clouds, kind):
 
 
 def test_flexbuffers_rejects_malformed_data(clouds):
+    """Truncated and foreign buffers raise ``ValueError`` through both
+    decoders: the native reader checks every offset against the buffer and
+    leaves what its probe refuses to the FlexBuffers reader."""
     _, tc = clouds["3d"]
     data = tgc.encode_gcloud_3d(tc)
     for bad in (data[:-100], data[: len(data) // 2] + b"\0\0", b"\x01\x02"):
-        with pytest.raises(ValueError):
-            tgc.decode_gcloud_3d(bad, device="cpu")
+        for use_native in (True, False):
+            with pytest.raises(ValueError):
+                tgc.decode_gcloud_3d(bad, device="cpu", use_native=use_native)
     assert not tgc.gcloud_is_cov3d(b"not a flexbuffer")
 
 
@@ -304,20 +318,14 @@ LOADER_CASES = [
 
 def test_loader_dispatch_matches_jax(clouds, tmp_path):
     """``save_cloud`` then ``load_any`` by extension and codec sniff: the port
-    loads each file as JAX's loader does (the port's ``.ply4d`` writer has no
-    JAX counterpart; JAX reads its files).  JAX's loader parses ``.ply`` with
-    its C++ decoder, which normalises quaternions one ulp apart from numpy:
-    there the port is held to JAX's numpy decoder."""
+    loads each file as JAX's loader does, both at their defaults (the native
+    decoders for ``.ply``, ``.gcloud`` and ``.gc4d``; the port's ``.ply4d``
+    writer has no JAX counterpart; JAX reads its files)."""
     for name, kind, codec in LOADER_CASES:
         _, tc = clouds[kind]
         path = str(tmp_path / f"{kind}-{codec}-{name}")
         assert tloader.save_cloud(tc, path, codec=codec) > 0
-        if name.endswith(".ply"):
-            with open(path, "rb") as f:
-                want = jply.parse_ply_3d(f.read(), use_native=False)
-        else:
-            want = jloader.load_cloud(path)
-        assert_same(want, tloader.load_any(path, device="cpu"))
+        assert_same(jloader.load_cloud(path), tloader.load_any(path, device="cpu"))
     with pytest.raises(ValueError, match="unsupported cloud extension"):
         tloader.save_cloud(clouds["3d"][1], str(tmp_path / "c.xyz"))
     (tmp_path / "c.xyz").write_bytes(b"xyz")
@@ -325,6 +333,24 @@ def test_loader_dispatch_matches_jax(clouds, tmp_path):
         tloader.load_cloud(str(tmp_path / "c.xyz"), device="cpu")
     with pytest.raises(ValueError, match="flexbuffers codec"):
         tloader.save_cloud(clouds["cov3d"][1], str(tmp_path / "x.gcloud"), codec="bincode2")
+
+
+@pytest.mark.parametrize("ext", [".ply", ".gcloud"])
+def test_load_any_defaults_match_jax(tmp_path, ext):
+    """A file the JAX package wrote at its defaults, 5,000 rows (the native
+    PLY decoder runs threaded from 4,096), read by both packages' ``load_any``
+    at their defaults: array-equal, and the port's read went through its
+    native decoder."""
+    a = random_arrays_3d_seeded(5000, seed=21)
+    jc = cases.jax_cloud(a)
+    path = str(tmp_path / f"c{ext}")
+    with open(path, "wb") as f:
+        f.write(jply.write_ply_3d(jc) if ext == ".ply" else jgc.encode_gcloud_3d(jc))
+    counter = tply.parse_ply_3d.paths if ext == ".ply" else tgc.decode_paths
+    before = counter["native"]
+    port = tloader.load_any(path, device="cpu")
+    assert counter["native"] == before + 1
+    assert_same(jloader.load_any(path), port)
 
 
 @pytest.mark.parametrize("text", [
