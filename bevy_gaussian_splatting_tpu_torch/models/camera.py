@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from bevy_gaussian_splatting_tpu_torch.device import DeviceLike, resolve_device
+from bevy_gaussian_splatting_tpu_torch.utils.trace import spanned
 
 
 def _look_at_rh_np(eye, target, up) -> np.ndarray:
@@ -93,6 +94,7 @@ class Camera:
         )
 
     @staticmethod
+    @spanned("gs.camera")
     def create(
         eye=(0.0, 1.5, 5.0),
         target=(0.0, 0.0, 0.0),
@@ -176,6 +178,7 @@ def _filled(shape: tuple, entries: dict, device) -> torch.Tensor:
     return t
 
 
+@spanned("gs.camera")
 def orbit_camera_device(
     orbit: torch.Tensor,
     width: int,

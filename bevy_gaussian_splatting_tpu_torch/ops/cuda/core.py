@@ -30,12 +30,14 @@ from torch.autograd.function import once_differentiable
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.reduce import segment_reduce
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_bwd import composite_backward, pack_gbar
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import MAX_CHUNK, MODE_OBB, composite_tiles_raw
+from bevy_gaussian_splatting_tpu_torch.utils.trace import span
 
 
 class CompositeCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, params, g_s, start, count, order, cum, perm, geometry):
-        params_sorted = params[g_s].contiguous()
+        with span("gs.pack"):
+            params_sorted = params[g_s].contiguous()
         out_raw = composite_tiles_raw(params_sorted, start, count, *geometry)
         ctx.save_for_backward(params_sorted, start, count, order, cum, perm, out_raw)
         ctx.geometry = geometry
@@ -53,13 +55,17 @@ class CompositeCore(torch.autograd.Function):
                 "render_tiled(..., differentiable=True) to train through it"
             )
         params_sorted, start, count, order, cum, perm, out_raw = ctx.saved_tensors
-        gbar = pack_gbar(grad_raw, out_raw)
-        dsorted = composite_backward(params_sorted, start, count, gbar, *geometry)
-        dslot = torch.empty_like(dsorted)
-        dslot[order] = dsorted
-        drank = segment_reduce(dslot, cum, perm.shape[0])
-        dparams = torch.empty_like(drank)
-        dparams[perm.to(torch.int64)] = drank
+        with span("gs.composite_bwd"):
+            gbar = pack_gbar(grad_raw, out_raw)
+            dsorted = composite_backward(params_sorted, start, count, gbar, *geometry)
+        with span("gs.unpermute"):
+            dslot = torch.empty_like(dsorted)
+            dslot[order] = dsorted
+        with span("gs.reduce"):
+            drank = segment_reduce(dslot, cum, perm.shape[0])
+        with span("gs.unpermute"):
+            dparams = torch.empty_like(drank)
+            dparams[perm.to(torch.int64)] = drank
         return dparams, None, None, None, None, None, None, None
 
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
+from bevy_gaussian_splatting_tpu_torch.utils.trace import spanned
 
 TILE = 16
 PIX = TILE * TILE  # 256
@@ -324,6 +325,7 @@ def composite_tiles_raw_plain(
     return out
 
 
+@spanned("gs.composite")
 def composite_tiles_raw(
     params: torch.Tensor,
     tile_start: torch.Tensor,
@@ -384,6 +386,7 @@ composite_tiles_raw.launches = 0
 composite_tiles_raw.instances = {}
 
 
+@spanned("gs.composite")
 def composite_epilogue(out_raw: torch.Tensor, background, width: int, height: int) -> torch.Tensor:
     """Raw kernel rows [T, 4, 256] -> [H, W, 4] with the background blended
     under the splats (tile_fwd.py:435-472): a solid [4] RGBA, or a full

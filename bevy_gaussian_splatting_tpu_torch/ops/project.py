@@ -55,6 +55,7 @@ from bevy_gaussian_splatting_tpu_torch.ops.transforms import (
     in_frustum,
     world_to_clip,
 )
+from bevy_gaussian_splatting_tpu_torch.utils.trace import span, spanned
 
 
 def time_tensor(time, settings: CloudSettings, device) -> torch.Tensor:
@@ -96,6 +97,7 @@ def _check_cloud(cloud, settings: CloudSettings) -> None:
             )
 
 
+@spanned("gs.project")
 def project_gaussians(
     cloud,
     camera: Camera,
@@ -138,10 +140,11 @@ def project_gaussians(
     cond = None
     if mode == GaussianMode.GAUSSIAN_4D:
         time = time_tensor(time, settings, dev)
-        cond = g4d.conditional_cov3d(
-            cloud.rotation, cloud.rotation_r, cloud.scale, cloud.timescale, cloud.timestamp, time,
-            settings.global_scale,
-        )
+        with span("gs.project.time"):
+            cond = g4d.conditional_cov3d(
+                cloud.rotation, cloud.rotation_r, cloud.scale, cloud.timescale, cloud.timestamp, time,
+                settings.global_scale,
+            )
         # the mean shifted by the temporal delta, then transformed
         # (gaussian.wgsl:262-283); the covariance is not conjugated by the
         # model transform (gaussian_4d.wgsl), as in the reference
@@ -170,100 +173,102 @@ def project_gaussians(
         "sort_key": sort_key,
         "cutoff": cutoff,
     }
-    if mode == GaussianMode.GAUSSIAN_2D:
-        # an invalid surfel leaves the mask after the radix key
-        # (render_tiled takes the key from radix_depth_key's own frustum
-        # test, rasterize_tile.py:1154-1174)
-        T, mean_2d, extent, valid = g2d.compute_cov2d_surfel(
-            world_pos, cloud.rotation, cloud.scale, settings.global_scale, model_transform,
-            camera.clip_from_world, camera.clip_from_view, viewport, cutoff,
-        )
-        splats["mask"] = mask & valid
-        splats["surfel_t"] = T
-        splats["mean_2d"] = mean_2d
-        splats["surfel_radius"] = g2d.surfel_bounding_radius(extent, cutoff)
-    else:
-        if cond is not None:
-            cov3 = cond["cov3d"]
-        elif isinstance(cloud, Gaussian3dCovCloud):
-            # stored as is: no model-transform conjugation, no global scale
-            # (gaussian_3d.wgsl:76-81, get_cov3d)
-            cov3 = cloud.cov3d
+    with span("gs.project.cov"):
+        if mode == GaussianMode.GAUSSIAN_2D:
+            # an invalid surfel leaves the mask after the radix key
+            # (render_tiled takes the key from radix_depth_key's own frustum
+            # test, rasterize_tile.py:1154-1174)
+            T, mean_2d, extent, valid = g2d.compute_cov2d_surfel(
+                world_pos, cloud.rotation, cloud.scale, settings.global_scale, model_transform,
+                camera.clip_from_world, camera.clip_from_view, viewport, cutoff,
+            )
+            splats["mask"] = mask & valid
+            splats["surfel_t"] = T
+            splats["mean_2d"] = mean_2d
+            splats["surfel_radius"] = g2d.surfel_bounding_radius(extent, cutoff)
         else:
-            cov3 = cov_ops.compute_cov3d(cloud.rotation, cloud.scale, settings.global_scale, model_transform)
-        cov2 = cov_ops.cov2d(world_pos, cov3, camera.view_from_world, camera.clip_from_view, viewport)
-        if settings.aabb:
-            splats["conic"] = cov_ops.conic_from_cov2d(cov2)
-            splats["radius_vp"] = cov_ops.aabb_radius(cov2, cutoff)
-        else:
-            major, minor, axis = cov_ops.obb_axes(cov2, cutoff)
-            splats["obb_bounds"] = torch.stack([major, minor], dim=-1)
-            splats["obb_axis"] = axis
+            if cond is not None:
+                cov3 = cond["cov3d"]
+            elif isinstance(cloud, Gaussian3dCovCloud):
+                # stored as is: no model-transform conjugation, no global scale
+                # (gaussian_3d.wgsl:76-81, get_cov3d)
+                cov3 = cloud.cov3d
+            else:
+                cov3 = cov_ops.compute_cov3d(cloud.rotation, cloud.scale, settings.global_scale, model_transform)
+            cov2 = cov_ops.cov2d(world_pos, cov3, camera.view_from_world, camera.clip_from_view, viewport)
+            if settings.aabb:
+                splats["conic"] = cov_ops.conic_from_cov2d(cov2)
+                splats["radius_vp"] = cov_ops.aabb_radius(cov2, cutoff)
+            else:
+                major, minor, axis = cov_ops.obb_axes(cov2, cutoff)
+                splats["obb_bounds"] = torch.stack([major, minor], dim=-1)
+                splats["obb_axis"] = axis
 
     # colour per rasterize mode (gaussian.wgsl:312-421, project.py:198-262)
-    rmode = settings.rasterize_mode
-    if rmode in (RasterizeMode.COLOR, RasterizeMode.CLASSIFICATION):
-        # SH lookup along the view ray
-        ray_dir = diff / torch.clamp(torch.sqrt(dist2)[..., None], min=1e-12)
-        ray_dir_local = sh_ops.world_to_local_direction(ray_dir, model_transform)
-        if cond is not None:
-            # duration = float32(time_stop - time_start) (project.py:56-66)
-            duration = torch.full((), settings.time_stop - settings.time_start, dtype=torch.float32, device=dev)
-            rgb = sh_ops.spherindrical_harmonics_lookup(
-                ray_dir_local, cond["dir_t"], cloud.spherindrical_harmonic, duration
+    with span("gs.project.sh"):
+        rmode = settings.rasterize_mode
+        if rmode in (RasterizeMode.COLOR, RasterizeMode.CLASSIFICATION):
+            # SH lookup along the view ray
+            ray_dir = diff / torch.clamp(torch.sqrt(dist2)[..., None], min=1e-12)
+            ray_dir_local = sh_ops.world_to_local_direction(ray_dir, model_transform)
+            if cond is not None:
+                # duration = float32(time_stop - time_start) (project.py:56-66)
+                duration = torch.full((), settings.time_stop - settings.time_start, dtype=torch.float32, device=dev)
+                rgb = sh_ops.spherindrical_harmonics_lookup(
+                    ray_dir_local, cond["dir_t"], cloud.spherindrical_harmonic, duration
+                )
+            else:
+                rgb = sh_ops.spherical_harmonics_lookup(ray_dir_local, cloud.spherical_harmonic)
+            if settings.color_space == GaussianColorSpace.SRGB_REC709_DISPLAY:
+                rgb = sh_ops.srgb_to_linear(rgb)
+            if rmode == RasterizeMode.CLASSIFICATION:
+                rgb = color_ops.class_to_rgb(visibility, rgb, settings.num_classes)
+        elif rmode == RasterizeMode.DEPTH:
+            depth = torch.sqrt(dist2)
+            if depth_minmax is None:
+                min_d = torch.where(mask, depth, torch.inf).min()
+                max_d = torch.where(mask, depth, -torch.inf).max()
+            else:
+                min_d, max_d = depth_minmax
+            rgb = color_ops.depth_to_rgb(depth, min_d, max_d)
+        elif rmode == RasterizeMode.NORMAL:
+            # view-space z axis of T S R (gaussian.wgsl:348-368): the third
+            # column of model[:3, :3] @ (R * s[:, None]); 4DGS takes the left
+            # quaternion (project.py:213-226)
+            R = cov_ops.quat_to_rotation_matrix(cloud.rotation)
+            SR = R * (cloud.scale * settings.global_scale)[..., :, None]
+            local_normal = (model_transform[:3, :3] @ SR)[..., :, 2]
+            world_normal = local_normal @ camera.view_from_world[:3, :3].T
+            t = world_normal / torch.clamp(torch.linalg.norm(world_normal, dim=-1, keepdim=True), min=1e-12)
+            rgb = 0.5 * (t + 1.0)
+        elif rmode == RasterizeMode.OPTICAL_FLOW:
+            # the previous world position is the unshifted one (project.py:113-115):
+            # without 4DGS the flow comes from the camera's previous clip matrix
+            # alone, with it also from the temporal shift
+            mv = color_ops.calculate_motion_vector(
+                world_pos, key_pos, camera.clip_from_world, camera.prev_clip_from_world
             )
-        else:
-            rgb = sh_ops.spherical_harmonics_lookup(ray_dir_local, cloud.spherical_harmonic)
-        if settings.color_space == GaussianColorSpace.SRGB_REC709_DISPLAY:
-            rgb = sh_ops.srgb_to_linear(rgb)
-        if rmode == RasterizeMode.CLASSIFICATION:
-            rgb = color_ops.class_to_rgb(visibility, rgb, settings.num_classes)
-    elif rmode == RasterizeMode.DEPTH:
-        depth = torch.sqrt(dist2)
-        if depth_minmax is None:
-            min_d = torch.where(mask, depth, torch.inf).min()
-            max_d = torch.where(mask, depth, -torch.inf).max()
-        else:
-            min_d, max_d = depth_minmax
-        rgb = color_ops.depth_to_rgb(depth, min_d, max_d)
-    elif rmode == RasterizeMode.NORMAL:
-        # view-space z axis of T S R (gaussian.wgsl:348-368): the third
-        # column of model[:3, :3] @ (R * s[:, None]); 4DGS takes the left
-        # quaternion (project.py:213-226)
-        R = cov_ops.quat_to_rotation_matrix(cloud.rotation)
-        SR = R * (cloud.scale * settings.global_scale)[..., :, None]
-        local_normal = (model_transform[:3, :3] @ SR)[..., :, 2]
-        world_normal = local_normal @ camera.view_from_world[:3, :3].T
-        t = world_normal / torch.clamp(torch.linalg.norm(world_normal, dim=-1, keepdim=True), min=1e-12)
-        rgb = 0.5 * (t + 1.0)
-    elif rmode == RasterizeMode.OPTICAL_FLOW:
-        # the previous world position is the unshifted one (project.py:113-115):
-        # without 4DGS the flow comes from the camera's previous clip matrix
-        # alone, with it also from the temporal shift
-        mv = color_ops.calculate_motion_vector(
-            world_pos, key_pos, camera.clip_from_world, camera.prev_clip_from_world
-        )
-        rgb = color_ops.optical_flow_to_rgb(mv, delta_time)
-    elif rmode == RasterizeMode.POSITION:
-        if aabb_min is None or aabb_max is None:
-            # over the positions, applied to the world positions (a quirk of
-            # the JAX package, project.py:237-240)
-            aabb_min, aabb_max = cloud.compute_aabb()
-        rgb = (world_pos - aabb_min) / (aabb_max - aabb_min)
-    else:  # VELOCITY (check_supported let it through with 4DGS only)
-        # a float32 finite difference of the delta mean over 1e-3 of time
-        # (gaussian.wgsl:378-405, project.py:241-260)
-        time_delta = torch.full((), 1e-3, dtype=torch.float32, device=dev)
-        cond_f = g4d.conditional_cov3d(
-            cloud.rotation, cloud.rotation_r, cloud.scale, cloud.timescale, cloud.timestamp, time + 1e-3,
-            settings.global_scale,
-        )
-        vel = (cond_f["delta_mean"] - cond["delta_mean"]) / time_delta
-        vmag = torch.linalg.norm(vel, dim=-1)
-        vdir = vel / torch.clamp(vmag[..., None], min=1e-12)
-        scaled_mag = torch.clamp((vmag - 1.0) / (2.0 - 1.0), 0.0, 1.0)
-        opacity = torch.where(scaled_mag < 1e-2, torch.zeros_like(opacity), opacity)
-        rgb = 0.5 * (vdir + 1.0) * scaled_mag[..., None]
+            rgb = color_ops.optical_flow_to_rgb(mv, delta_time)
+        elif rmode == RasterizeMode.POSITION:
+            if aabb_min is None or aabb_max is None:
+                # over the positions, applied to the world positions (a quirk of
+                # the JAX package, project.py:237-240)
+                aabb_min, aabb_max = cloud.compute_aabb()
+            rgb = (world_pos - aabb_min) / (aabb_max - aabb_min)
+        else:  # VELOCITY (check_supported let it through with 4DGS only)
+            # a float32 finite difference of the delta mean over 1e-3 of time
+            # (gaussian.wgsl:378-405, project.py:241-260)
+            time_delta = torch.full((), 1e-3, dtype=torch.float32, device=dev)
+            cond_f = g4d.conditional_cov3d(
+                cloud.rotation, cloud.rotation_r, cloud.scale, cloud.timescale, cloud.timestamp, time + 1e-3,
+                settings.global_scale,
+            )
+            vel = (cond_f["delta_mean"] - cond["delta_mean"]) / time_delta
+            vmag = torch.linalg.norm(vel, dim=-1)
+            vdir = vel / torch.clamp(vmag[..., None], min=1e-12)
+            scaled_mag = torch.clamp((vmag - 1.0) / (2.0 - 1.0), 0.0, 1.0)
+            opacity = torch.where(scaled_mag < 1e-2, torch.zeros_like(opacity), opacity)
+            rgb = 0.5 * (vdir + 1.0) * scaled_mag[..., None]
 
     alpha = opacity * settings.global_opacity
     if settings.draw_mode == DrawMode.HIGHLIGHT_SELECTED:

@@ -59,6 +59,7 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
 from bevy_gaussian_splatting_tpu_torch.ops.gaussian_2d import surfel_affine_coeffs
 from bevy_gaussian_splatting_tpu_torch.ops.project import as_float32, project_gaussians
 from bevy_gaussian_splatting_tpu_torch.ops.transforms import apply_transform
+from bevy_gaussian_splatting_tpu_torch.utils import trace
 
 TILE = 16  # pixels per tile side
 PAIRS_HEADROOM = 1.25  # budget over a measured pair count
@@ -103,13 +104,17 @@ def tile_budget(n: int) -> int:
     return int(min(max(2 * n, 1 << 10), 1 << 13))
 
 
+@trace.spanned("gs.project")
 def project_for_binning(
     cloud, camera: Camera, settings: CloudSettings, model_transform=None, depth_minmax=None, time=None
 ) -> dict:
     """``project_gaussians`` at ``time`` (default ``settings.time``) with the
     sentinel cull of its radix key (``sort_key``) folded into ``mask``, as
     ``render_tiled`` prepares them."""
-    splats = project_gaussians(cloud, camera, settings, model_transform, depth_minmax=depth_minmax, time=time)
+    # the projection without a span of its own: this call is the span
+    splats = project_gaussians.__wrapped__(
+        cloud, camera, settings, model_transform, depth_minmax=depth_minmax, time=time
+    )
     splats["mask"] = splats["mask"] & (splats["sort_key"] != sort_ops.SENTINEL_KEY)
     return splats
 
@@ -226,7 +231,8 @@ def expansion_inputs(
     uncapped pair count (int64 scalar tensor).  ``tile_row0`` and
     ``band_tile_rows`` window a band (:func:`tile_rects`)."""
     tx0, ty0, rect_w, rect_h, active = tile_rects(splats, width, height, tile_row0, band_tile_rows)
-    perm = front_depth_perm(splats["sort_key"], active)
+    with trace.span("gs.bin.sort_depth"):
+        perm = front_depth_perm(splats["sort_key"], active)
     cum = torch.cumsum((rect_w * rect_h)[perm], dim=0)
     total = cum[-1] if cum.numel() else cum.new_zeros(())
 
@@ -262,13 +268,16 @@ def bin_gaussians(
     rows = pad_to_tile(height) // TILE if tile_row0 is None else band_tile_rows
     sentinel = tx_count * rows
     table, total = expansion_inputs(splats, width, height, p_max, tile_row0, band_tile_rows)
-    tile, g_cloud, rank = expand_pairs(*table, p_max, tx_count, sentinel)
+    with trace.span("gs.bin.expand"):
+        tile, g_cloud, rank = expand_pairs(*table, p_max, tx_count, sentinel)
     # born depth-ordered: a stable sort on the tile alone keeps depth order
-    tile_s, order = torch.sort(tile, stable=True)
+    with trace.span("gs.bin.sort_tile"):
+        tile_s, order = torch.sort(tile, stable=True)
     cum, perm = table[0], table[4]
     return g_cloud[order], tile_s, tile_s < sentinel, total, order, rank, cum, perm
 
 
+@trace.spanned("gs.bin.ranges")
 def tile_ranges(pair_tile: torch.Tensor, num_tiles: int):
     """Contiguous [start, end) of every tile in the tile-sorted pairs, from
     one search over ``num_tiles + 1`` tile ids (end[t] == start[t + 1])."""
@@ -310,6 +319,7 @@ def pack_raster_param_cols(splats: dict, settings: CloudSettings, width: int, he
     return cols + [rgb[:, 0], rgb[:, 1], rgb[:, 2], alpha]
 
 
+@trace.spanned("gs.pack")
 def pack_raster_params(splats: dict, settings: CloudSettings, width: int, height: int) -> torch.Tensor:
     """[N, param_width] packed per-splat parameters for the compositor (10
     columns, 16 for 2DGS)."""
@@ -328,17 +338,24 @@ class TileBins(NamedTuple):
 
 
 def tile_bins(
-    splats: dict, width: int, height: int, p_max: int, tile_row0=None, band_tile_rows: Optional[int] = None
+    splats: dict, width: int, height: int, p_max: int, tile_row0=None, band_tile_rows: Optional[int] = None,
+    pairs_counter: Optional[str] = None,
 ) -> TileBins:
     """Bin a frame on the padded tile grid, or on the band that
     ``tile_row0`` and ``band_tile_rows`` window (:func:`bin_gaussians`): tile
     ranges with counts clipped at ``k_max``, plus the inverse maps the
-    backward needs."""
+    backward needs.  ``pairs_counter`` names a counter (``utils/trace.py``
+    :func:`count_later`) that gets the uncapped pair count."""
     rows = pad_to_tile(height) // TILE if tile_row0 is None else band_tile_rows
     num_tiles = (width // TILE) * rows
-    g_s, tile_s, _, _, order, _, cum, perm = bin_gaussians(splats, width, height, p_max, tile_row0, band_tile_rows)
-    start, end = tile_ranges(tile_s, num_tiles)
-    count = torch.clamp(end - start, max=tile_budget(splats["mask"].shape[0]))
+    with trace.span("gs.bin"):
+        g_s, tile_s, _, total, order, _, cum, perm = bin_gaussians(
+            splats, width, height, p_max, tile_row0, band_tile_rows
+        )
+        start, end = tile_ranges(tile_s, num_tiles)
+        count = torch.clamp(end - start, max=tile_budget(splats["mask"].shape[0]))
+    if pairs_counter is not None:
+        trace.count_later(pairs_counter, total)
     return TileBins(g_s, start, count, order, cum, perm)
 
 
@@ -453,6 +470,7 @@ def render_tiled(
     width: Optional[int] = None,
     height: Optional[int] = None,
     pairs_hint: Optional[int] = None,
+    counter: Optional[str] = None,
 ) -> torch.Tensor:
     """Render -> [H, W, 4] linear premultiplied RGBA on the cloud's device,
     differentiable in the cloud's tensors (and in ``background``) where
@@ -461,7 +479,9 @@ def render_tiled(
     ``pairs_budget(N, pairs_hint)``, the 6N cap without a hint); ``time``
     the 4DGS frame time (a number or a float32 scalar tensor, default
     ``settings.time``); ``width`` and ``height`` the image size (default
-    the camera's).
+    the camera's); ``counter`` names the frame's two counters
+    (``utils/trace.py``): ``<counter>.budget`` gets its pair budget,
+    ``<counter>.pairs`` its uncapped pair count (:func:`count_later`).
 
     Compositing runs the kernels (``composite_core``), except for the
     bounding-box overlay with ``differentiable=True``: there, as in the JAX
@@ -484,6 +504,9 @@ def render_tiled(
     tx_count = width // TILE
     n = len(cloud)
     p_max = pairs_max if pairs_max is not None else pairs_budget(n, pairs_hint)
+    pairs_counter = None if counter is None else counter + ".pairs"
+    if counter is not None:
+        trace.count(counter + ".budget", p_max)
 
     depth_minmax = None
     if settings.rasterize_mode == RasterizeMode.DEPTH:
@@ -492,13 +515,17 @@ def render_tiled(
     params = pack_raster_params(splats, settings, width, height)
     mode = kernel_mode(settings)
     if settings.visualize_bounding_box and differentiable:
-        g_s, tile_s, valid_s = bin_gaussians(splats, width, height, p_max)[:3]
-        start, end = tile_ranges(tile_s, tx_count * (h_pad // TILE))
-        out_raw = composite_tiles(
-            params[g_s], valid_s, start, end - start, tx_count, width, height, tile_budget(n), mode
-        )
+        with trace.span("gs.bin"):
+            g_s, tile_s, valid_s, total = bin_gaussians(splats, width, height, p_max)[:4]
+            start, end = tile_ranges(tile_s, tx_count * (h_pad // TILE))
+        if pairs_counter is not None:
+            trace.count_later(pairs_counter, total)
+        with trace.span("gs.composite"):
+            out_raw = composite_tiles(
+                params[g_s], valid_s, start, end - start, tx_count, width, height, tile_budget(n), mode
+            )
     else:
-        bins = tile_bins(splats, width, height, p_max)
+        bins = tile_bins(splats, width, height, p_max, pairs_counter=pairs_counter)
         out_raw = composite_core(
             params, *bins, tx_count=tx_count, width=width, full_height=height,
             chunk=preferred_chunk(p_max, bins.start.shape[0]), mode=mode,

@@ -66,6 +66,7 @@ from bevy_gaussian_splatting_tpu_torch.parallel.exchange import auto_exchange_pl
 from bevy_gaussian_splatting_tpu_torch.render.multi_camera import _unstack_cameras
 from bevy_gaussian_splatting_tpu_torch.train.losses import gaussian_splatting_loss
 from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, adam
+from bevy_gaussian_splatting_tpu_torch.utils.trace import span
 
 TILES_AXIS = "tiles"
 CAMERA_AXIS = "camera"
@@ -323,10 +324,11 @@ def _local_band_render(
     p_max = pairs_budget(params.shape[0], pairs_hint)
     mode = kernel_mode(settings)
     y0 = band * band_h
-    g_s, tile_s, valid_s, total, order, _, cum, perm = bin_gaussians(
-        g_splats, width, height, p_max, tile_row0=band * band_rows, band_tile_rows=band_rows
-    )
-    start, end = tile_ranges(tile_s, tx_count * band_rows)
+    with span("gs.bin"):
+        g_s, tile_s, valid_s, total, order, _, cum, perm = bin_gaussians(
+            g_splats, width, height, p_max, tile_row0=band * band_rows, band_tile_rows=band_rows
+        )
+        start, end = tile_ranges(tile_s, tx_count * band_rows)
     if settings.visualize_bounding_box and differentiable:
         out_raw = composite_tiles(params[g_s], valid_s, start, end - start, tx_count, width, height, k_max, mode, y0=y0)
     else:

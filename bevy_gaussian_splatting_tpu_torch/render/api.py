@@ -42,6 +42,7 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
 )
 from bevy_gaussian_splatting_tpu_torch.ops.project import as_float32
 from bevy_gaussian_splatting_tpu_torch.ops.rasterize_ref import render_oracle
+from bevy_gaussian_splatting_tpu_torch.utils import trace
 
 _BUDGET_STATE: dict = {}
 _RECOUNT_PERIOD = 16  # frames between pair-count refreshes per pipeline key
@@ -52,21 +53,28 @@ IMPLS = TILED_IMPLS + ("oracle",)
 def _current_bucket(key, settings, cloud, camera, model_transform) -> int:
     """Adaptive pair-budget bucket (render/api.py:43-73 of the JAX package),
     counted at the frame's ``settings.time``.  ``camera`` may be a function
-    that builds the camera, called only on a frame that counts."""
-    state = _BUDGET_STATE.get(key)
-    if state is not None:
-        bucket, frame = state
-        if (frame + 1) % _RECOUNT_PERIOD:
-            _BUDGET_STATE[key] = (bucket, frame + 1)
-            return bucket
-    if callable(camera):
-        camera = camera()
-    total = int(rt.pair_count(cloud, camera, settings, model_transform))
-    bucket = rt.pairs_budget(len(cloud), total)
-    if state is not None and bucket < state[0]:
-        bucket = state[0]  # shrink lazily
-    _BUDGET_STATE[key] = (bucket, (state[1] + 1) if state else 0)
-    return bucket
+    that builds the camera, called only on a frame that counts.  A count
+    bumps the counters ``budget.recounts``, ``budget.pairs_counted`` (the
+    pairs) and ``budget.sized`` (the bucket chosen)."""
+    with trace.span("gs.budget"):
+        state = _BUDGET_STATE.get(key)
+        if state is not None:
+            bucket, frame = state
+            if (frame + 1) % _RECOUNT_PERIOD:
+                _BUDGET_STATE[key] = (bucket, frame + 1)
+                return bucket
+        with trace.span("gs.recount"):
+            if callable(camera):
+                camera = camera()
+            total = int(rt.pair_count(cloud, camera, settings, model_transform))
+        bucket = rt.pairs_budget(len(cloud), total)
+        if state is not None and bucket < state[0]:
+            bucket = state[0]  # shrink lazily
+        _BUDGET_STATE[key] = (bucket, (state[1] + 1) if state else 0)
+        trace.count("budget.recounts")
+        trace.count("budget.pairs_counted", total)
+        trace.count("budget.sized", bucket)
+        return bucket
 
 
 def budget_key(impl: str, settings: CloudSettings, width: int, height: int, cloud, device) -> tuple:
@@ -172,16 +180,19 @@ def make_replay_pipeline(
         cloud = as_float32(cloud)
         dm = depth_minmax(cloud, camera, model_transform)
         splats = rt.project_for_binning(cloud, camera, settings, model_transform, dm, time)
-        g_s, tile_s, valid_s = rt.bin_gaussians(splats, width, height, pairs_max)[:3]
-        start, end = rt.tile_ranges(tile_s, num_tiles)
-        count = torch.clamp(end - start, max=rt.tile_budget(len(cloud)))
+        with trace.span("gs.bin"):
+            g_s, tile_s, valid_s = rt.bin_gaussians(splats, width, height, pairs_max)[:3]
+            start, end = rt.tile_ranges(tile_s, num_tiles)
+            count = torch.clamp(end - start, max=rt.tile_budget(len(cloud)))
         return g_s, valid_s, start, end, count
 
     def replay_fn(cloud, camera, model_transform, background, time, g_s, valid_s, start, end, count):
         cloud = as_float32(cloud)
         dm = depth_minmax(cloud, camera, model_transform)
         splats = rt.project_for_binning(cloud, camera, settings, model_transform, dm, time)
-        params_sorted = rt.pack_raster_params(splats, settings, width, height)[g_s]
+        params = rt.pack_raster_params(splats, settings, width, height)
+        with trace.span("gs.pack"):
+            params_sorted = params[g_s]
         raw = composite_tiles_raw(
             params_sorted.contiguous(), start, count, tx_count, width, height, chunk=chunk, mode=mode,
             bbox=settings.visualize_bounding_box,
@@ -223,7 +234,8 @@ class InteractiveRenderer:
     ``stats["oneshots"]``; a settled time bins once and then replays.  A
     new cloud object (``is``, on a held reference) bins again.  Viewports
     that are not a multiple of 16 and ``impl="oracle"`` render through
-    :func:`render`.
+    :func:`render`, one-pass frames too.  Each served frame is a
+    ``gs.frame`` span (``utils/trace.py``).
 
     The renderer serves on ``device`` (default ``cuda``) and takes clouds
     that lie there: it raises on any other, since moving one every frame
@@ -265,7 +277,8 @@ class InteractiveRenderer:
 
     def _one_pass(self, cloud, camera, model_transform, background, time):
         """A frame through :func:`render`: non-tiled impls and viewports off
-        the tile grid."""
+        the tile grid.  It counts in ``stats["oneshots"]``."""
+        self.stats["oneshots"] += 1
         settings = self.settings.replace(time=float(time))
         return render(cloud, camera, settings, model_transform, background, impl=self.impl, device=self.device)
 
@@ -312,7 +325,8 @@ class InteractiveRenderer:
             t0 = _time.perf_counter()
             self._bins = bin_call(pipes)
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                with trace.span("gs.bin"):
+                    torch.cuda.synchronize(self.device)
             dur_ms = (_time.perf_counter() - t0) * 1e3
             if pipe_key in self._built:
                 self.period_ms = sort_ops.throttle_period_ms(self.period_floor_ms, dur_ms)
@@ -327,6 +341,7 @@ class InteractiveRenderer:
             self.stats["replays"] += 1
         return replay_call(pipes, self._bins)
 
+    @trace.spanned("gs.frame")
     def render(
         self,
         cloud,
@@ -363,6 +378,7 @@ class InteractiveRenderer:
             ),
         )
 
+    @trace.spanned("gs.frame")
     def render_orbit(
         self,
         cloud,
@@ -379,21 +395,19 @@ class InteractiveRenderer:
         built on the device from one float32 [6] upload (az, el, radius,
         target), and the pose is checked on the host.  The throttle is
         :meth:`render`'s; non-tiled impls and viewports off the tile grid
-        render through :func:`render` with a host camera."""
+        render through :func:`render`, with the same camera."""
         self._check_cloud(cloud)
         bg = self._bg0 if background is None else background
         target = tuple(float(t) for t in target)
-        if self.impl not in TILED_IMPLS or width % rt.TILE or height % rt.TILE:
-            camera = Camera.create(
-                eye=orbit_eye(az, el, radius, target), target=target, width=width, height=height, device=self.device
-            )
-            return self._one_pass(cloud, camera, self._eye4, bg, time)
         orbit_np = np.asarray([az, el, radius, *target], np.float32)
         orbit = torch.from_numpy(orbit_np)
         if self.device.type == "cuda":
             # from pinned memory the copy queues behind the frames in flight;
             # from pageable memory it would wait for them
-            orbit = orbit.pin_memory().to(self.device, non_blocking=True)
+            with trace.span("gs.camera"):
+                orbit = orbit.pin_memory().to(self.device, non_blocking=True)
+        if self.impl not in TILED_IMPLS or width % rt.TILE or height % rt.TILE:
+            return self._one_pass(cloud, orbit_camera_device(orbit, width, height), self._eye4, bg, time)
 
         def count_camera():
             # the budget's count (one frame in _RECOUNT_PERIOD) on a host

@@ -26,6 +26,7 @@ from bevy_gaussian_splatting_tpu_torch.ops.project import as_float32
 from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
 from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import render_tiled
 from bevy_gaussian_splatting_tpu_torch.train.losses import mse
+from bevy_gaussian_splatting_tpu_torch.utils import trace
 
 FIELDS = tuple(f.name for f in dataclasses.fields(Gaussian3dCloud))  # a 3DGS cloud's
 
@@ -83,16 +84,25 @@ def train_step(
     default ``settings.time``), take ``loss_fn(image, target)``,
     back-propagate and step ``optimizer``.  Returns the loss (a detached
     scalar tensor; reading it waits for the card).  The gradients stay in
-    the parameters' ``.grad`` until the next step."""
-    optimizer.zero_grad(set_to_none=True)
-    image = render_tiled(
-        model.cloud(), camera, settings or CloudSettings(),
-        background=background, pairs_max=pairs_max, time=time,
-    )
-    loss = loss_fn(image, target)
-    loss.backward()
-    optimizer.step()
-    return loss.detach()
+    the parameters' ``.grad`` until the next step.
+
+    A step is the span ``gs.step`` (``utils/trace.py``), and counts in the
+    counters ``train.budget`` (the pair budget) and ``train.pairs`` (the
+    frame's uncapped pairs, read only with the counters)."""
+    with trace.span("gs.step"):
+        with trace.span("gs.adam"):
+            optimizer.zero_grad(set_to_none=True)
+        image = render_tiled(
+            model.cloud(), camera, settings or CloudSettings(),
+            background=background, pairs_max=pairs_max, time=time, counter="train",
+        )
+        with trace.span("gs.loss"):
+            loss = loss_fn(image, target)
+        with trace.span("gs.backward"):
+            loss.backward()
+        with trace.span("gs.adam"):
+            optimizer.step()
+        return loss.detach()
 
 
 def shifted_arrays(arrays: dict, offset=(0.25, -0.15, 0.1)) -> dict:

@@ -238,6 +238,23 @@ class ViewerState:
             self.diag.tick()
         return u8
 
+    def budget_info(self) -> dict:
+        """The serving counters beside the frame clock: the share of the
+        renderer's frames that replayed a stale binning, the pair-budget
+        recounts of this process and the counted pairs over the budgets
+        they sized (``utils/trace.py`` :func:`counters`), in %."""
+        from bevy_gaussian_splatting_tpu_torch.utils.trace import counters
+
+        stats = self.interactive.stats
+        frames = sum(stats.values())
+        c = counters()
+        sized = c.get("budget.sized", 0)
+        return {
+            "replay_pct": 100.0 * stats["replays"] / frames if frames else None,
+            "recounts": c.get("budget.recounts", 0),
+            "pair_fill_pct": 100.0 * c["budget.pairs_counted"] / sized if sized else None,
+        }
+
     def render_png(self, az, el, radius, t) -> bytes:
         from bevy_gaussian_splatting_tpu_torch.utils.image import encode_png
 
@@ -448,6 +465,7 @@ def make_handler(state: ViewerState, gallery_dir=None, base_args=None):
                         "ema_ms": state.diag.ema_ms,
                         "fps": state.diag.fps,
                         "frames": state.diag.frames,
+                        **state.budget_info(),
                     }
                     self._send(200, "application/json", json.dumps(info).encode())
                 else:

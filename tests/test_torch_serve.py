@@ -26,6 +26,7 @@ import bevy_gaussian_splatting_tpu as bgs
 from bevy_gaussian_splatting_tpu.ops import sort as jsort
 from bevy_gaussian_splatting_tpu.render import api as japi
 from bevy_gaussian_splatting_tpu_torch.models import settings as tsettings
+from bevy_gaussian_splatting_tpu_torch.models.camera import orbit_camera_device
 from bevy_gaussian_splatting_tpu_torch.models.cloud import random_arrays_3d_seeded, random_arrays_4d_seeded
 from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as trt
 from bevy_gaussian_splatting_tpu_torch.ops import sort as tsort
@@ -306,9 +307,13 @@ class TestRenderOrbit:
         jr, tr = _renderers(impl="oracle")
         want = _np(jr.render_orbit(jcloud, az, el, radius, width=64, height=64))
         got = _np(tr.render_orbit(tcloud, az, el, radius, width=64, height=64))
-        _, tc = cameras(64, 64, self._eye(az, el, radius))
+        # the renderer's camera: the orbit's, built on the device as every
+        # render_orbit frame's is
+        tc = orbit_camera_device(torch.tensor([az, el, radius, 0.0, 0.0, 0.0]), 64, 64)
         np.testing.assert_allclose(got, _np(tapi.render(tcloud, tc, impl="oracle", device="cpu")), atol=1e-6)
-        assert tr.stats == jr.stats == {"bins": 0, "replays": 0, "oneshots": 0}  # no replay pipeline
+        # no replay pipeline: a one-pass frame, which the port counts and JAX does not
+        assert jr.stats == {"bins": 0, "replays": 0, "oneshots": 0}
+        assert tr.stats == {"bins": 0, "replays": 0, "oneshots": 1}
         np.testing.assert_allclose(got, want, atol=CROSS_BAR)
 
     def test_orbit_replay_reuses_bins(self):
@@ -330,7 +335,7 @@ class TestServingDevice:
         tr = tapi.InteractiveRenderer(device="cpu")
         img = _np(tr.render(tcloud, tc))
         np.testing.assert_array_equal(img, _np(tapi.render(tcloud, tc, device="cpu")))
-        assert tr.stats == {"bins": 0, "replays": 0, "oneshots": 0}
+        assert tr.stats == {"bins": 0, "replays": 0, "oneshots": 1}
         with pytest.raises(ValueError, match="multiples of 16"):
             tapi.make_replay_pipeline(tsettings.CloudSettings(), 64, 60, 8192)
 
