@@ -40,13 +40,17 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", 
 # above the 2e-5 image tolerance.  Its backward recomputes the same alpha and
 # transmittance and must round them as the forward did, so it takes the same
 # flag.  The flag holds for everything the source includes: the warp mask
-# both compositors share (csrc/cull.cuh) rounds under it too.
+# both compositors share (csrc/cull.cuh) rounds under it too.  The fused
+# projection takes it for the same reason: its OBB rows, masks and keys are
+# the eager chain's bits only if it rounds every product and sum as that
+# chain does.
 EXTRA_FLAGS = {
     "tile_fwd": ["--fmad=false"],
     "tile_bwd": ["--fmad=false"],
+    "project": ["--fmad=false"],
 }
 
-SOURCES = ("expand", "tile_fwd", "tile_bwd", "reduce")
+SOURCES = ("expand", "tile_fwd", "tile_bwd", "reduce", "project")
 
 _LOADED: dict = {}
 

@@ -1,0 +1,201 @@
+"""Fused serving projection: a cloud to the packed compositor rows and the
+fields the binning reads, in one launch (``csrc/project.cu``).
+
+Replaces no TPU kernel: the JAX package leaves the projection chain
+(``ops/project.py``, ``covariance.py``, ``sh.py``, ``gaussian_4d.py``) to
+XLA, which fuses it.  Run eagerly, that chain and the packing's stack are
+some 600 launches a served frame, and the frame was bound by issuing them.
+The kernel does the same float32 work, term for term in the chain's order
+(see the source), for ``GAUSSIAN_3D`` (a ``Gaussian3dCloud``) and
+``GAUSSIAN_4D`` (a ``Gaussian4dCloud``) in ``RasterizeMode.COLOR``, every
+draw mode, both colour spaces and cutoffs, OBB or AABB, any model transform.
+
+``ops/rasterize_tile.py`` ``project_for_binning`` takes it wherever
+:func:`fused_projection_applies`, a rule on what the input shows (device,
+grad state, mode, cloud class), and runs the eager chain everywhere else:
+the CPU, training, the other rasterize modes, 2DGS and the precomputed-
+covariance cloud.  ``project_gaussians`` itself, which the oracle calls,
+stays the eager chain.
+
+``project_splats`` launches the kernel for CUDA tensors and runs the plain
+version, ``project_splats_plain`` (the eager chain and the packing), for CPU
+tensors; both give the same dict.  The counter ``project.fused``
+(``utils/trace.py``) counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from bevy_gaussian_splatting_tpu_torch.models.cloud import Gaussian3dCloud, Gaussian4dCloud, sh_degree_from_width
+from bevy_gaussian_splatting_tpu_torch.models.settings import (
+    CloudSettings,
+    DrawMode,
+    GaussianColorSpace,
+    GaussianMode,
+    RasterizeMode,
+)
+from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
+from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
+from bevy_gaussian_splatting_tpu_torch.ops.project import as_float32, project_gaussians, time_tensor
+from bevy_gaussian_splatting_tpu_torch.utils import trace
+
+_ARGTYPES = (
+    [ctypes.c_void_p] * 5
+    + [ctypes.c_int] * 6
+    + [ctypes.c_void_p] * 7
+    + [ctypes.c_float] * 4
+    + [ctypes.c_int] * 2
+    + [ctypes.c_void_p] * 7
+)
+
+# csrc/project.cu's flags
+_ADAPTIVE, _SRGB, _SELECTED, _HIGHLIGHT = 1, 2, 4, 8
+# the cloud class each gaussian mode the kernel takes renders
+_CLOUDS = {GaussianMode.GAUSSIAN_3D: Gaussian3dCloud, GaussianMode.GAUSSIAN_4D: Gaussian4dCloud}
+
+
+def fused_projection_applies(cloud, settings: CloudSettings, *tensors) -> bool:
+    """Whether the serving projection of ``cloud`` under ``settings`` takes
+    the kernel: the cloud lies on the card, none of its tensors (nor any of
+    ``tensors``, such as a model transform or a time) requires grad while
+    grad is enabled, the rasterize mode is COLOR, and the cloud's class is
+    the one its gaussian mode renders (``GAUSSIAN_3D`` a ``Gaussian3dCloud``,
+    ``GAUSSIAN_4D`` a ``Gaussian4dCloud``)."""
+    if cloud.device.type != "cuda" or type(cloud) is not _CLOUDS.get(settings.gaussian_mode):
+        return False
+    if settings.rasterize_mode != RasterizeMode.COLOR:
+        return False
+    if torch.is_grad_enabled():
+        fields = [getattr(cloud, f.name) for f in dataclasses.fields(cloud)]
+        return not any(isinstance(t, torch.Tensor) and t.requires_grad for t in (*fields, *tensors))
+    return True
+
+
+def _splats(mask, center, key, params, shape, aabb: bool, size: tuple) -> dict:
+    """The dict both versions give: the binning's fields and the packed rows
+    (``params``, for an image of ``params_size``)."""
+    splats = {"mask": mask, "center_ndc": center, "sort_key": key, "params": params, "params_size": size}
+    if aabb:
+        splats["radius_vp"] = shape
+    else:
+        splats["obb_axis"], splats["obb_bounds"] = shape
+    return splats
+
+
+def project_splats_plain(cloud, camera, settings: CloudSettings, model_transform=None, time=None) -> dict:
+    """Plain PyTorch version: the eager chain (``project_gaussians``), the
+    radix key's sentinel cull folded into ``mask`` and the rows packed as
+    ``rasterize_tile.py`` ``pack_raster_param_cols`` packs them, at the
+    camera's size."""
+    # imported here: rasterize_tile dispatches to this module
+    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import pack_raster_param_cols
+
+    splats = project_gaussians.__wrapped__(cloud, camera, settings, model_transform, time=time)
+    splats["mask"] = splats["mask"] & (splats["sort_key"] != sort_ops.SENTINEL_KEY)
+    size = (camera.width, camera.height)
+    params = torch.stack(pack_raster_param_cols(splats, settings, *size), dim=-1)
+    shape = splats["radius_vp"] if settings.aabb else (splats["obb_axis"], splats["obb_bounds"])
+    return _splats(splats["mask"], splats["center_ndc"], splats["sort_key"], params, shape, settings.aabb, size)
+
+
+def _ready(t: torch.Tensor, dev: torch.device, name: str) -> torch.Tensor:
+    """``t`` as the kernel reads it: float32, contiguous, 16-byte aligned, on
+    ``dev`` (another device raises: a copy would wait for the card)."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, the cloud on {dev}")
+    t = t.to(torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _flags(settings: CloudSettings) -> int:
+    flags = _ADAPTIVE if settings.opacity_adaptive_radius else 0
+    if settings.color_space == GaussianColorSpace.SRGB_REC709_DISPLAY:
+        flags |= _SRGB
+    if settings.draw_mode == DrawMode.SELECTED:
+        flags |= _SELECTED
+    elif settings.draw_mode == DrawMode.HIGHLIGHT_SELECTED:
+        flags |= _HIGHLIGHT
+    return flags
+
+
+def project_splats(cloud, camera, settings: CloudSettings, model_transform=None, time=None) -> dict:
+    """Project ``cloud`` for binning and compositing -> dict: ``mask`` [N]
+    bool (the sentinel cull folded in), ``center_ndc`` [N, 2], ``sort_key``
+    [N] int64, ``obb_axis`` and ``obb_bounds`` [N, 2] (OBB) or ``radius_vp``
+    [N] (AABB), ``params`` [N, 10] the compositor's rows at the camera's
+    size, ``params_size`` that (width, height).
+
+    ``time`` (a number or a float32 scalar tensor, default ``settings.time``)
+    is the 4DGS frame time: a number is passed by value, a tensor read on
+    the card.  The cloud and settings must be of the kernel's set (see
+    :func:`fused_projection_applies`; grad is not propagated)."""
+    mode = settings.gaussian_mode
+    if type(cloud) is not _CLOUDS.get(mode) or settings.rasterize_mode != RasterizeMode.COLOR:
+        raise ValueError(
+            f"the fused projection takes GAUSSIAN_3D / GAUSSIAN_4D clouds in COLOR, not "
+            f"{type(cloud).__name__} in {mode.name}, {settings.rasterize_mode.name}"
+        )
+    if cloud.device.type == "cpu":
+        return project_splats_plain(cloud, camera, settings, model_transform, time)
+    if cloud.device.type != "cuda":
+        raise ValueError(f"unsupported device {cloud.device}")
+    cloud = as_float32(cloud)
+    dev = cloud.device
+    n = len(cloud)
+    is_4d = mode == GaussianMode.GAUSSIAN_4D
+    rot = cloud.isotropic_rotations if is_4d else cloud.rotation
+    sh = cloud.spherindrical_harmonic if is_4d else cloud.spherical_harmonic
+    kind = 4 if is_4d else min(sh_degree_from_width(sh.shape[1]), 3)
+    inputs = [_ready(t, dev, "cloud") for t in (cloud.position_visibility, rot, cloud.scale_opacity, sh)]
+    inputs.append(_ready(cloud.timestamp_timescale, dev, "cloud") if is_4d else None)
+    frame = [
+        None if model_transform is None else _ready(model_transform, dev, "model_transform"),
+        _ready(camera.view_from_world, dev, "camera"),
+        _ready(camera.clip_from_view, dev, "camera"),
+        _ready(camera.clip_from_world, dev, "camera"),
+        _ready(camera.world_position, dev, "camera"),
+        _ready(camera.viewport, dev, "camera"),
+    ]
+    time_value = 0.0
+    time_ptr = None
+    if is_4d:
+        if time is None:
+            time = settings.time
+        if isinstance(time, torch.Tensor):
+            time_ptr = time_tensor(time, settings, dev).reshape(()).contiguous()
+        else:
+            time_value = float(time)
+    aabb = settings.aabb
+    params = torch.empty((n, 10), dtype=torch.float32, device=dev)
+    center = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    axis = None if aabb else torch.empty((n, 2), dtype=torch.float32, device=dev)
+    bounds = torch.empty((n,) if aabb else (n, 2), dtype=torch.float32, device=dev)
+    mask = torch.empty((n,), dtype=torch.bool, device=dev)
+    key = torch.empty((n,), dtype=torch.int64, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    fn = build.load("project").bgs_project
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(
+            *map(ptr, inputs), n, sh.shape[1], kind, int(aabb), _flags(settings),
+            settings.radix_sort_depth_bits.bits, *map(ptr, frame), ptr(time_ptr), time_value,
+            settings.time_stop - settings.time_start, settings.global_scale, settings.global_opacity,
+            camera.width, camera.height, params.data_ptr(), center.data_ptr(), ptr(axis), bounds.data_ptr(),
+            mask.data_ptr(), key.data_ptr(), stream,
+        )
+    build.check(status, "project_splats")
+    if n > 0:
+        trace.count("project.fused")
+    size = (camera.width, camera.height)
+    return _splats(mask, center, key, params, bounds if aabb else (axis, bounds), aabb, size)
+

@@ -44,6 +44,7 @@ from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, Gau
 from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.core import composite_core
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.project import fused_projection_applies, project_splats
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
     MODE_2D,
     MODE_AABB,
@@ -110,7 +111,16 @@ def project_for_binning(
 ) -> dict:
     """``project_gaussians`` at ``time`` (default ``settings.time``) with the
     sentinel cull of its radix key (``sort_key``) folded into ``mask``, as
-    ``render_tiled`` prepares them."""
+    ``render_tiled`` prepares them.
+
+    Where ``ops/cuda/project.py`` ``fused_projection_applies`` (a cloud on
+    the card, no grad to carry, COLOR, a 3D or 4D cloud), one kernel gives
+    the binning's fields and the packed rows (``params``, which
+    :func:`pack_raster_params` returns); elsewhere the eager chain runs.
+    Each call counts ``project.calls`` (``utils/trace.py``)."""
+    trace.count("project.calls")
+    if fused_projection_applies(cloud, settings, model_transform, time):
+        return project_splats(cloud, camera, settings, model_transform, time)
     # the projection without a span of its own: this call is the span
     splats = project_gaussians.__wrapped__(
         cloud, camera, settings, model_transform, depth_minmax=depth_minmax, time=time
@@ -300,9 +310,13 @@ def pack_raster_param_cols(splats: dict, settings: CloudSettings, width: int, he
     radius_vp, r, g, b, alpha]`` for AABB, and for 2DGS the slim surfel
     ``[cx_ndc, cy_ndc, surfel_radius, A.xyz, B.xyz, C.xyz, r, g, b, alpha]``
     with the homography folded into q = dxn A + dyn B + C
-    (``gaussian_2d.surfel_affine_coeffs``); the 2DGS centre stays in NDC."""
+    (``gaussian_2d.surfel_affine_coeffs``); the 2DGS centre stays in NDC.
+    Rows the fused projection packed (``params``) give their columns, the
+    centre scaled to this size."""
     cx_vp = splats["center_ndc"][:, 0] * width
     cy_vp = splats["center_ndc"][:, 1] * height
+    if "params" in splats:
+        return [cx_vp, cy_vp] + [splats["params"][:, k] for k in range(2, 10)]
     rgb = splats["rgb"]
     alpha = splats["alpha"] * splats["mask"].to(torch.float32)
     if settings.gaussian_mode == GaussianMode.GAUSSIAN_2D:
@@ -322,7 +336,10 @@ def pack_raster_param_cols(splats: dict, settings: CloudSettings, width: int, he
 @trace.spanned("gs.pack")
 def pack_raster_params(splats: dict, settings: CloudSettings, width: int, height: int) -> torch.Tensor:
     """[N, param_width] packed per-splat parameters for the compositor (10
-    columns, 16 for 2DGS)."""
+    columns, 16 for 2DGS): the fused projection's rows where it packed them
+    at this size."""
+    if "params" in splats and splats["params_size"] == (width, height):
+        return splats["params"]
     return torch.stack(pack_raster_param_cols(splats, settings, width, height), dim=-1)
 
 

@@ -15,8 +15,8 @@ Phases, each of which raises on failure (nothing is caught).  Phases 3-5,
 and 7 with AABB bounds (``CloudSettings(aabb=True)``), then phase 8, then
 phases 3-5, 14 and 6 with 2DGS surfels
 (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``), then phases 9, 20 and 21, then
-phases 10-13 for 4DGS with OBB (with phase 18 after 12) and then AABB bounds,
-then phases 19 and 22:
+phase 23, then phases 10-13 for 4DGS with OBB (with phase 18 after 12) and
+then AABB bounds, then phases 19 and 22:
 
   1. build   every kernel under bevy_gaussian_splatting_tpu_torch/csrc with
              nvcc for sm_90a, one nvcc per source, all started together,
@@ -221,6 +221,10 @@ then phases 19 and 22:
              one rank (this process): one band bitwise ``render_tiled`` in
              each mode, and two ranks on one card refused.  Four ranks on one
              card measure work, not scaling.
+ 23. project the fused serving projection (``ops/cuda/project.py``) on the
+             1M 3D bench scene at 1280x720 and the 1M 4DGS scene at 512x512
+             (time 0.25): every output bitwise its plain version (the eager
+             chain), kernel and plain ms by CUDA events, the byte bound.
 
 It prints the kernels line (one entry per kernel and mode: the four kernels
 in each of the three modes, then the expansion and the forward compositor of
@@ -1792,6 +1796,38 @@ def phase_orbit_keys(cloud) -> None:
         raise AssertionError("render_orbit card vs cpu past the JAX test's bars")
 
 
+def phase_project(cloud, cloud4) -> None:
+    """The fused serving projection (``ops/cuda/project.py``) on the 1M
+    scenes, 3D at 1280x720 and 4D at 512x512: its outputs against its plain
+    version (the eager chain and the packing) bit for bit, both timed by
+    CUDA events (a call: the ``clip_from_world`` product and the kernel),
+    and the bound by the bytes the kernel must move."""
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import project as pj
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    cases = (("3d", cloud, CloudSettings(), 1280, 720),
+             ("4d", cloud4, CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_4D, time=TIME_4D), 512, 512))
+    for label, c, settings, width, height in cases:
+        cam = orbit_camera(0.3, width, height, "cuda")
+        got = pj.project_splats(c, cam, settings)
+        ref = pj.project_splats_plain(c, cam, settings)
+        differ = [k for k in ref if k != "params_size" and not torch.equal(bits(got[k]), bits(ref[k]))]
+        if differ:
+            raise AssertionError(f"fused projection {label}: {differ} differ from the eager chain")
+        read = sum(getattr(c, f.name).numel() * 4 for f in dataclasses.fields(c))
+        written = sum(t.numel() * t.element_size() for k, t in got.items() if k != "params_size")
+        t_bound, _ = bound(read + written, 0.0, 1.0)
+        kernel = cuda_ms(lambda: pj.project_splats(c, cam, settings), 20)
+        plain = cuda_ms(lambda: pj.project_splats_plain(c, cam, settings), 5)
+        log(f"[kernels project {label} {width}x{height}] {len(c)} gaussians, {read / len(c):.0f} B read and "
+            f"{written / len(c):.0f} B written a gaussian | kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {t_bound:.4f} ms (bytes, {100.0 * t_bound / kernel:.1f}%) | bitwise equal | "
+            f"{card_name_and_limit()}")
+
+
 def phase_serve_4d(cloud, settings) -> dict:
     """4DGS serving (bench.py:370-394): a time sweep of ``render_orbit``
     renders every frame in one pass (``oneshots``), each through the
@@ -3198,6 +3234,7 @@ def main() -> int:
     cloud4 = cloud_from_numpy(arrays4, "cuda")
     log(f"[scene 4d] {len(cloud4)} gaussians (random_gaussians_4d_seeded, seed {SEED_4D}) in "
         f"{time.perf_counter() - t0:.2f} s")
+    timed("project", phase_project, cloud, cloud4)
     for aabb in (False, True):
         settings = CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_4D, aabb=aabb, time=TIME_4D)
         mode = "4d-" + MODES[kernel_mode(settings)]

@@ -5,8 +5,9 @@ longer than its staging buffer; each compositor's
 second launch bitwise equal to its first, and both on the adversarial rows
 of their per-warp cull), ``render()`` on the card against the same call on the CPU (also with the
 overlay, in the other rasterize and draw modes, for 4DGS and for f16 and
-bf16 storage), and the training
-gradients of every cloud field, card against CPU.
+bf16 storage), the training
+gradients of every cloud field, card against CPU, and the fused serving
+projection against the eager chain on the card, bit for bit.
 
 These skip without an NVIDIA card.  On one, run them without the JAX-side
 conftest: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -23,20 +24,31 @@ from bevy_gaussian_splatting_tpu_torch.models.cloud import (
     random_arrays_4d_seeded,
     surfel_grid_arrays,
 )
-from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, DrawMode, GaussianMode, RasterizeMode
+from bevy_gaussian_splatting_tpu_torch.models.settings import (
+    CloudSettings,
+    DrawMode,
+    GaussianColorSpace,
+    GaussianMode,
+    RadixSortDepthBits,
+    RasterizeMode,
+)
 from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import cull
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import expand as ex
+from bevy_gaussian_splatting_tpu_torch.ops.cuda import project as pj
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import reduce as rd
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 from bevy_gaussian_splatting_tpu_torch.render.api import render
 from bevy_gaussian_splatting_tpu_torch.train.losses import mse
 from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, shifted_arrays
+from bevy_gaussian_splatting_tpu_torch.utils import trace
 from torch_port_cases import (
     EXPAND_COUNT_CASES,
+    EYE,
     MODE,
     adversarial_rows,
+    edge_cloud_arrays,
     expand_counts,
     expand_table,
     long_run_counts,
@@ -495,3 +507,119 @@ def test_views_render_card_match_cpu(card, name, settings):
     gpu = render(cloud_from_numpy(a, card), cam.to(card), settings)
     bar = SURFEL_BAR if settings.gaussian_mode == GaussianMode.GAUSSIAN_2D else 2e-5
     assert float((gpu.cpu() - cpu).abs().max()) <= bar
+
+
+# The fused serving projection (ops/cuda/project.py, csrc/project.cu) against
+# the eager chain it replaces, both on the card: the chain's own arithmetic,
+# so every output bit for bit.  exp, log, cos and pow are the same CUDA
+# math-library routines in the kernel and in PyTorch's kernels, so they are
+# held bitwise too: no ulp allowance is taken for them.
+def _model_transform(device):
+    """A rotation about a tilted axis, an anisotropic scale and a shift."""
+    c, s = np.cos(0.7), np.sin(0.7)
+    rot = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]]) @ np.array(
+        [[1.0, 0.0, 0.0], [0.0, np.cos(0.3), -np.sin(0.3)], [0.0, np.sin(0.3), np.cos(0.3)]]
+    )
+    m = np.eye(4)
+    m[:3, :3] = rot * np.array([1.3, 0.8, 1.1])
+    m[:3, 3] = [1.5, -2.0, 0.5]
+    return torch.tensor(m, dtype=torch.float32, device=device)
+
+
+def _fused_cloud(kind, n, seed):
+    if kind == "4d":
+        return random_arrays_4d_seeded(n, seed=seed)
+    if kind == "edge":
+        return edge_cloud_arrays(n, seed)
+    if kind.startswith("sh"):  # a storage degree other than 3
+        return random_arrays_3d_seeded(n, seed=seed, sh_degree=int(kind[2:]))
+    return _scene(kind, n, seed)
+
+
+# (kind, n, width, height, settings, model transform, time)
+_G4 = GaussianMode.GAUSSIAN_4D
+_LINEAR = GaussianColorSpace.LIN_REC709_DISPLAY
+FUSED_CASES = {
+    "bench-512": ("bench", 20000, 512, 512, CloudSettings(), False, None),
+    "bench-1080p": ("bench", 20000, 1920, 1080, CloudSettings(), False, None),
+    "wide-1080p-transform": ("wide", 4000, 1920, 1080, CloudSettings(), True, None),
+    "occluded-512-aabb": ("occluded", 2000, 512, 512, CloudSettings(aabb=True), False, None),
+    "bench-512-aabb-transform": ("bench", 20000, 512, 512, CloudSettings(aabb=True), True, None),
+    "bench-512-fixed-cutoff": ("bench", 20000, 512, 512, CloudSettings(opacity_adaptive_radius=False), False, None),
+    "bench-512-selected": ("bench", 20000, 512, 512, CloudSettings(draw_mode=DrawMode.SELECTED), False, None),
+    "bench-1080p-highlight": (
+        "bench", 20000, 1920, 1080, CloudSettings(draw_mode=DrawMode.HIGHLIGHT_SELECTED), True, None),
+    "bench-512-linear": ("bench", 20000, 512, 512, CloudSettings(color_space=_LINEAR), False, None),
+    "bench-512-16bit-keys": (
+        "bench", 20000, 512, 512, CloudSettings(radix_sort_depth_bits=RadixSortDepthBits.BITS_16), False, None),
+    "sh1-512": ("sh1", 4000, 512, 512, CloudSettings(), False, None),
+    "sh4-512-transform": ("sh4", 4000, 512, 512, CloudSettings(), True, None),
+    "edge-512": ("edge", 4096, 512, 512, CloudSettings(), False, None),
+    "edge-1080p-aabb-transform": ("edge", 4096, 1920, 1080, CloudSettings(aabb=True), True, None),
+    "4d-512": ("4d", 20000, 512, 512, CloudSettings(gaussian_mode=_G4), False, 0.25),
+    "4d-1080p-transform-tensor-time": ("4d", 20000, 1920, 1080, CloudSettings(gaussian_mode=_G4), True, "tensor"),
+    "4d-512-aabb-selected": ("4d", 20000, 512, 512, CloudSettings(
+        gaussian_mode=_G4, aabb=True, draw_mode=DrawMode.SELECTED, opacity_adaptive_radius=False), False, 0.75),
+    "4d-512-highlight-linear": ("4d", 20000, 512, 512, CloudSettings(
+        gaussian_mode=_G4, draw_mode=DrawMode.HIGHLIGHT_SELECTED, color_space=_LINEAR, time=0.4), True, None),
+}
+
+
+def _fused_inputs(card, case):
+    kind, n, width, height, settings, transform, time = FUSED_CASES[case]
+    a = _fused_cloud(kind, n, 21)
+    a["position_visibility"][:, 3] = np.random.default_rng(12).choice(np.array([0.0, 0.5, 0.75, 1.0], np.float32), n)
+    cloud = cloud_from_numpy(a, card)
+    # the edge cloud's rows at and beside the camera need its own eye
+    cam = Camera.create(eye=EYE if kind == "edge" else (3.0, 4.0, 60.0), width=width, height=height, device=card)
+    if time == "tensor":
+        time = torch.tensor(0.6, device=card)
+    return cloud, cam, settings, (_model_transform(card) if transform else None), time
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _fused_launches():
+    return trace.counters().get("project.fused", 0)
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_projection_equals_the_eager_chain(card, case):
+    cloud, cam, settings, model, time = _fused_inputs(card, case)
+    assert pj.fused_projection_applies(cloud, settings, model, time)
+    before = _fused_launches()
+    got = pj.project_splats(cloud, cam, settings, model, time)
+    assert _fused_launches() == before + 1
+    ref = pj.project_splats_plain(cloud, cam, settings, model, time)
+    torch.cuda.synchronize()
+    assert set(got) == set(ref)
+    assert got["params_size"] == ref["params_size"] == (cam.width, cam.height)
+    differ = {}
+    for name in sorted(set(ref) - {"params_size"}):
+        a, b = _bits(got[name]), _bits(ref[name])
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if not torch.equal(a, b):
+            rows = (a != b).reshape(a.shape[0], -1).any(dim=1)
+            differ[name] = (int(rows.sum()), int((a.long() - b.long()).abs().max()))
+    assert not differ, f"rows that differ and the most ulps by field: {differ}"
+    assert int(ref["mask"].sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["bench-1080p", "wide-1080p-transform", "occluded-512-aabb", "bench-1080p-highlight",
+                                  "4d-512", "4d-1080p-transform-tensor-time"])
+def test_fused_render_matches_the_eager_chain(card, case, monkeypatch):
+    """``render_tiled`` through the kernel against the same call with the
+    eager chain (the dispatch rule forced off): within 2e-5, and the kernel
+    took every projection of the frame."""
+    cloud, cam, settings, model, time = _fused_inputs(card, case)
+    before = _fused_launches()
+    got = rt.render_tiled(cloud, cam, settings, model, differentiable=False, time=time)
+    assert _fused_launches() == before + 1
+    monkeypatch.setattr(rt, "fused_projection_applies", lambda *args: False)
+    ref = rt.render_tiled(cloud, cam, settings, model, differentiable=False, time=time)
+    assert _fused_launches() == before + 1
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 2e-5
+    assert float(ref[..., 3].max()) > 0.5

@@ -57,6 +57,27 @@ def cloud_arrays(kind: str, n: int, seed: int) -> dict:
     return a
 
 
+def edge_cloud_arrays(n: int, seed: int) -> dict:
+    """A 3D cloud of the projection's edge cases seen from ``EYE``, a row in
+    eight of each: at the camera or a step in front of it (inside the near
+    plane), spread far past the frustum and astride its edges, zero scales,
+    zero quaternions, opacities 0 and 1, long thin splats, and depths
+    stretched past the camera."""
+    a = random_arrays_3d_seeded(n, seed=seed)
+    pv, so, rot = a["position_visibility"], a["scale_opacity"], a["rotation"]
+    k = np.arange(n) % 8
+    pv[k == 0, :3] = np.array(EYE, np.float32)
+    pv[(k == 0) & (np.arange(n) % 16 == 8), 2] -= 0.05
+    pv[k == 1, :2] *= 60.0
+    so[k == 2, :3] = 0.0
+    rot[k == 3] = 0.0
+    so[k == 4, 3] = 0.0
+    so[k == 5, 3] = 1.0
+    so[k == 6, :3] *= np.array([40.0, 0.01, 0.01], np.float32)
+    pv[k == 7, :3] *= np.array([3.0, 3.0, 20.0], np.float32)
+    return a
+
+
 def jax_cloud(arrays: dict):
     """The JAX package's cloud of the class that the field names say (as
     the port's ``cloud_from_numpy`` tells them apart)."""
