@@ -6,15 +6,16 @@ Replaces no TPU kernel: the JAX package leaves the projection chain
 XLA, which fuses it.  Run eagerly, that chain and the packing's stack are
 some 600 launches a served frame, and the frame was bound by issuing them.
 The kernel does the same float32 work, term for term in the chain's order
-(see the source), for ``GAUSSIAN_3D`` (a ``Gaussian3dCloud``) and
-``GAUSSIAN_4D`` (a ``Gaussian4dCloud``) in ``RasterizeMode.COLOR``, every
+(see the source), for ``GAUSSIAN_3D`` and ``GAUSSIAN_2D`` (a
+``Gaussian3dCloud``, the second drawn as surfels: the 16-column surfel rows)
+and ``GAUSSIAN_4D`` (a ``Gaussian4dCloud``) in ``RasterizeMode.COLOR``, every
 draw mode, both colour spaces and cutoffs, OBB or AABB, any model transform.
 
 ``ops/rasterize_tile.py`` ``project_for_binning`` takes it wherever
 :func:`fused_projection_applies`, a rule on what the input shows (device,
 grad state, mode, cloud class), and runs the eager chain everywhere else:
-the CPU, training, the other rasterize modes, 2DGS and the precomputed-
-covariance cloud.  ``project_gaussians`` itself, which the oracle calls,
+the CPU, training, the other rasterize modes and the precomputed-covariance
+cloud.  ``project_gaussians`` itself, which the oracle calls,
 stays the eager chain.
 
 ``project_splats`` launches the kernel for CUDA tensors and runs the plain
@@ -55,7 +56,12 @@ _ARGTYPES = (
 # csrc/project.cu's flags
 _ADAPTIVE, _SRGB, _SELECTED, _HIGHLIGHT = 1, 2, 4, 8
 # the cloud class each gaussian mode the kernel takes renders
-_CLOUDS = {GaussianMode.GAUSSIAN_3D: Gaussian3dCloud, GaussianMode.GAUSSIAN_4D: Gaussian4dCloud}
+_CLOUDS = {
+    GaussianMode.GAUSSIAN_3D: Gaussian3dCloud,
+    GaussianMode.GAUSSIAN_2D: Gaussian3dCloud,
+    GaussianMode.GAUSSIAN_4D: Gaussian4dCloud,
+}
+_SURFEL_KIND = 5  # csrc/project.cu's kind of a surfel cloud with SH degree 0
 
 
 def fused_projection_applies(cloud, settings: CloudSettings, *tensors) -> bool:
@@ -63,8 +69,8 @@ def fused_projection_applies(cloud, settings: CloudSettings, *tensors) -> bool:
     the kernel: the cloud lies on the card, none of its tensors (nor any of
     ``tensors``, such as a model transform or a time) requires grad while
     grad is enabled, the rasterize mode is COLOR, and the cloud's class is
-    the one its gaussian mode renders (``GAUSSIAN_3D`` a ``Gaussian3dCloud``,
-    ``GAUSSIAN_4D`` a ``Gaussian4dCloud``)."""
+    the one its gaussian mode renders (``GAUSSIAN_3D`` and ``GAUSSIAN_2D`` a
+    ``Gaussian3dCloud``, ``GAUSSIAN_4D`` a ``Gaussian4dCloud``)."""
     if cloud.device.type != "cuda" or type(cloud) is not _CLOUDS.get(settings.gaussian_mode):
         return False
     if settings.rasterize_mode != RasterizeMode.COLOR:
@@ -75,31 +81,34 @@ def fused_projection_applies(cloud, settings: CloudSettings, *tensors) -> bool:
     return True
 
 
-def _splats(mask, center, key, params, shape, aabb: bool, size: tuple) -> dict:
+def _extent_keys(settings: CloudSettings) -> tuple:
+    """The names of the binning's extent fields under ``settings``."""
+    if settings.gaussian_mode == GaussianMode.GAUSSIAN_2D:
+        return ("surfel_radius",)
+    return ("radius_vp",) if settings.aabb else ("obb_axis", "obb_bounds")
+
+
+def _splats(mask, center, key, params, extents: dict, size: tuple) -> dict:
     """The dict both versions give: the binning's fields and the packed rows
     (``params``, for an image of ``params_size``)."""
-    splats = {"mask": mask, "center_ndc": center, "sort_key": key, "params": params, "params_size": size}
-    if aabb:
-        splats["radius_vp"] = shape
-    else:
-        splats["obb_axis"], splats["obb_bounds"] = shape
-    return splats
+    return {"mask": mask, "center_ndc": center, "sort_key": key, "params": params, "params_size": size, **extents}
 
 
-def project_splats_plain(cloud, camera, settings: CloudSettings, model_transform=None, time=None) -> dict:
+def project_splats_plain(cloud, camera, settings: CloudSettings, model_transform=None, time=None,
+                         size=None) -> dict:
     """Plain PyTorch version: the eager chain (``project_gaussians``), the
     radix key's sentinel cull folded into ``mask`` and the rows packed as
-    ``rasterize_tile.py`` ``pack_raster_param_cols`` packs them, at the
-    camera's size."""
+    ``rasterize_tile.py`` ``pack_raster_param_cols`` packs them, at ``size``
+    (default the camera's)."""
     # imported here: rasterize_tile dispatches to this module
     from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import pack_raster_param_cols
 
     splats = project_gaussians.__wrapped__(cloud, camera, settings, model_transform, time=time)
     splats["mask"] = splats["mask"] & (splats["sort_key"] != sort_ops.SENTINEL_KEY)
-    size = (camera.width, camera.height)
+    size = (camera.width, camera.height) if size is None else tuple(size)
     params = torch.stack(pack_raster_param_cols(splats, settings, *size), dim=-1)
-    shape = splats["radius_vp"] if settings.aabb else (splats["obb_axis"], splats["obb_bounds"])
-    return _splats(splats["mask"], splats["center_ndc"], splats["sort_key"], params, shape, settings.aabb, size)
+    extents = {k: splats[k] for k in _extent_keys(settings)}
+    return _splats(splats["mask"], splats["center_ndc"], splats["sort_key"], params, extents, size)
 
 
 def _ready(t: torch.Tensor, dev: torch.device, name: str) -> torch.Tensor:
@@ -122,12 +131,13 @@ def _flags(settings: CloudSettings) -> int:
     return flags
 
 
-def project_splats(cloud, camera, settings: CloudSettings, model_transform=None, time=None) -> dict:
+def project_splats(cloud, camera, settings: CloudSettings, model_transform=None, time=None, size=None) -> dict:
     """Project ``cloud`` for binning and compositing -> dict: ``mask`` [N]
     bool (the sentinel cull folded in), ``center_ndc`` [N, 2], ``sort_key``
-    [N] int64, ``obb_axis`` and ``obb_bounds`` [N, 2] (OBB) or ``radius_vp``
-    [N] (AABB), ``params`` [N, 10] the compositor's rows at the camera's
-    size, ``params_size`` that (width, height).
+    [N] int64, ``obb_axis`` and ``obb_bounds`` [N, 2] (OBB), ``radius_vp``
+    [N] (AABB) or ``surfel_radius`` [N] (2DGS), ``params`` [N, 10] (2DGS
+    [N, 16]) the compositor's rows at ``size`` (default the camera's),
+    ``params_size`` that (width, height).
 
     ``time`` (a number or a float32 scalar tensor, default ``settings.time``)
     is the 4DGS frame time: a number is passed by value, a tensor read on
@@ -136,20 +146,21 @@ def project_splats(cloud, camera, settings: CloudSettings, model_transform=None,
     mode = settings.gaussian_mode
     if type(cloud) is not _CLOUDS.get(mode) or settings.rasterize_mode != RasterizeMode.COLOR:
         raise ValueError(
-            f"the fused projection takes GAUSSIAN_3D / GAUSSIAN_4D clouds in COLOR, not "
+            f"the fused projection takes GAUSSIAN_3D / GAUSSIAN_2D / GAUSSIAN_4D clouds in COLOR, not "
             f"{type(cloud).__name__} in {mode.name}, {settings.rasterize_mode.name}"
         )
     if cloud.device.type == "cpu":
-        return project_splats_plain(cloud, camera, settings, model_transform, time)
+        return project_splats_plain(cloud, camera, settings, model_transform, time, size)
     if cloud.device.type != "cuda":
         raise ValueError(f"unsupported device {cloud.device}")
     cloud = as_float32(cloud)
     dev = cloud.device
     n = len(cloud)
     is_4d = mode == GaussianMode.GAUSSIAN_4D
+    surfel = mode == GaussianMode.GAUSSIAN_2D
     rot = cloud.isotropic_rotations if is_4d else cloud.rotation
     sh = cloud.spherindrical_harmonic if is_4d else cloud.spherical_harmonic
-    kind = 4 if is_4d else min(sh_degree_from_width(sh.shape[1]), 3)
+    kind = 4 if is_4d else (_SURFEL_KIND if surfel else 0) + min(sh_degree_from_width(sh.shape[1]), 3)
     inputs = [_ready(t, dev, "cloud") for t in (cloud.position_visibility, rot, cloud.scale_opacity, sh)]
     inputs.append(_ready(cloud.timestamp_timescale, dev, "cloud") if is_4d else None)
     frame = [
@@ -169,11 +180,12 @@ def project_splats(cloud, camera, settings: CloudSettings, model_transform=None,
             time_ptr = time_tensor(time, settings, dev).reshape(()).contiguous()
         else:
             time_value = float(time)
-    aabb = settings.aabb
-    params = torch.empty((n, 10), dtype=torch.float32, device=dev)
+    aabb = settings.aabb and not surfel
+    width, height = (camera.width, camera.height) if size is None else (int(v) for v in size)
+    params = torch.empty((n, 16 if surfel else 10), dtype=torch.float32, device=dev)
     center = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    axis = None if aabb else torch.empty((n, 2), dtype=torch.float32, device=dev)
-    bounds = torch.empty((n,) if aabb else (n, 2), dtype=torch.float32, device=dev)
+    axis = None if aabb or surfel else torch.empty((n, 2), dtype=torch.float32, device=dev)
+    bounds = torch.empty((n,) if aabb or surfel else (n, 2), dtype=torch.float32, device=dev)
     mask = torch.empty((n,), dtype=torch.bool, device=dev)
     key = torch.empty((n,), dtype=torch.int64, device=dev)
 
@@ -190,12 +202,12 @@ def project_splats(cloud, camera, settings: CloudSettings, model_transform=None,
             *map(ptr, inputs), n, sh.shape[1], kind, int(aabb), _flags(settings),
             settings.radix_sort_depth_bits.bits, *map(ptr, frame), ptr(time_ptr), time_value,
             settings.time_stop - settings.time_start, settings.global_scale, settings.global_opacity,
-            camera.width, camera.height, params.data_ptr(), center.data_ptr(), ptr(axis), bounds.data_ptr(),
+            width, height, params.data_ptr(), center.data_ptr(), ptr(axis), bounds.data_ptr(),
             mask.data_ptr(), key.data_ptr(), stream,
         )
     build.check(status, "project_splats")
     if n > 0:
         trace.count("project.fused")
-    size = (camera.width, camera.height)
-    return _splats(mask, center, key, params, bounds if aabb else (axis, bounds), aabb, size)
+    extents = dict(zip(_extent_keys(settings), (bounds,) if aabb or surfel else (axis, bounds)))
+    return _splats(mask, center, key, params, extents, (width, height))
 

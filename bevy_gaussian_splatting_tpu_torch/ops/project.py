@@ -173,8 +173,8 @@ def project_gaussians(
         "sort_key": sort_key,
         "cutoff": cutoff,
     }
-    with span("gs.project.cov"):
-        if mode == GaussianMode.GAUSSIAN_2D:
+    if mode == GaussianMode.GAUSSIAN_2D:
+        with span("gs.project.surfel"):
             # an invalid surfel leaves the mask after the radix key
             # (render_tiled takes the key from radix_depth_key's own frustum
             # test, rasterize_tile.py:1154-1174)
@@ -186,7 +186,8 @@ def project_gaussians(
             splats["surfel_t"] = T
             splats["mean_2d"] = mean_2d
             splats["surfel_radius"] = g2d.surfel_bounding_radius(extent, cutoff)
-        else:
+    else:
+        with span("gs.project.cov"):
             if cond is not None:
                 cov3 = cond["cov3d"]
             elif isinstance(cloud, Gaussian3dCovCloud):

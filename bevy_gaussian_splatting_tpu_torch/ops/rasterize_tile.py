@@ -107,20 +107,21 @@ def tile_budget(n: int) -> int:
 
 @trace.spanned("gs.project")
 def project_for_binning(
-    cloud, camera: Camera, settings: CloudSettings, model_transform=None, depth_minmax=None, time=None
+    cloud, camera: Camera, settings: CloudSettings, model_transform=None, depth_minmax=None, time=None, size=None
 ) -> dict:
     """``project_gaussians`` at ``time`` (default ``settings.time``) with the
     sentinel cull of its radix key (``sort_key``) folded into ``mask``, as
     ``render_tiled`` prepares them.
 
     Where ``ops/cuda/project.py`` ``fused_projection_applies`` (a cloud on
-    the card, no grad to carry, COLOR, a 3D or 4D cloud), one kernel gives
-    the binning's fields and the packed rows (``params``, which
-    :func:`pack_raster_params` returns); elsewhere the eager chain runs.
-    Each call counts ``project.calls`` (``utils/trace.py``)."""
+    the card, no grad to carry, COLOR, a 3D, 2DGS or 4D cloud), one kernel
+    gives the binning's fields and the rows packed for an image of ``size``
+    (default the camera's; ``params``, which :func:`pack_raster_params`
+    returns); elsewhere the eager chain runs.  Each call counts
+    ``project.calls`` (``utils/trace.py``)."""
     trace.count("project.calls")
     if fused_projection_applies(cloud, settings, model_transform, time):
-        return project_splats(cloud, camera, settings, model_transform, time)
+        return project_splats(cloud, camera, settings, model_transform, time, size)
     # the projection without a span of its own: this call is the span
     splats = project_gaussians.__wrapped__(
         cloud, camera, settings, model_transform, depth_minmax=depth_minmax, time=time
@@ -312,11 +313,17 @@ def pack_raster_param_cols(splats: dict, settings: CloudSettings, width: int, he
     with the homography folded into q = dxn A + dyn B + C
     (``gaussian_2d.surfel_affine_coeffs``); the 2DGS centre stays in NDC.
     Rows the fused projection packed (``params``) give their columns, the
-    centre scaled to this size."""
+    centre scaled to this size; a surfel row holds the width in A and B, so
+    surfel rows give theirs at the width they were packed at only."""
     cx_vp = splats["center_ndc"][:, 0] * width
     cy_vp = splats["center_ndc"][:, 1] * height
     if "params" in splats:
-        return [cx_vp, cy_vp] + [splats["params"][:, k] for k in range(2, 10)]
+        params = splats["params"]
+        if settings.gaussian_mode != GaussianMode.GAUSSIAN_2D:
+            return [cx_vp, cy_vp] + [params[:, k] for k in range(2, 10)]
+        if splats["params_size"][0] != width:
+            raise ValueError(f"surfel rows packed at width {splats['params_size'][0]} cannot serve width {width}")
+        return [params[:, k] for k in range(16)]
     rgb = splats["rgb"]
     alpha = splats["alpha"] * splats["mask"].to(torch.float32)
     if settings.gaussian_mode == GaussianMode.GAUSSIAN_2D:
@@ -528,7 +535,7 @@ def render_tiled(
     depth_minmax = None
     if settings.rasterize_mode == RasterizeMode.DEPTH:
         depth_minmax = depth_range(cloud, camera, settings, model_transform)
-    splats = project_for_binning(cloud, camera, settings, model_transform, depth_minmax, time)
+    splats = project_for_binning(cloud, camera, settings, model_transform, depth_minmax, time, (width, height))
     params = pack_raster_params(splats, settings, width, height)
     mode = kernel_mode(settings)
     if settings.visualize_bounding_box and differentiable:

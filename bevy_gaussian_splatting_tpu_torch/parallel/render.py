@@ -285,7 +285,7 @@ def _local_band_render(
     band_rows = band_h // TILE
     tx_count = width // TILE
 
-    splats = project_for_binning(cloud_shard, camera, settings, model_transform, time=time)
+    splats = project_for_binning(cloud_shard, camera, settings, model_transform, time=time, size=(width, height))
     params_local = pack_raster_params(splats, settings, width, height)
     c = params_local.shape[1]
     keyf = key_to_f32(splats["sort_key"])[:, None]

@@ -1798,10 +1798,11 @@ def phase_orbit_keys(cloud) -> None:
 
 def phase_project(cloud, cloud4) -> None:
     """The fused serving projection (``ops/cuda/project.py``) on the 1M
-    scenes, 3D at 1280x720 and 4D at 512x512: its outputs against its plain
-    version (the eager chain and the packing) bit for bit, both timed by
-    CUDA events (a call: the ``clip_from_world`` product and the kernel),
-    and the bound by the bytes the kernel must move."""
+    scenes, 3D and the 3D scene as 2DGS surfels at 1280x720, 4D at 512x512:
+    its outputs against its plain version (the eager chain and the packing)
+    bit for bit, both timed by CUDA events (a call: the ``clip_from_world``
+    product and the kernel), and the bound by the bytes the kernel must
+    move."""
     from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import project as pj
 
@@ -1809,6 +1810,7 @@ def phase_project(cloud, cloud4) -> None:
         return t.view(torch.int32) if t.dtype == torch.float32 else t
 
     cases = (("3d", cloud, CloudSettings(), 1280, 720),
+             ("2d", cloud, CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_2D), 1280, 720),
              ("4d", cloud4, CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_4D, time=TIME_4D), 512, 512))
     for label, c, settings, width, height in cases:
         cam = orbit_camera(0.3, width, height, "cuda")

@@ -36,6 +36,9 @@ SETTINGS_4D = CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_4D)
 CPU = torch.device("cpu")
 
 PROJECT = {("gs.project.cov", "gs.project"), ("gs.project.sh", "gs.project")}
+# 2DGS: the surfel homography's own child in place of the EWA covariance's
+SURFEL_PROJECT = {("gs.project.surfel", "gs.project"), ("gs.project.sh", "gs.project")}
+SETTINGS_2D = CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_2D)
 BIN = {(k, "gs.bin") for k in ("gs.bin.sort_depth", "gs.bin.expand", "gs.bin.sort_tile", "gs.bin.ranges")}
 # a pair-budget recount: the count's camera (a host camera off the orbit
 # grid) and projection
@@ -89,13 +92,14 @@ def _expect(tree: dict, root: str, shape: set) -> None:
     assert set(tree) == {(root, None)} | shape, sorted(set(tree) ^ ({(root, None)} | shape))
 
 
-def _step(four_d=False, profiled=False, steps=1):
+def _step(four_d=False, profiled=False, steps=1, settings=None):
     cloud = _cloud(four_d)
     model = TrainableCloud(cloud)
     opt = adam(model, 0.01)
     cam = Camera.create(eye=EYE, width=W, height=H, device="cpu")
     target = torch.zeros((H, W, 4))
-    settings = SETTINGS_4D if four_d else CloudSettings()
+    if settings is None:
+        settings = SETTINGS_4D if four_d else CloudSettings()
 
     def run():
         return [float(train_step(model, opt, cam, target, settings, gaussian_splatting_loss, time=0.3))
@@ -143,6 +147,19 @@ def test_training_step_opens_its_layers(four_d):
     _expect(tree, "gs.step", STEP | ({("gs.project.time", "gs.project")} if four_d else set()))
     assert tree[("gs.adam", "gs.step")] == 2  # zero_grad, then the update
     assert tree[("gs.unpermute", "gs.backward")] == 2  # into slot order, then cloud order
+
+
+def test_surfel_frames_and_steps_open_the_surfel_span():
+    """2DGS: the eager surfel chain (here, on the CPU, and in training) opens
+    ``gs.project.surfel`` under ``gs.project``, and no ``gs.project.cov``."""
+    cloud, r = _cloud(), api.InteractiveRenderer(SETTINGS_2D, period_floor_ms=1e9, device="cpu")
+    _, tree = _profiled(lambda: r.render_orbit(cloud, 0.1, 0.2, 60.0, width=W, height=H))
+    _expect(tree, "gs.frame", BIN_FRAME - PROJECT | SURFEL_PROJECT)
+    _, tree = _profiled(lambda: r.render_orbit(cloud, 0.1, 0.2, 60.0, width=W, height=H))
+    assert r.stats == {"bins": 1, "replays": 1, "oneshots": 0}
+    _expect(tree, "gs.frame", REPLAY_FRAME - PROJECT | SURFEL_PROJECT)
+    _, tree, _ = _step(profiled=True, settings=SETTINGS_2D)
+    _expect(tree, "gs.step", STEP - PROJECT | SURFEL_PROJECT)
 
 
 def test_without_a_profiler_no_span_is_entered(monkeypatch):
