@@ -43,14 +43,17 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", 
 # both compositors share (csrc/cull.cuh) rounds under it too.  The fused
 # projection takes it for the same reason: its OBB rows, masks and keys are
 # the eager chain's bits only if it rounds every product and sum as that
-# chain does.
+# chain does.  The training colour stage (csrc/sh.cu) takes it too: its
+# forward gives the eager chain's colour bits with the projection's SH code
+# (csrc/sh.cuh).
 EXTRA_FLAGS = {
     "tile_fwd": ["--fmad=false"],
     "tile_bwd": ["--fmad=false"],
     "project": ["--fmad=false"],
+    "sh": ["--fmad=false"],
 }
 
-SOURCES = ("expand", "tile_fwd", "tile_bwd", "reduce", "project")
+SOURCES = ("expand", "tile_fwd", "tile_bwd", "reduce", "project", "sh")
 
 _LOADED: dict = {}
 

@@ -55,6 +55,8 @@ from bevy_gaussian_splatting_tpu_torch.ops.transforms import (
     in_frustum,
     world_to_clip,
 )
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.sh import sh_colour
+from bevy_gaussian_splatting_tpu_torch.utils import trace
 from bevy_gaussian_splatting_tpu_torch.utils.trace import span, spanned
 
 
@@ -209,17 +211,17 @@ def project_gaussians(
     with span("gs.project.sh"):
         rmode = settings.rasterize_mode
         if rmode in (RasterizeMode.COLOR, RasterizeMode.CLASSIFICATION):
-            # SH lookup along the view ray
+            trace.count("sh.calls")
+            # SH lookup along the view ray: ops/sh.py's lookups as one
+            # autograd function, a kernel each way on the card
             ray_dir = diff / torch.clamp(torch.sqrt(dist2)[..., None], min=1e-12)
             ray_dir_local = sh_ops.world_to_local_direction(ray_dir, model_transform)
             if cond is not None:
                 # duration = float32(time_stop - time_start) (project.py:56-66)
                 duration = torch.full((), settings.time_stop - settings.time_start, dtype=torch.float32, device=dev)
-                rgb = sh_ops.spherindrical_harmonics_lookup(
-                    ray_dir_local, cond["dir_t"], cloud.spherindrical_harmonic, duration
-                )
+                rgb = sh_colour(ray_dir_local, cloud.spherindrical_harmonic, cond["dir_t"], duration)
             else:
-                rgb = sh_ops.spherical_harmonics_lookup(ray_dir_local, cloud.spherical_harmonic)
+                rgb = sh_colour(ray_dir_local, cloud.spherical_harmonic)
             if settings.color_space == GaussianColorSpace.SRGB_REC709_DISPLAY:
                 rgb = sh_ops.srgb_to_linear(rgb)
             if rmode == RasterizeMode.CLASSIFICATION:

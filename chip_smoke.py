@@ -15,7 +15,7 @@ Phases, each of which raises on failure (nothing is caught).  Phases 3-5,
 and 7 with AABB bounds (``CloudSettings(aabb=True)``), then phase 8, then
 phases 3-5, 14 and 6 with 2DGS surfels
 (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``), then phases 9, 20 and 21, then
-phase 23, then phases 10-13 for 4DGS with OBB (with phase 18 after 12) and
+phases 23-24, then phases 10-13 for 4DGS with OBB (with phase 18 after 12) and
 then AABB bounds, then phases 19 and 22:
 
   1. build   every kernel under bevy_gaussian_splatting_tpu_torch/csrc with
@@ -225,6 +225,12 @@ then AABB bounds, then phases 19 and 22:
              1M 3D bench scene at 1280x720 and the 1M 4DGS scene at 512x512
              (time 0.25): every output bitwise its plain version (the eager
              chain), kernel and plain ms by CUDA events, the byte bound.
+ 24. sh      the training projection's colour stage (``ops/cuda/sh.py``,
+             ``csrc/sh.cu``) on the same scenes and cameras: the forward
+             kernel's colour bitwise the eager chain's and the backward
+             kernel's d_sh bitwise autograd's; forward and backward kernel
+             ms by CUDA events against their byte bounds, and the plain
+             version (the eager chain and its autograd) beside them.
 
 It prints the kernels line (one entry per kernel and mode: the four kernels
 in each of the three modes, then the expansion and the forward compositor of
@@ -360,6 +366,9 @@ INTERP_BAR = 1e-6
 PARTICLE_BAR = 1e-5  # ten steps; duplicate behaviours sum in an unspecified order on the card
 PARTICLE_STEPS = 10
 NOISE_SH_BAR = 1e-5
+# the SH colour backward's d_dir and d_dir_t against float64 autograd through the eager chain, norm of the
+# difference over norm (tests/torch_port_cases.py SH_GRAD_REL)
+SH_GRAD_BAR = 1e-5
 NOISE_CPU_STRIDE = 64
 MESH_BOUNDARY = 1e-5  # a point-in-mesh flip within this of a face or a face's diagonal (unit-box units) is rounding
 # the native runtime against the numpy / FlexBuffers paths (phase 20): turns of each load, the PLY bar between the
@@ -1085,12 +1094,16 @@ def train_counters() -> tuple:
 
 
 def checked_step(model, optimizer, camera, target, settings, loss_fn, p_max, label):
-    """One ``train_step`` that must launch all four kernels and leave a
-    finite loss and finite gradients -> (loss, host ms)."""
+    """One ``train_step`` that must launch all four kernels, in COLOR the
+    colour stage's forward kernel too (``sh.fused``), and leave a finite
+    loss and finite gradients -> (loss, host ms)."""
+    from bevy_gaussian_splatting_tpu_torch.models.settings import RasterizeMode
     from bevy_gaussian_splatting_tpu_torch.train.step import train_step
+    from bevy_gaussian_splatting_tpu_torch.utils import trace
 
     counters = train_counters()
     before = [f.launches for f in counters]
+    sh_before = trace.counters().get("sh.fused", 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss = train_step(model, optimizer, camera, target, settings, loss_fn, pairs_max=p_max)
@@ -1099,6 +1112,8 @@ def checked_step(model, optimizer, camera, target, settings, loss_fn, p_max, lab
     for f, b in zip(counters, before):
         if f.launches <= b:
             raise AssertionError(f"{f.__name__} did not launch in the {label}")
+    if settings.rasterize_mode == RasterizeMode.COLOR and trace.counters().get("sh.fused", 0) <= sh_before:
+        raise AssertionError(f"the colour stage's kernels did not launch in the {label}")
     value = float(loss)
     # a field the loss does not read has no gradient (NORMAL mode reads no SH)
     grads = {name: getattr(model, name).grad for name in model.fields}
@@ -1830,6 +1845,76 @@ def phase_project(cloud, cloud4) -> None:
             f"{card_name_and_limit()}")
 
 
+def sh_stage_inputs(c, cam, time: float) -> list:
+    """The colour stage's inputs as ``project_gaussians`` makes them for
+    ``c`` seen by ``cam`` (identity model transform; 4D: the unshifted
+    positions, dir_t = time - timestamp)."""
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import Gaussian4dCloud
+    from bevy_gaussian_splatting_tpu_torch.ops import sh as sh_ops
+    from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
+
+    diff = c.position - cam.world_position
+    dist2 = sort_ops.squared_distance(diff)
+    ray = diff / torch.clamp(torch.sqrt(dist2)[..., None], min=1e-12)
+    direction = sh_ops.world_to_local_direction(ray, torch.eye(4, device="cuda"))
+    if not isinstance(c, Gaussian4dCloud):
+        return [direction, c.spherical_harmonic.contiguous(), None, None]
+    dir_t = torch.full((), time, dtype=torch.float32, device="cuda") - c.timestamp
+    return [direction, c.spherindrical_harmonic.contiguous(), dir_t, torch.full((), 1.0, device="cuda")]
+
+
+def phase_sh(cloud, cloud4) -> None:
+    """The training colour stage's kernels (``ops/cuda/sh.py``) on the 1M
+    scenes, 3D at 1280x720 and 4D at 512x512: the forward's colour bitwise
+    the eager chain's, the backward's d_sh bitwise autograd's; each kernel
+    timed by CUDA events against the least time of its bytes (each input
+    byte read and each output byte written once), and the plain version
+    (the eager chain's forward and autograd backward) beside them."""
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import sh as sh_fn
+
+    for label, c, width, height in (("3d", cloud, 1280, 720), ("4d", cloud4, 512, 512)):
+        cam = orbit_camera(0.3, width, height, "cuda")
+        args = sh_stage_inputs(c, cam, TIME_4D)
+        n, w = args[1].shape
+        g = torch.randn((n, 3), generator=torch.Generator("cuda").manual_seed(5), device="cuda")
+        leaves = [t.detach().requires_grad_() if t is not None else None for t in args[:3]] + [args[3]]
+        eager = sh_fn.sh_colour_plain(*leaves)
+        want = torch.autograd.grad(eager, leaves[1], g)[0]
+        rgb = sh_fn.sh_colour_forward_kernel(*args)
+        got = sh_fn.sh_colour_backward_kernel(*args, g)
+        if not (same_bits(rgb, eager.detach()) and same_bits(got[1], want)):
+            raise AssertionError(f"sh {label}: the kernels' colour or d_sh differ from the eager chain's")
+        # d_dir (and 4D d_dir_t) against float64 autograd through the eager chain
+        wide = [t.detach().double().requires_grad_() if t is not None else None for t in args[:3]]
+        wide.append(None if args[3] is None else args[3].double())
+        wrt = [wide[0]] + ([wide[2]] if args[2] is not None else [])
+        exact = torch.autograd.grad(sh_fn.sh_colour_plain(*wide), wrt, g.double())
+        gaps = {"d_dir": rel_gap(got[0], exact[0])}
+        if args[2] is not None:
+            gaps["d_dir_t"] = rel_gap(got[2], exact[1])
+        del wide, exact
+        if not all(math.isfinite(v) and v <= SH_GRAD_BAR for v in gaps.values()):
+            raise AssertionError(f"sh {label}: the backward kernel's {gaps} against float64 autograd, bar {SH_GRAD_BAR}")
+        extra = 0 if args[2] is None else 4  # dir_t
+        fwd_bytes = n * (w * 4 + 12 + extra + 12)
+        bwd_bytes = n * (2 * w * 4 + 12 + 12 + 2 * extra + 12)
+        fwd_bound, _ = bound(fwd_bytes, 0.0, 1.0)
+        bwd_bound, _ = bound(bwd_bytes, 0.0, 1.0)
+        fwd = cuda_ms(lambda: sh_fn.sh_colour_forward_kernel(*args), 20)
+        bwd = cuda_ms(lambda: sh_fn.sh_colour_backward_kernel(*args, g), 20)
+
+        def plain():
+            out = sh_fn.sh_colour_plain(*leaves)
+            torch.autograd.grad(out, [t for t in leaves[:3] if t is not None], g)
+
+        plain_ms = cuda_ms(plain, 3)
+        log(f"[kernels sh {label} {width}x{height}] {n} gaussians, rows of {w} floats | forward {fwd:.4f} ms, "
+            f"bound {fwd_bound:.4f} ms ({100.0 * fwd_bound / fwd:.1f}%) | backward {bwd:.4f} ms, bound "
+            f"{bwd_bound:.4f} ms ({100.0 * bwd_bound / bwd:.1f}%) | plain (eager chain and autograd) "
+            f"{plain_ms:.4f} ms | colour and d_sh bitwise, {', '.join(f'{k} {v:.3e}' for k, v in gaps.items())} of "
+            f"float64 autograd | {card_name_and_limit()}")
+
+
 def phase_serve_4d(cloud, settings) -> dict:
     """4DGS serving (bench.py:370-394): a time sweep of ``render_orbit``
     renders every frame in one pass (``oneshots``), each through the
@@ -1991,6 +2076,11 @@ def phase_examples() -> None:
             f"{lit} non-black pixels")
         if lit == 0 or not np.isfinite(img).all():
             raise AssertionError(f"example {name} wrote an unlit image")
+
+
+def rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Norm of the difference over the norm of ``want``."""
+    return float((got.double() - want.double()).norm() / want.double().norm())
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -3237,6 +3327,7 @@ def main() -> int:
     log(f"[scene 4d] {len(cloud4)} gaussians (random_gaussians_4d_seeded, seed {SEED_4D}) in "
         f"{time.perf_counter() - t0:.2f} s")
     timed("project", phase_project, cloud, cloud4)
+    timed("sh", phase_sh, cloud, cloud4)
     for aabb in (False, True):
         settings = CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_4D, aabb=aabb, time=TIME_4D)
         mode = "4d-" + MODES[kernel_mode(settings)]

@@ -7,7 +7,9 @@ of their per-warp cull), ``render()`` on the card against the same call on the C
 overlay, in the other rasterize and draw modes, for 4DGS and for f16 and
 bf16 storage), the training
 gradients of every cloud field, card against CPU, and the fused serving
-projection against the eager chain on the card, bit for bit.
+projection against the eager chain on the card, bit for bit, and the
+training colour stage's kernels (``csrc/sh.cu``) against the eager chain
+and its autograd.
 
 These skip without an NVIDIA card.  On one, run them without the JAX-side
 conftest: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -37,6 +39,7 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda import cull
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import expand as ex
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import project as pj
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import reduce as rd
+from bevy_gaussian_splatting_tpu_torch.ops.cuda import sh as sh_fn
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 from bevy_gaussian_splatting_tpu_torch.render.api import render
@@ -47,12 +50,18 @@ from torch_port_cases import (
     EXPAND_COUNT_CASES,
     EYE,
     MODE,
+    SH_GRAD_REL,
+    SH_KINDS,
     adversarial_rows,
     edge_cloud_arrays,
     expand_counts,
     expand_table,
     long_run_counts,
     reduce_counts,
+    rel_gap,
+    sh_stage_grads,
+    sh_stage_inputs,
+    sh_stage_tensors,
     special_rows,
 )
 
@@ -623,3 +632,70 @@ def test_fused_render_matches_the_eager_chain(card, case, monkeypatch):
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 2e-5
     assert float(ref[..., 3].max()) > 0.5
+
+
+# the SH colour stage's kernels at the parity shapes (an N that leaves a
+# ragged last block) and at 1M
+SH_CASES = [(kind, 4099) for kind in SH_KINDS] + [(kind, 1 << 20) for kind in ("deg0", "deg1", "deg2", "deg3", "4d")]
+
+
+def _sh_fused():
+    return trace.counters().get("sh.fused", 0)
+
+
+@pytest.mark.parametrize("kind,n", SH_CASES)
+def test_sh_kernels_match_the_eager_chain(card, kind, n):
+    """The forward kernel's colour is the eager chain's bits; the backward
+    kernel's d_sh is autograd's bits through the eager chain, its d_dir and
+    d_dir_t within SH_GRAD_REL of float64 autograd."""
+    inp = sh_stage_inputs(kind, n, 4)
+    fused = sh_stage_tensors(inp, card)
+    before = _sh_fused()
+    rgb = sh_fn.sh_colour(*fused)
+    assert _sh_fused() == before + 1
+    eager = sh_stage_tensors(inp, card)
+    rgb_eager = sh_fn.sh_colour_plain(*eager)
+    assert torch.equal(_bits(rgb.detach()), _bits(rgb_eager.detach()))
+    got = sh_stage_grads(rgb, fused, inp["g"])
+    want = sh_stage_grads(rgb_eager, eager, inp["g"])
+    assert torch.equal(_bits(got[1]), _bits(want[1]))
+    wide = sh_stage_tensors(inp, card, torch.float64)
+    exact = sh_stage_grads(sh_fn.sh_colour_plain(*wide), wide, inp["g"])
+    torch.cuda.synchronize()
+    if kind == "deg0":  # the constant basis reads no direction
+        assert got[0] is None and exact[0] is None
+    else:
+        assert rel_gap(got[0], exact[0]) <= SH_GRAD_REL
+    if kind == "4d":
+        assert rel_gap(got[2], exact[2]) <= SH_GRAD_REL
+
+
+FIELDS_4D = ("position_visibility", "spherindrical_harmonic", "isotropic_rotations", "scale_opacity",
+             "timestamp_timescale")
+
+
+def test_4d_training_gradients_card_match_cpu(card):
+    """A 4DGS training render's gradients through the colour stage's kernels
+    against the same on the CPU (the plain versions), AABB (the OBB axis of
+    a 4D splat is ill-conditioned, see test_4d_aabb_render_card_matches_cpu)."""
+    settings = CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_4D, aabb=True, time=0.4)
+    a = random_arrays_4d_seeded(2000, seed=3)
+    bg = torch.tensor([0.2, 0.1, 0.4, 1.0])
+    cam = Camera.create(eye=(0.0, 0.0, 60.0), width=128, height=120, device="cpu")
+
+    def grads(device):
+        with torch.no_grad():
+            target = rt.render_tiled(cloud_from_numpy(a, device), cam.to(device), settings.replace(time=0.5),
+                                     background=bg.to(device))
+        model = TrainableCloud.from_numpy(a, device)
+        img = rt.render_tiled(model.cloud(), cam.to(device), settings, background=bg.to(device))
+        mse(img, target).backward()
+        return {f: getattr(model, f).grad.cpu() for f in FIELDS_4D}
+
+    before = _sh_fused()
+    gpu = grads(card)
+    assert _sh_fused() == before + 1  # the training render; the target's is the fused projection
+    cpu = grads("cpu")
+    for f in FIELDS_4D:
+        assert bool(torch.isfinite(gpu[f]).all()), f
+        assert float((gpu[f] - cpu[f]).abs().max()) <= GRAD_BAR * float(cpu[f].abs().max()), f

@@ -26,6 +26,7 @@ from bevy_gaussian_splatting_tpu_torch.models.camera import Camera as TCamera
 from bevy_gaussian_splatting_tpu_torch.models.cloud import (
     cloud_from_numpy,
     random_arrays_3d_seeded,
+    sh_coeff_width,
 )
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 
@@ -332,3 +333,60 @@ def reduce_counts(seed: int, cols: int, stage_floats: int, n: int = 20000) -> to
     counts[int(rng.integers(n // 5, 4 * n // 5))] = 2 * stage_floats // cols
     return torch.from_numpy(np.cumsum(counts).astype(np.int32))
 
+
+# The SH colour stage (ops/cuda/sh.py, tests/test_torch_sh_grad.py and the
+# card cases in tests/test_torch_cuda.py): 3D rows evaluated through degree
+# 0-3, a degree-4 row (evaluated through 3, its last 28 columns unread) and
+# the 4D row; d_dir and d_dir_t within SH_GRAD_REL (norm of the difference
+# over norm) of float64 autograd.
+SH_KINDS = ["deg0", "deg1", "deg2", "deg3", "deg4-row", "4d"]
+SH_GRAD_REL = 1e-5
+
+
+def sh_stage_inputs(kind: str, n: int, seed: int) -> dict:
+    """The colour stage's inputs as numpy: ``d`` [n, 3] unit directions, the
+    first ten on the axes and near the poles, ``sh`` [n, W], ``dir_t`` [n]
+    and ``duration`` (4D, else None) and a cotangent ``g`` [n, 3] with
+    every fifth row 0 (so that its products are signed zeros)."""
+    d = np.random.default_rng(seed).normal(size=(n, 3))
+    axes = np.concatenate([np.eye(3), -np.eye(3)])
+    near_pole = np.array([[1e-4, 0.0, 1.0], [0.0, -3e-5, -1.0], [2e-6, 1e-6, 1.0], [0.0, 1.0, 1e-5]])
+    d[: len(axes)] = axes
+    d[len(axes): len(axes) + len(near_pole)] = near_pole
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    rng = np.random.default_rng(100 + seed)
+    if kind == "4d":
+        sh = rng.normal(size=(n, 144)).astype(np.float32)
+        dir_t = (rng.normal(size=n) * 0.4).astype(np.float32)
+        duration = np.float32(1.0 + 0.25 * seed)
+    else:
+        degree = 4 if kind == "deg4-row" else int(kind[3:])
+        sh = rng.normal(size=(n, sh_coeff_width(degree))).astype(np.float32)
+        dir_t = duration = None
+    g = rng.normal(size=(n, 3)).astype(np.float32)
+    g[::5] = 0.0
+    return {"d": d, "sh": sh, "dir_t": dir_t, "duration": duration, "g": g}
+
+
+def sh_stage_tensors(inp: dict, device="cpu", dtype=torch.float32) -> list:
+    """direction, sh, dir_t, duration of ``inp`` as tensors, all but
+    duration requiring grad (dir_t and duration None in 3D)."""
+    def leaf(a):
+        return torch.tensor(a, dtype=dtype, device=device).requires_grad_()
+
+    out = [leaf(inp["d"]), leaf(inp["sh"])]
+    if inp["dir_t"] is None:
+        return out + [None, None]
+    return out + [leaf(inp["dir_t"]), torch.tensor(inp["duration"], dtype=dtype, device=device)]
+
+
+def sh_stage_grads(rgb: torch.Tensor, leaves: list, g) -> tuple:
+    """(d_dir, d_sh[, d_dir_t]) of ``rgb`` at the cotangent ``g``; None for
+    a leaf the colour does not read."""
+    wrt = [t for t in leaves[:3] if t is not None]
+    return torch.autograd.grad(rgb, wrt, torch.as_tensor(g, dtype=rgb.dtype, device=rgb.device), allow_unused=True)
+
+
+def rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Norm of the difference over the norm of ``want``."""
+    return float((got.double() - want.double()).norm() / want.double().norm())
