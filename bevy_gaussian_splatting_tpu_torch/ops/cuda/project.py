@@ -1,5 +1,6 @@
-"""Fused serving projection: a cloud to the packed compositor rows and the
-fields the binning reads, in one launch (``csrc/project.cu``).
+"""The frame's projection: a cloud to the fields the binning reads and the
+packed compositor rows, one dict on every path (:func:`project_splats`),
+from one kernel (``csrc/project.cu``) where it applies.
 
 Replaces no TPU kernel: the JAX package leaves the projection chain
 (``ops/project.py``, ``covariance.py``, ``sh.py``, ``gaussian_4d.py``) to
@@ -11,17 +12,15 @@ The kernel does the same float32 work, term for term in the chain's order
 and ``GAUSSIAN_4D`` (a ``Gaussian4dCloud``) in ``RasterizeMode.COLOR``, every
 draw mode, both colour spaces and cutoffs, OBB or AABB, any model transform.
 
-``ops/rasterize_tile.py`` ``project_for_binning`` takes it wherever
-:func:`fused_projection_applies`, a rule on what the input shows (device,
-grad state, mode, cloud class), and runs the eager chain everywhere else:
-the CPU, training, the other rasterize modes and the precomputed-covariance
-cloud.  ``project_gaussians`` itself, which the oracle calls,
-stays the eager chain.
-
-``project_splats`` launches the kernel for CUDA tensors and runs the plain
-version, ``project_splats_plain`` (the eager chain and the packing), for CPU
-tensors; both give the same dict.  The counter ``project.fused``
-(``utils/trace.py``) counts kernel launches.
+:func:`project_splats` launches it wherever :func:`fused_projection_applies`,
+a rule on what the input shows (device, grad state, mode, cloud class), and
+runs the plain version, :func:`project_splats_plain` (the eager chain and
+:func:`pack_raster_param_cols`), everywhere else: the CPU, training, the
+other rasterize modes and the precomputed-covariance cloud.
+``ops/rasterize_tile.py`` ``project_for_binning`` is its one caller on a
+frame.  ``project_gaussians`` itself, which the oracle calls, stays the
+eager chain.  The counter ``project.fused`` (``utils/trace.py``) counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -41,6 +40,7 @@ from bevy_gaussian_splatting_tpu_torch.models.settings import (
 )
 from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
+from bevy_gaussian_splatting_tpu_torch.ops.gaussian_2d import surfel_affine_coeffs
 from bevy_gaussian_splatting_tpu_torch.ops.project import as_float32, project_gaussians, time_tensor
 from bevy_gaussian_splatting_tpu_torch.utils import trace
 
@@ -88,27 +88,52 @@ def _extent_keys(settings: CloudSettings) -> tuple:
     return ("radius_vp",) if settings.aabb else ("obb_axis", "obb_bounds")
 
 
-def _splats(mask, center, key, params, extents: dict, size: tuple) -> dict:
-    """The dict both versions give: the binning's fields and the packed rows
-    (``params``, for an image of ``params_size``)."""
-    return {"mask": mask, "center_ndc": center, "sort_key": key, "params": params, "params_size": size, **extents}
+def pack_raster_param_cols(splats: dict, settings: CloudSettings, width: int, height: int) -> list:
+    """The eager chain's per-splat compositor parameters as a list of
+    columns, in the kernel's order (the JAX package's
+    ``ops/rasterize_tile.py:812-858``): ``[cx_vp,
+    cy_vp, e1x, e1y, b1, b2, r, g, b, alpha]`` for OBB, ``[cx_vp, cy_vp,
+    conic.x, conic.y, conic.z, radius_vp, r, g, b, alpha]`` for AABB, and
+    for 2DGS the slim surfel ``[cx_ndc, cy_ndc, surfel_radius, A.xyz, B.xyz,
+    C.xyz, r, g, b, alpha]`` with the homography folded into q = dxn A + dyn
+    B + C (``gaussian_2d.surfel_affine_coeffs``); the 2DGS centre stays in
+    NDC.  The kernel writes the same rows."""
+    rgb = splats["rgb"]
+    alpha = splats["alpha"] * splats["mask"].to(torch.float32)
+    if settings.gaussian_mode == GaussianMode.GAUSSIAN_2D:
+        A, B, C = surfel_affine_coeffs(splats["surfel_t"], splats["mean_2d"], width)
+        cols = [splats["center_ndc"][:, 0], splats["center_ndc"][:, 1], splats["surfel_radius"]]
+        cols += [v[:, k] for v in (A, B, C) for k in range(3)]
+    else:
+        cols = [splats["center_ndc"][:, 0] * width, splats["center_ndc"][:, 1] * height]
+        if settings.aabb:
+            conic = splats["conic"]
+            cols += [conic[:, 0], conic[:, 1], conic[:, 2], splats["radius_vp"]]
+        else:
+            e1 = splats["obb_axis"]
+            b = splats["obb_bounds"]
+            cols += [e1[:, 0], e1[:, 1], b[:, 0], b[:, 1]]
+    return cols + [rgb[:, 0], rgb[:, 1], rgb[:, 2], alpha]
 
 
-def project_splats_plain(cloud, camera, settings: CloudSettings, model_transform=None, time=None,
-                         size=None) -> dict:
-    """Plain PyTorch version: the eager chain (``project_gaussians``), the
-    radix key's sentinel cull folded into ``mask`` and the rows packed as
-    ``rasterize_tile.py`` ``pack_raster_param_cols`` packs them, at ``size``
-    (default the camera's)."""
-    # imported here: rasterize_tile dispatches to this module
-    from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import pack_raster_param_cols
+def _size(camera, size) -> tuple:
+    return (camera.width, camera.height) if size is None else tuple(int(v) for v in size)
 
-    splats = project_gaussians.__wrapped__(cloud, camera, settings, model_transform, time=time)
+
+def project_splats_plain(cloud, camera, settings: CloudSettings, model_transform=None, time=None, size=None,
+                         depth_minmax=None) -> dict:
+    """Plain PyTorch version, differentiable by autograd: the eager chain
+    (``project_gaussians``, whose span the caller's replaces) with the
+    DEPTH ramp's range ``depth_minmax``, the radix key's sentinel cull
+    folded into ``mask`` and the rows stacked from
+    :func:`pack_raster_param_cols` at ``size`` (default the camera's)."""
+    splats = project_gaussians.__wrapped__(
+        cloud, camera, settings, model_transform, depth_minmax=depth_minmax, time=time
+    )
     splats["mask"] = splats["mask"] & (splats["sort_key"] != sort_ops.SENTINEL_KEY)
-    size = (camera.width, camera.height) if size is None else tuple(size)
-    params = torch.stack(pack_raster_param_cols(splats, settings, *size), dim=-1)
-    extents = {k: splats[k] for k in _extent_keys(settings)}
-    return _splats(splats["mask"], splats["center_ndc"], splats["sort_key"], params, extents, size)
+    params = torch.stack(pack_raster_param_cols(splats, settings, *_size(camera, size)), dim=-1)
+    keys = ("mask", "center_ndc", "sort_key") + _extent_keys(settings)
+    return {"params": params, **{k: splats[k] for k in keys}}
 
 
 def _ready(t: torch.Tensor, dev: torch.device, name: str) -> torch.Tensor:
@@ -131,33 +156,27 @@ def _flags(settings: CloudSettings) -> int:
     return flags
 
 
-def project_splats(cloud, camera, settings: CloudSettings, model_transform=None, time=None, size=None) -> dict:
+def project_splats(cloud, camera, settings: CloudSettings, model_transform=None, time=None, size=None,
+                   depth_minmax=None) -> dict:
     """Project ``cloud`` for binning and compositing -> dict: ``mask`` [N]
     bool (the sentinel cull folded in), ``center_ndc`` [N, 2], ``sort_key``
     [N] int64, ``obb_axis`` and ``obb_bounds`` [N, 2] (OBB), ``radius_vp``
-    [N] (AABB) or ``surfel_radius`` [N] (2DGS), ``params`` [N, 10] (2DGS
-    [N, 16]) the compositor's rows at ``size`` (default the camera's),
-    ``params_size`` that (width, height).
+    [N] (AABB) or ``surfel_radius`` [N] (2DGS), and ``params`` [N, 10] (2DGS
+    [N, 16]), the compositor's rows for an image of ``size`` (default the
+    camera's).
 
     ``time`` (a number or a float32 scalar tensor, default ``settings.time``)
     is the 4DGS frame time: a number is passed by value, a tensor read on
-    the card.  The cloud and settings must be of the kernel's set (see
-    :func:`fused_projection_applies`; grad is not propagated)."""
-    mode = settings.gaussian_mode
-    if type(cloud) is not _CLOUDS.get(mode) or settings.rasterize_mode != RasterizeMode.COLOR:
-        raise ValueError(
-            f"the fused projection takes GAUSSIAN_3D / GAUSSIAN_2D / GAUSSIAN_4D clouds in COLOR, not "
-            f"{type(cloud).__name__} in {mode.name}, {settings.rasterize_mode.name}"
-        )
-    if cloud.device.type == "cpu":
-        return project_splats_plain(cloud, camera, settings, model_transform, time, size)
-    if cloud.device.type != "cuda":
-        raise ValueError(f"unsupported device {cloud.device}")
+    the card; ``depth_minmax`` the DEPTH ramp's range.  The kernel runs where
+    :func:`fused_projection_applies` (it propagates no grad), the plain
+    version everywhere else."""
+    if not fused_projection_applies(cloud, settings, model_transform, time):
+        return project_splats_plain(cloud, camera, settings, model_transform, time, size, depth_minmax)
     cloud = as_float32(cloud)
     dev = cloud.device
     n = len(cloud)
-    is_4d = mode == GaussianMode.GAUSSIAN_4D
-    surfel = mode == GaussianMode.GAUSSIAN_2D
+    is_4d = settings.gaussian_mode == GaussianMode.GAUSSIAN_4D
+    surfel = settings.gaussian_mode == GaussianMode.GAUSSIAN_2D
     rot = cloud.isotropic_rotations if is_4d else cloud.rotation
     sh = cloud.spherindrical_harmonic if is_4d else cloud.spherical_harmonic
     kind = 4 if is_4d else (_SURFEL_KIND if surfel else 0) + min(sh_degree_from_width(sh.shape[1]), 3)
@@ -181,7 +200,7 @@ def project_splats(cloud, camera, settings: CloudSettings, model_transform=None,
         else:
             time_value = float(time)
     aabb = settings.aabb and not surfel
-    width, height = (camera.width, camera.height) if size is None else (int(v) for v in size)
+    width, height = _size(camera, size)
     params = torch.empty((n, 16 if surfel else 10), dtype=torch.float32, device=dev)
     center = torch.empty((n, 2), dtype=torch.float32, device=dev)
     axis = None if aabb or surfel else torch.empty((n, 2), dtype=torch.float32, device=dev)
@@ -209,5 +228,5 @@ def project_splats(cloud, camera, settings: CloudSettings, model_transform=None,
     if n > 0:
         trace.count("project.fused")
     extents = dict(zip(_extent_keys(settings), (bounds,) if aabb or surfel else (axis, bounds)))
-    return _splats(mask, center, key, params, extents, (width, height))
+    return {"params": params, "mask": mask, "center_ndc": center, "sort_key": key, **extents}
 

@@ -1,4 +1,4 @@
-"""Tile-binned renderer: binning, parameter packing and the pipeline.
+"""Tile-binned renderer: binning and the pipeline.
 
 The counterpart of the JAX package's ``ops/rasterize_tile.py``
 ``render_tiled(..., compositor="pallas")`` for 3DGS with OBB or AABB bounds,
@@ -8,7 +8,8 @@ the frame time), in every rasterize, draw and sort mode
 serving and training alike.  It reproduces that path's integer artifacts
 exactly:
 
-  1. project every gaussian (ops/project.py) and take its radix depth key;
+  1. project every gaussian, take its radix depth key and pack its
+     compositor row (ops/cuda/project.py);
   2. each splat's clipped tile rectangle from its OBB screen extent, or the
      square of its AABB or surfel radius;
   3. a stable depth pre-sort, front to back, inactive gaussians first;
@@ -44,7 +45,7 @@ from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, Gau
 from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.core import composite_core
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.expand import expand_pairs
-from bevy_gaussian_splatting_tpu_torch.ops.cuda.project import fused_projection_applies, project_splats
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.project import project_splats
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
     MODE_2D,
     MODE_AABB,
@@ -57,8 +58,7 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
     splat_falloff,
     tile_ndc,
 )
-from bevy_gaussian_splatting_tpu_torch.ops.gaussian_2d import surfel_affine_coeffs
-from bevy_gaussian_splatting_tpu_torch.ops.project import as_float32, project_gaussians
+from bevy_gaussian_splatting_tpu_torch.ops.project import as_float32
 from bevy_gaussian_splatting_tpu_torch.ops.transforms import apply_transform
 from bevy_gaussian_splatting_tpu_torch.utils import trace
 
@@ -109,25 +109,14 @@ def tile_budget(n: int) -> int:
 def project_for_binning(
     cloud, camera: Camera, settings: CloudSettings, model_transform=None, depth_minmax=None, time=None, size=None
 ) -> dict:
-    """``project_gaussians`` at ``time`` (default ``settings.time``) with the
-    sentinel cull of its radix key (``sort_key``) folded into ``mask``, as
-    ``render_tiled`` prepares them.
-
-    Where ``ops/cuda/project.py`` ``fused_projection_applies`` (a cloud on
-    the card, no grad to carry, COLOR, a 3D, 2DGS or 4D cloud), one kernel
-    gives the binning's fields and the rows packed for an image of ``size``
-    (default the camera's; ``params``, which :func:`pack_raster_params`
-    returns); elsewhere the eager chain runs.  Each call counts
-    ``project.calls`` (``utils/trace.py``)."""
+    """The frame's projection at ``time`` (default ``settings.time``), as
+    ``render_tiled`` prepares it: ``ops/cuda/project.py``
+    :func:`project_splats`, the binning's fields and the compositor's rows
+    (``params``) packed for an image of ``size`` (default the camera's),
+    from one kernel where it applies and the eager chain elsewhere.  Each
+    call counts ``project.calls`` (``utils/trace.py``)."""
     trace.count("project.calls")
-    if fused_projection_applies(cloud, settings, model_transform, time):
-        return project_splats(cloud, camera, settings, model_transform, time, size)
-    # the projection without a span of its own: this call is the span
-    splats = project_gaussians.__wrapped__(
-        cloud, camera, settings, model_transform, depth_minmax=depth_minmax, time=time
-    )
-    splats["mask"] = splats["mask"] & (splats["sort_key"] != sort_ops.SENTINEL_KEY)
-    return splats
+    return project_splats(cloud, camera, settings, model_transform, time, size, depth_minmax)
 
 
 def _pixel_extents(splats: dict, width: int, height: int):
@@ -302,52 +291,6 @@ def kernel_mode(settings: CloudSettings) -> int:
     if settings.gaussian_mode == GaussianMode.GAUSSIAN_2D:
         return MODE_2D
     return MODE_AABB if settings.aabb else MODE_OBB
-
-
-def pack_raster_param_cols(splats: dict, settings: CloudSettings, width: int, height: int) -> list:
-    """Per-splat compositor parameters as a list of columns, in the kernel's
-    order (rasterize_tile.py:812-858): ``[cx_vp, cy_vp, e1x, e1y, b1, b2, r,
-    g, b, alpha]`` for OBB, ``[cx_vp, cy_vp, conic.x, conic.y, conic.z,
-    radius_vp, r, g, b, alpha]`` for AABB, and for 2DGS the slim surfel
-    ``[cx_ndc, cy_ndc, surfel_radius, A.xyz, B.xyz, C.xyz, r, g, b, alpha]``
-    with the homography folded into q = dxn A + dyn B + C
-    (``gaussian_2d.surfel_affine_coeffs``); the 2DGS centre stays in NDC.
-    Rows the fused projection packed (``params``) give their columns, the
-    centre scaled to this size; a surfel row holds the width in A and B, so
-    surfel rows give theirs at the width they were packed at only."""
-    cx_vp = splats["center_ndc"][:, 0] * width
-    cy_vp = splats["center_ndc"][:, 1] * height
-    if "params" in splats:
-        params = splats["params"]
-        if settings.gaussian_mode != GaussianMode.GAUSSIAN_2D:
-            return [cx_vp, cy_vp] + [params[:, k] for k in range(2, 10)]
-        if splats["params_size"][0] != width:
-            raise ValueError(f"surfel rows packed at width {splats['params_size'][0]} cannot serve width {width}")
-        return [params[:, k] for k in range(16)]
-    rgb = splats["rgb"]
-    alpha = splats["alpha"] * splats["mask"].to(torch.float32)
-    if settings.gaussian_mode == GaussianMode.GAUSSIAN_2D:
-        A, B, C = surfel_affine_coeffs(splats["surfel_t"], splats["mean_2d"], width)
-        cols = [splats["center_ndc"][:, 0], splats["center_ndc"][:, 1], splats["surfel_radius"]]
-        cols += [v[:, k] for v in (A, B, C) for k in range(3)]
-    elif settings.aabb:
-        conic = splats["conic"]
-        cols = [cx_vp, cy_vp, conic[:, 0], conic[:, 1], conic[:, 2], splats["radius_vp"]]
-    else:
-        e1 = splats["obb_axis"]
-        b = splats["obb_bounds"]
-        cols = [cx_vp, cy_vp, e1[:, 0], e1[:, 1], b[:, 0], b[:, 1]]
-    return cols + [rgb[:, 0], rgb[:, 1], rgb[:, 2], alpha]
-
-
-@trace.spanned("gs.pack")
-def pack_raster_params(splats: dict, settings: CloudSettings, width: int, height: int) -> torch.Tensor:
-    """[N, param_width] packed per-splat parameters for the compositor (10
-    columns, 16 for 2DGS): the fused projection's rows where it packed them
-    at this size."""
-    if "params" in splats and splats["params_size"] == (width, height):
-        return splats["params"]
-    return torch.stack(pack_raster_param_cols(splats, settings, width, height), dim=-1)
 
 
 class TileBins(NamedTuple):
@@ -536,7 +479,7 @@ def render_tiled(
     if settings.rasterize_mode == RasterizeMode.DEPTH:
         depth_minmax = depth_range(cloud, camera, settings, model_transform)
     splats = project_for_binning(cloud, camera, settings, model_transform, depth_minmax, time, (width, height))
-    params = pack_raster_params(splats, settings, width, height)
+    params = splats["params"]
     mode = kernel_mode(settings)
     if settings.visualize_bounding_box and differentiable:
         with trace.span("gs.bin"):

@@ -54,7 +54,6 @@ from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import (
     bin_gaussians,
     composite_tiles,
     kernel_mode,
-    pack_raster_params,
     pairs_budget,
     project_for_binning,
     tile_budget,
@@ -286,7 +285,7 @@ def _local_band_render(
     tx_count = width // TILE
 
     splats = project_for_binning(cloud_shard, camera, settings, model_transform, time=time, size=(width, height))
-    params_local = pack_raster_params(splats, settings, width, height)
+    params_local = splats["params"]
     c = params_local.shape[1]
     keyf = key_to_f32(splats["sort_key"])[:, None]
     center = splats["center_ndc"].detach()

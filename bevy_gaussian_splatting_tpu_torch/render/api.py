@@ -189,10 +189,9 @@ def make_replay_pipeline(
     def replay_fn(cloud, camera, model_transform, background, time, g_s, valid_s, start, end, count):
         cloud = as_float32(cloud)
         dm = depth_minmax(cloud, camera, model_transform)
-        splats = rt.project_for_binning(cloud, camera, settings, model_transform, dm, time)
-        params = rt.pack_raster_params(splats, settings, width, height)
+        splats = rt.project_for_binning(cloud, camera, settings, model_transform, dm, time, (width, height))
         with trace.span("gs.pack"):
-            params_sorted = params[g_s]
+            params_sorted = splats["params"][g_s]
         raw = composite_tiles_raw(
             params_sorted.contiguous(), start, count, tx_count, width, height, chunk=chunk, mode=mode,
             bbox=settings.visualize_bounding_box,

@@ -699,7 +699,7 @@ def phase_kernels(cloud, target_cloud, settings, width: int, height: int, target
 
     # ---- compositor: within 2e-5 (2DGS 1e-4) ----
     bins = rt.tile_bins(splats, width, height, p_max)
-    params = rt.pack_raster_params(splats, settings, width, height)[bins.g_s].contiguous()
+    params = splats["params"][bins.g_s].contiguous()
     start, count = bins.start, bins.count
     chunk = tf.preferred_chunk(p_max, num_tiles)
     comp_args = (params, start, count, tx_count, width, height)
@@ -778,7 +778,7 @@ def phase_kernels_converge() -> None:
         p_max = rt.pairs_budget(n)
         splats = rt.project_for_binning(cloud, camera, settings)
         bins = rt.tile_bins(splats, size, size, p_max)
-        params = rt.pack_raster_params(splats, settings, size, size)[bins.g_s].contiguous()
+        params = splats["params"][bins.g_s].contiguous()
         tx_count = size // rt.TILE
         num_tiles = bins.start.shape[0]
         table, _ = rt.expansion_inputs(splats, size, size, p_max)
@@ -1820,6 +1820,7 @@ def phase_project(cloud, cloud4) -> None:
     move."""
     from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode
     from bevy_gaussian_splatting_tpu_torch.ops.cuda import project as pj
+    from bevy_gaussian_splatting_tpu_torch.utils import trace
 
     def bits(t):
         return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -1829,13 +1830,16 @@ def phase_project(cloud, cloud4) -> None:
              ("4d", cloud4, CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_4D, time=TIME_4D), 512, 512))
     for label, c, settings, width, height in cases:
         cam = orbit_camera(0.3, width, height, "cuda")
+        before = trace.counters().get("project.fused", 0)
         got = pj.project_splats(c, cam, settings)
+        if trace.counters().get("project.fused", 0) != before + 1:
+            raise AssertionError(f"fused projection {label}: project_splats launched no kernel")
         ref = pj.project_splats_plain(c, cam, settings)
-        differ = [k for k in ref if k != "params_size" and not torch.equal(bits(got[k]), bits(ref[k]))]
+        differ = [k for k in ref if not torch.equal(bits(got[k]), bits(ref[k]))]
         if differ:
             raise AssertionError(f"fused projection {label}: {differ} differ from the eager chain")
         read = sum(getattr(c, f.name).numel() * 4 for f in dataclasses.fields(c))
-        written = sum(t.numel() * t.element_size() for k, t in got.items() if k != "params_size")
+        written = sum(t.numel() * t.element_size() for t in got.values())
         t_bound, _ = bound(read + written, 0.0, 1.0)
         kernel = cuda_ms(lambda: pj.project_splats(c, cam, settings), 20)
         plain = cuda_ms(lambda: pj.project_splats_plain(c, cam, settings), 5)

@@ -39,6 +39,7 @@ from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings as T
 from bevy_gaussian_splatting_tpu_torch.models.settings import GaussianMode as TMode
 from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as trt
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tfwd
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.project import pack_raster_param_cols as tpack
 from bevy_gaussian_splatting_tpu_torch.ops.gaussian_2d import surfel_affine_coeffs as t_affine
 from bevy_gaussian_splatting_tpu_torch.ops.project import project_gaussians as tproject
 from bevy_gaussian_splatting_tpu_torch.ops.rasterize_ref import render_oracle as t_oracle
@@ -120,7 +121,7 @@ def test_2dgs_projection_and_packing_match_jax(case):
     np.testing.assert_array_equal(tB, jB)
     np.testing.assert_allclose(tC, jC, rtol=0, atol=1e-4 * np.abs(jC).max())
     jcols = jrt.pack_raster_param_cols(js, J_2D, width, height)
-    tcols = trt.pack_raster_param_cols(ts, T_2D, width, height)
+    tcols = tpack(ts, T_2D, width, height)
     assert len(tcols) == len(jcols) == tfwd.param_width(tfwd.MODE_2D) == 16
     for i, (t, j) in enumerate(zip(tcols, jcols)):
         ref = np.asarray(j)[m]

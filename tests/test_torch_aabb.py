@@ -32,6 +32,7 @@ from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings as T
 from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as trt
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tbwd
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tfwd
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.project import pack_raster_param_cols as tpack
 from bevy_gaussian_splatting_tpu_torch.ops.project import project_gaussians as tproject
 from bevy_gaussian_splatting_tpu_torch.ops.rasterize_ref import render_oracle as t_oracle
 from bevy_gaussian_splatting_tpu_torch.render import api
@@ -106,7 +107,7 @@ def test_aabb_projection_and_packing_match_jax(size):
     for k in ("conic", "radius_vp", "center_ndc"):
         np.testing.assert_allclose(ts[k].numpy()[m], js[k][m], rtol=1e-5, atol=1e-5, err_msg=k)
     jcols = jrt.pack_raster_param_cols(js, J_AABB, width, height)
-    tcols = trt.pack_raster_param_cols(ts, T_AABB, width, height)
+    tcols = tpack(ts, T_AABB, width, height)
     assert len(tcols) == len(jcols) == 10
     for i, (t, j) in enumerate(zip(tcols, jcols)):
         np.testing.assert_allclose(t.numpy()[m], np.asarray(j)[m], rtol=1e-5, atol=1e-5, err_msg=f"col {i}")

@@ -216,7 +216,7 @@ def test_core_backward_is_the_hand_derived_one():
     _, tc = cameras(64, 64)
     splats = trt.project_for_binning(torch_cloud(a), tc, TSettings())
     bins = trt.tile_bins(splats, 64, 64, 1 << 14)
-    params = trt.pack_raster_params(splats, TSettings(), 64, 64).detach().requires_grad_()
+    params = splats["params"].detach().requires_grad_()
     out = tcore.composite_core(params, *bins, tx_count=4, width=64, full_height=64)
     assert type(out.grad_fn).__name__ == "CompositeCoreBackward"
     out.sum().backward()

@@ -171,7 +171,7 @@ def test_reduce_kernel_stages_long_runs_in_windows(card, cols):
 def test_composite_kernel_matches_plain(card, kind, n, height, chunk):
     splats, p_max = _inputs(_scene(kind, n, 4), 256, height, card)
     bins = rt.tile_bins(splats, 256, height, p_max)
-    params = rt.pack_raster_params(splats, CloudSettings(), 256, height)[bins.g_s].contiguous()
+    params = splats["params"][bins.g_s].contiguous()
     start, count = bins.start, bins.count
     if chunk is None:
         chunk = tf.preferred_chunk(p_max, start.shape[0])
@@ -231,7 +231,7 @@ def _matches_twin(got, plain, params, start, count, gbar, tx_count, width, full_
 def test_backward_and_reduce_kernels_match_plain(card, kind, n, height, chunk):
     splats, p_max = _inputs(_scene(kind, n, 5), 256, height, card)
     bins = rt.tile_bins(splats, 256, height, p_max)
-    params = rt.pack_raster_params(splats, CloudSettings(), 256, height)[bins.g_s].contiguous()
+    params = splats["params"][bins.g_s].contiguous()
     if kind == "bench-b1":
         params[::5, 4] = -params[::5, 4]
         params[1::7, 4] = 0.0
@@ -317,7 +317,7 @@ def test_aabb_compositor_kernels_match_plain(card, kind, n, height, chunk):
     settings = CloudSettings(aabb=True)
     splats, p_max = _inputs(_scene(kind, n, 8), 256, height, card, settings)
     bins = rt.tile_bins(splats, 256, height, p_max)
-    params = rt.pack_raster_params(splats, settings, 256, height)[bins.g_s].contiguous()
+    params = splats["params"][bins.g_s].contiguous()
     if chunk is None:
         chunk = tf.preferred_chunk(p_max, bins.start.shape[0])
     args = (params, bins.start, bins.count, 16, 256, height)
@@ -397,7 +397,7 @@ def test_2dgs_kernels_match_plain(card, kind, n, height, chunk):
     else:
         splats, p_max = _inputs(_scene(kind, n, 9), 256, height, card, SURFELS)
     bins = rt.tile_bins(splats, 256, height, p_max)
-    params = rt.pack_raster_params(splats, SURFELS, 256, height)[bins.g_s].contiguous()
+    params = splats["params"][bins.g_s].contiguous()
     assert params.shape[1] == 16
     if chunk is None:
         chunk = tf.preferred_chunk(p_max, bins.start.shape[0])
@@ -458,7 +458,7 @@ def test_overlay_kernel_matches_plain(card, mode, kind, n, height, chunk):
     settings = OVERLAY[mode]
     splats, p_max = _inputs(_scene(kind, n, 10), 256, height, card, settings)
     bins = rt.tile_bins(splats, 256, height, p_max)
-    params = rt.pack_raster_params(splats, settings, 256, height)[bins.g_s].contiguous()
+    params = splats["params"][bins.g_s].contiguous()
     if chunk is None:
         chunk = tf.preferred_chunk(p_max, bins.start.shape[0])
     kmode = rt.kernel_mode(settings)
@@ -601,12 +601,12 @@ def test_fused_projection_equals_the_eager_chain(card, case):
     before = _fused_launches()
     got = pj.project_splats(cloud, cam, settings, model, time)
     assert _fused_launches() == before + 1
-    ref = pj.project_splats_plain(cloud, cam, settings, model, time)
+    # the kernel packs for the camera's size by default
+    ref = pj.project_splats_plain(cloud, cam, settings, model, time, size=(cam.width, cam.height))
     torch.cuda.synchronize()
     assert set(got) == set(ref)
-    assert got["params_size"] == ref["params_size"] == (cam.width, cam.height)
     differ = {}
-    for name in sorted(set(ref) - {"params_size"}):
+    for name in sorted(ref):
         a, b = _bits(got[name]), _bits(ref[name])
         assert a.shape == b.shape and a.dtype == b.dtype, name
         if not torch.equal(a, b):
@@ -626,7 +626,7 @@ def test_fused_render_matches_the_eager_chain(card, case, monkeypatch):
     before = _fused_launches()
     got = rt.render_tiled(cloud, cam, settings, model, differentiable=False, time=time)
     assert _fused_launches() == before + 1
-    monkeypatch.setattr(rt, "fused_projection_applies", lambda *args: False)
+    monkeypatch.setattr(pj, "fused_projection_applies", lambda *args: False)
     ref = rt.render_tiled(cloud, cam, settings, model, differentiable=False, time=time)
     assert _fused_launches() == before + 1
     torch.cuda.synchronize()

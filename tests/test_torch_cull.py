@@ -82,7 +82,7 @@ def _scene_inputs(scene, mode, width, height):
     p_max = rt.pairs_budget(len(cloud), int(rt.pair_count(cloud, cam, settings)))
     splats = rt.project_for_binning(cloud, cam, settings)
     bins = rt.tile_bins(splats, width, height, p_max)
-    params = rt.pack_raster_params(splats, settings, width, height)[bins.g_s].contiguous()
+    params = splats["params"][bins.g_s].contiguous()
     return params, bins.start, bins.count
 
 

@@ -29,8 +29,9 @@ from bevy_gaussian_splatting_tpu_torch.models.cloud import (  # noqa: E402
     surfel_grid_arrays,
 )
 from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode  # noqa: E402
-from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt  # noqa: E402
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import project as pj  # noqa: E402
+from bevy_gaussian_splatting_tpu_torch.ops.project import project_gaussians  # noqa: E402
+from bevy_gaussian_splatting_tpu_torch.ops.sort import SENTINEL_KEY  # noqa: E402
 from bevy_gaussian_splatting_tpu_torch.render import api  # noqa: E402
 from torch_port_cases import EYE  # noqa: E402  (also keeps one PyTorch thread per worker)
 
@@ -120,12 +121,13 @@ def test_plain_projection_is_the_eager_chain(scene):
     cloud = Gaussian3dCloud(**scene)
     cam = Camera.create(eye=EYE, width=W, height=H, device=CPU)
     got = pj.project_splats_plain(cloud, cam, S2)
-    ref = rt.project_for_binning(cloud, cam, S2)
+    ref = project_gaussians(cloud, cam, S2)
+    ref["mask"] = ref["mask"] & (ref["sort_key"] != SENTINEL_KEY)
     for name in ("mask", "center_ndc", "sort_key", "surfel_radius"):
         assert torch.equal(got[name], ref[name]), name
-    rows = rt.pack_raster_params(ref, S2, W, H)
+    rows = torch.stack(pj.pack_raster_param_cols(ref, S2, W, H), dim=-1)
     assert torch.equal(got["params"].view(torch.int32), rows.view(torch.int32))
-    assert "obb_axis" not in got and "radius_vp" not in got
+    assert set(got) == {"mask", "center_ndc", "sort_key", "surfel_radius", "params"}
 
 
 @pytest.mark.parametrize("module", ["splat_2d", "splat"])

@@ -48,6 +48,18 @@ def assert_arrays_equal(got, want, names):
         np.testing.assert_array_equal(g, w, err_msg=name)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_library():
+    """The cases compare against the JAX package's native library, whose
+    loader keeps ``None`` for good when its build or load fails: without
+    the library every case fails here, for that one reason (the root
+    ``conftest.py`` builds it before xdist's workers start)."""
+    if not jnative.available():
+        built = sorted(p.name for p in (ROOT / "bevy_gaussian_splatting_tpu" / "native").glob("_gsplat_native_*"))
+        pytest.fail(f"the JAX package's native library did not load: its loader keeps no error; "
+                    f"files built beside its source: {built or 'none'}", pytrace=False)
+
+
 def sh_layout(data: bytes, kw: dict) -> dict:
     """The SH width and per-channel count both parse_ply_3d's pass (an
     explicit degree, else the header's f_rest count)."""

@@ -18,8 +18,8 @@ from bevy_gaussian_splatting_tpu_torch.ops import covariance as tcov
 from bevy_gaussian_splatting_tpu_torch.ops import sh as tsh
 from bevy_gaussian_splatting_tpu_torch.ops import sort as tsort
 from bevy_gaussian_splatting_tpu_torch.ops import transforms as ttr
+from bevy_gaussian_splatting_tpu_torch.ops.cuda.project import pack_raster_param_cols as tpack
 from bevy_gaussian_splatting_tpu_torch.ops.project import project_gaussians as tproject
-from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import pack_raster_param_cols as tpack
 from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings as TSettings
 from torch_port_cases import CASE_IDS, CASES, cameras, cloud_arrays, jax_cloud, torch_cloud
 

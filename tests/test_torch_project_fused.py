@@ -37,6 +37,8 @@ from bevy_gaussian_splatting_tpu_torch.models.settings import (
 )
 from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import project as pj
+from bevy_gaussian_splatting_tpu_torch.ops.project import project_gaussians
+from bevy_gaussian_splatting_tpu_torch.ops.sort import SENTINEL_KEY
 from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud
 from bevy_gaussian_splatting_tpu_torch.utils import trace
 
@@ -125,16 +127,44 @@ def test_rule_leaves_other_modes_and_cloud_classes_to_the_eager_chain(on_card, k
     assert not pj.fused_projection_applies(_cloud(kind), settings)
 
 
+def _extents(settings) -> set:
+    if settings.gaussian_mode == GaussianMode.GAUSSIAN_2D:
+        return {"surfel_radius"}
+    return {"radius_vp"} if settings.aabb else {"obb_axis", "obb_bounds"}
+
+
+def _eager_rows(cloud, cam, settings, size, **kw):
+    """The eager chain (``project_gaussians``) with the radix key's sentinel
+    cull folded into its mask, and its rows packed for ``size``: what every
+    path's dict is held to."""
+    splats = project_gaussians(cloud, cam, settings, **kw)
+    splats["mask"] = splats["mask"] & (splats["sort_key"] != SENTINEL_KEY)
+    return splats, torch.stack(pj.pack_raster_param_cols(splats, settings, *size), dim=-1)
+
+
+def _assert_is_the_eager_chain(got, cloud, cam, settings, size, **kw):
+    """``got`` has the one key set, the eager chain's binning fields and its
+    rows packed for ``size``, bit for bit."""
+    ref, rows = _eager_rows(cloud, cam, settings, size, **kw)
+    assert set(got) == {"mask", "center_ndc", "sort_key", "params"} | _extents(settings)
+    for name in set(got) - {"params"}:
+        assert torch.equal(got[name], ref[name]), name
+    assert got["params"].shape == rows.shape
+    assert torch.equal(got["params"].view(torch.int32), rows.view(torch.int32))
+    assert bool(ref["mask"].any())
+
+
 @pytest.mark.parametrize("kind,settings", [("3d", S3), ("3d", CloudSettings(aabb=True)), ("4d", S4), ("2d", S2)])
 def test_project_calls_counts_the_eager_path(kind, settings):
     """On the CPU every call runs the eager chain: ``project.calls`` counts
     it, ``project.fused`` does not move, and a frame of ``render_tiled``
-    projects once."""
+    projects once.  The eager path gives the one key set, its rows packed
+    for the camera's size."""
     cloud = _cloud(kind, 256)
     cam = Camera.create(eye=(0.0, 0.0, 60.0), width=64, height=48, device="cpu")
     before = trace.counters()
     splats = rt.project_for_binning(cloud, cam, settings)
-    assert "params" not in splats
+    _assert_is_the_eager_chain(splats, cloud, cam, settings, (64, 48))
     rt.render_tiled(cloud, cam, settings, differentiable=False)
     after = trace.counters()
     assert after["project.calls"] - before.get("project.calls", 0) == 2
@@ -145,59 +175,59 @@ def test_project_calls_counts_the_eager_path(kind, settings):
     ("3d", S3), ("3d", CloudSettings(aabb=True, draw_mode=DrawMode.HIGHLIGHT_SELECTED)), ("4d", S4),
 ])
 def test_plain_version_is_the_serving_eager_path(kind, settings):
-    """``project_splats`` on the CPU (the plain version) gives the binning's
-    fields of ``project_for_binning`` and the rows of ``pack_raster_params``
-    bit for bit, and ``pack_raster_params`` hands its rows back at the
-    camera's size and rescales only the centre at another."""
+    """``project_splats`` on the CPU (the plain version) and
+    ``project_for_binning`` give the eager chain's binning fields and its
+    rows, packed for the camera's size by default and for ``size`` where
+    asked, bit for bit."""
     cloud = _cloud(kind, 256)
     cam = Camera.create(eye=(2.0, 1.0, 60.0), width=64, height=48, device="cpu")
-    got = pj.project_splats(cloud, cam, settings, time=0.3)
-    ref = rt.project_for_binning(cloud, cam, settings, time=0.3)
-    rows = rt.pack_raster_params(ref, settings, 64, 48)
-    for name in ("mask", "center_ndc", "sort_key", "radius_vp" if settings.aabb else "obb_axis"):
-        assert torch.equal(got[name], ref[name]), name
-    assert torch.equal(got["params"].view(torch.int32), rows.view(torch.int32))
-    assert got["params_size"] == (64, 48)
-    assert rt.pack_raster_params(got, settings, 64, 48) is got["params"]
-    other = rt.pack_raster_params(got, settings, 96, 80)
-    assert torch.equal(other.view(torch.int32), rt.pack_raster_params(ref, settings, 96, 80).view(torch.int32))
-    assert bool(ref["mask"].any())
+    _assert_is_the_eager_chain(pj.project_splats(cloud, cam, settings, time=0.3), cloud, cam, settings, (64, 48),
+                               time=0.3)
+    other = rt.project_for_binning(cloud, cam, settings, time=0.3, size=(96, 80))
+    _assert_is_the_eager_chain(other, cloud, cam, settings, (96, 80), time=0.3)
 
 
 def test_plain_version_is_the_serving_eager_path_for_surfels():
-    """Under 2DGS the plain version gives ``project_for_binning``'s binning
-    fields (``surfel_radius`` the extent) and the 16-column surfel rows of
-    ``pack_raster_params`` bit for bit.  A surfel row holds the width in A
-    and B: the rows serve another height at the same width as they are,
-    and refuse another width."""
+    """Under 2DGS the plain version gives the eager chain's binning fields
+    (``surfel_radius`` the extent) and its 16-column surfel rows bit for
+    bit.  A surfel row holds the width in A and B: rows for another size,
+    taller or wider, are packed for it."""
     cloud = _cloud("2d", 256)
     cam = Camera.create(eye=(2.0, 1.0, 60.0), width=64, height=48, device="cpu")
     got = pj.project_splats(cloud, cam, S2)
-    ref = rt.project_for_binning(cloud, cam, S2)
-    rows = rt.pack_raster_params(ref, S2, 64, 48)
-    assert set(got) == {"mask", "center_ndc", "sort_key", "surfel_radius", "params", "params_size"}
-    for name in ("mask", "center_ndc", "sort_key", "surfel_radius"):
-        assert torch.equal(got[name], ref[name]), name
     assert got["params"].shape == (256, 16)
-    assert torch.equal(got["params"].view(torch.int32), rows.view(torch.int32))
-    assert rt.pack_raster_params(got, S2, 64, 48) is got["params"]
-    taller = rt.pack_raster_params(got, S2, 64, 80)
-    assert torch.equal(taller.view(torch.int32), rt.pack_raster_params(ref, S2, 64, 80).view(torch.int32))
-    with pytest.raises(ValueError, match="width"):
-        rt.pack_raster_params(got, S2, 96, 48)
-    # packed at another size on request, as render_tiled asks
-    wide = pj.project_splats(cloud, cam, S2, size=(96, 48))
-    assert torch.equal(wide["params"].view(torch.int32), rt.pack_raster_params(ref, S2, 96, 48).view(torch.int32))
-    assert bool(ref["mask"].any())
+    _assert_is_the_eager_chain(got, cloud, cam, S2, (64, 48))
+    for size in ((64, 80), (96, 48)):
+        _assert_is_the_eager_chain(pj.project_splats(cloud, cam, S2, size=size), cloud, cam, S2, size)
 
 
-def test_plain_version_refuses_what_the_kernel_does_not_take():
+def test_plain_version_takes_what_the_kernel_does_not(monkeypatch):
+    """What the rule leaves out (another rasterize mode, the precomputed-
+    covariance cloud) takes the plain version: ``project_splats`` asks the
+    rule and gives the eager chain's dict, the DEPTH ramp's range passed
+    through, with no kernel launch."""
+    asked = []
+
+    def rule(cloud, settings, *tensors):
+        asked.append(settings.rasterize_mode)
+        return False
+
+    monkeypatch.setattr(pj, "fused_projection_applies", rule)
     cam = Camera.create(eye=(0.0, 0.0, 60.0), width=64, height=48, device="cpu")
-    with pytest.raises(ValueError, match="COLOR"):
-        pj.project_splats(_cloud("3d"), cam, S3.replace(rasterize_mode=RasterizeMode.DEPTH))
-    with pytest.raises(ValueError, match="Gaussian3dCovCloud"):
-        pj.project_splats(_cloud("cov"), cam, S3)
-    assert np.isfinite(pj.project_splats(_cloud("3d"), cam, S3)["params"].numpy()).any()
+    depth = S3.replace(rasterize_mode=RasterizeMode.DEPTH)
+    before = trace.counters().get("project.fused", 0)
+    cases = [(_cloud("cov"), S3, None), (_cloud("3d"), depth, None),
+             (_cloud("3d"), depth, (torch.tensor(55.0), torch.tensor(65.0)))]
+    rows = []
+    for cloud, settings, dm in cases:
+        got = pj.project_splats(cloud, cam, settings, depth_minmax=dm)
+        _assert_is_the_eager_chain(got, cloud, cam, settings, (64, 48), depth_minmax=dm)
+        rows.append(got["params"])
+    assert asked == [RasterizeMode.COLOR, RasterizeMode.DEPTH, RasterizeMode.DEPTH]
+    assert trace.counters().get("project.fused", 0) == before
+    # the ramp's range reaches the colour columns
+    assert not torch.equal(rows[1][:, 6:9], rows[2][:, 6:9])
+    assert np.isfinite(rows[0].numpy()).any()
 
 
 # The 2DGS surfel kernel (csrc/project.cu project_kernel_2d) against the eager
@@ -314,7 +344,7 @@ def _differ(got: dict, ref: dict) -> dict:
     """By field where the two differ: (rows, columns, most ulps)."""
     assert set(got) == set(ref) and "surfel_radius" in got
     differ = {}
-    for name in sorted(set(ref) - {"params_size"}):
+    for name in sorted(ref):
         a, b = _bits(got[name]), _bits(ref[name])
         assert a.shape == b.shape and a.dtype == b.dtype, name
         if not torch.equal(a, b):
@@ -332,9 +362,9 @@ def test_fused_surfel_projection_equals_the_eager_chain(card, case):
     before = trace.counters().get("project.fused", 0)
     got = pj.project_splats(cloud, cam, settings, model)
     assert trace.counters().get("project.fused", 0) == before + 1
-    ref = pj.project_splats_plain(cloud, cam, settings, model)
+    # the kernel packs for the camera's size by default
+    ref = pj.project_splats_plain(cloud, cam, settings, model, size=(cam.width, cam.height))
     torch.cuda.synchronize()
-    assert got["params_size"] == ref["params_size"] == (cam.width, cam.height)
     differ = _differ(got, ref)
     if len(cloud) < SMALL_CLOUD:
         # the centre alone, within a few ulps (see above) ...
@@ -361,7 +391,7 @@ def test_fused_surfel_render_matches_the_eager_chain(card, case, monkeypatch):
     before = trace.counters().get("project.fused", 0)
     got = rt.render_tiled(cloud, cam, settings, model, differentiable=False)
     assert trace.counters().get("project.fused", 0) == before + 1
-    monkeypatch.setattr(rt, "fused_projection_applies", lambda *args: False)
+    monkeypatch.setattr(pj, "fused_projection_applies", lambda *args: False)
     ref = rt.render_tiled(cloud, cam, settings, model, differentiable=False)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 2e-5
