@@ -72,6 +72,14 @@ def time_tensor(time, settings: CloudSettings, device) -> torch.Tensor:
     return torch.full((), float(time), dtype=torch.float32, device=device)
 
 
+def local_view_direction(diff: torch.Tensor, dist2: torch.Tensor, model_transform: torch.Tensor) -> torch.Tensor:
+    """The SH colour's direction: the view ray ``diff / max(sqrt(dist2),
+    1e-12)`` in the cloud's frame, unit (``sh.py``
+    ``world_to_local_direction``)."""
+    ray_dir = diff / torch.clamp(torch.sqrt(dist2)[..., None], min=1e-12)
+    return sh_ops.world_to_local_direction(ray_dir, model_transform)
+
+
 def as_float32(cloud):
     """f16 and bf16 storage cast to float32 (exactly) before any operation
     (project.py:89-92; the reference decodes PLANAR_F16 in-shader), so
@@ -214,8 +222,7 @@ def project_gaussians(
             trace.count("sh.calls")
             # SH lookup along the view ray: ops/sh.py's lookups as one
             # autograd function, a kernel each way on the card
-            ray_dir = diff / torch.clamp(torch.sqrt(dist2)[..., None], min=1e-12)
-            ray_dir_local = sh_ops.world_to_local_direction(ray_dir, model_transform)
+            ray_dir_local = local_view_direction(diff, dist2, model_transform)
             if cond is not None:
                 # duration = float32(time_stop - time_start) (project.py:56-66)
                 duration = torch.full((), settings.time_stop - settings.time_start, dtype=torch.float32, device=dev)

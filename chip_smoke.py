@@ -15,7 +15,7 @@ Phases, each of which raises on failure (nothing is caught).  Phases 3-5,
 and 7 with AABB bounds (``CloudSettings(aabb=True)``), then phase 8, then
 phases 3-5, 14 and 6 with 2DGS surfels
 (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``), then phases 9, 20 and 21, then
-phases 23-24, then phases 10-13 for 4DGS with OBB (with phase 18 after 12) and
+phases 23-25, then phases 10-13 for 4DGS with OBB (with phase 18 after 12) and
 then AABB bounds, then phases 19 and 22:
 
   1. build   every kernel under bevy_gaussian_splatting_tpu_torch/csrc with
@@ -231,6 +231,13 @@ then AABB bounds, then phases 19 and 22:
              kernel's d_sh bitwise autograd's; forward and backward kernel
              ms by CUDA events against their byte bounds, and the plain
              version (the eager chain and its autograd) beside them.
+ 25. project train  the 3DGS training projection (``ProjectCore``,
+             ``csrc/project.cu`` project_train_kernel and
+             project_bwd_kernel) on the 1M 3D scene at 512x512, OBB and
+             AABB: the forward's outputs bitwise the eager chain's, the
+             backward's leaf gradients within 1e-3 of its twin; each kernel
+             alone by CUDA events against its byte bound, the eager chain
+             and its autograd beside them, ptxas's registers and spills.
 
 It prints the kernels line (one entry per kernel and mode: the four kernels
 in each of the three modes, then the expansion and the forward compositor of
@@ -369,6 +376,7 @@ NOISE_SH_BAR = 1e-5
 # the SH colour backward's d_dir and d_dir_t against float64 autograd through the eager chain, norm of the
 # difference over norm (tests/torch_port_cases.py SH_GRAD_REL)
 SH_GRAD_BAR = 1e-5
+PROJECT_TWIN_BAR = 1e-3  # the training projection's backward kernel against its twin (tests/test_torch_cuda.py)
 NOISE_CPU_STRIDE = 64
 MESH_BOUNDARY = 1e-5  # a point-in-mesh flip within this of a face or a face's diagonal (unit-box units) is rounding
 # the native runtime against the numpy / FlexBuffers paths (phase 20): turns of each load, the PLY bar between the
@@ -1919,6 +1927,64 @@ def phase_sh(cloud, cloud4) -> None:
             f"float64 autograd | {card_name_and_limit()}")
 
 
+def phase_project_train(cloud) -> None:
+    """The 3DGS training projection (``ops/cuda/project.py`` ``ProjectCore``)
+    on the 1M scene at 512x512, OBB and AABB: the forward kernel's outputs
+    against the eager chain's bit for bit, the backward kernel's leaf
+    gradients against its twin (``project_backward_plain``) within
+    PROJECT_TWIN_BAR, each kernel alone timed by CUDA events against the
+    least time of its bytes (each input byte read and each output byte
+    written once; the cotangent's packed rows read whole), and the eager
+    chain with its autograd beside them; ptxas's registers and spills."""
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import project as pj
+
+    usage = {k: v for k, v in build.ptxas_usage("project") if "train" in k or "bwd" in k}
+    cam = orbit_camera(0.3, 512, 512, "cuda")
+    leaves = [getattr(cloud, k).detach() for k in ("position_visibility", "rotation", "scale_opacity")]
+    n = len(cloud)
+    rows = torch.randn((n, 10), generator=torch.Generator("cuda").manual_seed(5), device="cuda")
+    g_dir = torch.randn((n, 3), generator=torch.Generator("cuda").manual_seed(6), device="cuda")
+    for label, settings in (("obb", CloudSettings()), ("aabb", CloudSettings(aabb=True))):
+        args = (cam, settings, None, 512, 512)
+        geom, alpha, direction, fields = pj._train_kernel(*leaves, *args)
+        ref = pj.project_splats_plain(cloud, cam, settings, size=(512, 512))
+        got = dict(fields, params=torch.cat([geom, ref["params"][:, 6:9], alpha], dim=1))
+        differ = [k for k in ref if not same_bits(got[k], ref[k])]
+        if differ:
+            raise AssertionError(f"project train {label}: {differ} differ from the eager chain")
+        mask = fields["mask"]
+        bwd_args = (mask, rows[:, :6], rows[:, 9:], g_dir, *args)
+        grads = pj._backward_kernel(*leaves, *bwd_args)
+        twin = pj.project_backward_plain(*leaves, *bwd_args)
+        finite = torch.isfinite(ref["params"]).all(dim=1)
+        gaps = {k: rel_gap(a[finite], b[finite]) for k, a, b in zip(("pos", "rot", "scale_op"), grads, twin)}
+        del twin
+        if not all(math.isfinite(v) and v <= PROJECT_TWIN_BAR for v in gaps.values()):
+            raise AssertionError(f"project train {label}: the backward kernel's {gaps} against its twin")
+        written = sum(t.numel() * t.element_size() for t in (geom, alpha, direction, *fields.values()))
+        fwd_bound, _ = bound(n * 48 + written, 0.0, 1.0)
+        bwd_bound, _ = bound(n * (48 + 1 + 40 + 12 + 48), 0.0, 1.0)
+        fwd = cuda_ms(lambda: pj._train_kernel(*leaves, *args), 20)
+        bwd = cuda_ms(lambda: pj._backward_kernel(*leaves, *bwd_args), 20)
+        wide = [t.requires_grad_() for t in (t.clone() for t in leaves)]
+
+        def plain():
+            c = dataclasses.replace(cloud, position_visibility=wide[0], rotation=wide[1], scale_opacity=wide[2])
+            out = pj.project_splats_plain(c, cam, settings, size=(512, 512))["params"]
+            torch.autograd.grad((out * rows).sum(), wide)
+
+        plain_ms = cuda_ms(plain, 3)
+        log(f"[kernels project train {label} 512x512] {n} gaussians | forward {fwd:.4f} ms, bound {fwd_bound:.4f} ms "
+            f"({100.0 * fwd_bound / fwd:.1f}%, {(n * 48 + written) / n:.0f} B a gaussian) | backward {bwd:.4f} ms, "
+            f"bound {bwd_bound:.4f} ms ({100.0 * bwd_bound / bwd:.1f}%, 149 B a gaussian) | plain (eager chain "
+            f"and autograd) {plain_ms:.4f} ms | forward bitwise, backward "
+            f"{', '.join(f'{k} {v:.3e}' for k, v in gaps.items())} of its twin | {card_name_and_limit()}")
+    for kernel, line in usage.items():
+        log(f"[kernels project train] ptxas {kernel}: {line}")
+
+
 def phase_serve_4d(cloud, settings) -> dict:
     """4DGS serving (bench.py:370-394): a time sweep of ``render_orbit``
     renders every frame in one pass (``oneshots``), each through the
@@ -3332,6 +3398,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     timed("project", phase_project, cloud, cloud4)
     timed("sh", phase_sh, cloud, cloud4)
+    timed("project train", phase_project_train, cloud)
     for aabb in (False, True):
         settings = CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_4D, aabb=aabb, time=TIME_4D)
         mode = "4d-" + MODES[kernel_mode(settings)]

@@ -7,13 +7,18 @@ of their per-warp cull), ``render()`` on the card against the same call on the C
 overlay, in the other rasterize and draw modes, for 4DGS and for f16 and
 bf16 storage), the training
 gradients of every cloud field, card against CPU, and the fused serving
-projection against the eager chain on the card, bit for bit, and the
+projection against the eager chain on the card, bit for bit, the
 training colour stage's kernels (``csrc/sh.cu``) against the eager chain
-and its autograd.
+and its autograd, and the 3DGS training projection (``ProjectCore``): its
+forward bit for bit the eager chain's and the serving kernel's, its
+backward against its twin, three training steps at 1M against the eager
+chain, and ptxas's report of the projection's kernels.
 
 These skip without an NVIDIA card.  On one, run them without the JAX-side
 conftest: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 They import neither JAX nor the JAX package."""
+
+import statistics
 
 import numpy as np
 import pytest
@@ -34,7 +39,9 @@ from bevy_gaussian_splatting_tpu_torch.models.settings import (
     RadixSortDepthBits,
     RasterizeMode,
 )
+from bevy_gaussian_splatting_tpu_torch.ops import covariance as cov_ops
 from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
+from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import cull
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import expand as ex
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import project as pj
@@ -43,8 +50,8 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda import sh as sh_fn
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
 from bevy_gaussian_splatting_tpu_torch.render.api import render
-from bevy_gaussian_splatting_tpu_torch.train.losses import mse
-from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, shifted_arrays
+from bevy_gaussian_splatting_tpu_torch.train.losses import gaussian_splatting_loss, mse
+from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, adam, shifted_arrays, train_step
 from bevy_gaussian_splatting_tpu_torch.utils import trace
 from torch_port_cases import (
     EXPAND_COUNT_CASES,
@@ -699,3 +706,143 @@ def test_4d_training_gradients_card_match_cpu(card):
     for f in FIELDS_4D:
         assert bool(torch.isfinite(gpu[f]).all()), f
         assert float((gpu[f] - cpu[f]).abs().max()) <= GRAD_BAR * float(cpu[f].abs().max()), f
+
+
+# The 3DGS training projection (ops/cuda/project.py ProjectCore, csrc/project.cu
+# project_train_kernel and project_bwd_kernel): a trained Gaussian3dCloud in
+# COLOR on the card takes it.
+TRAIN_CASES = [name for name, case in FUSED_CASES.items() if case[0] != "4d"]
+LEAVES = ("position_visibility", "rotation", "scale_opacity")
+TWIN_BAR = 1e-3  # tests/test_torch_project_grad.py F32_BAR: the twin against autograd
+
+
+def _trained_inputs(card, case):
+    cloud, cam, settings, model, _ = _fused_inputs(card, case)
+    return TrainableCloud(cloud), cam, settings, model
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_trained_projection_forward_equals_the_eager_chain_and_the_serving_kernel(card, case):
+    """The forward kernel's rows and binning fields (its geometry, alpha and
+    the colour stage along its direction) are the eager chain's bits with
+    grad, and the serving kernel's without."""
+    model, cam, settings, mt = _trained_inputs(card, case)
+    cloud = model.cloud()
+    assert pj.trained_projection_applies(cloud, settings, mt)
+    before = _fused_launches()
+    got = pj.project_splats(cloud, cam, settings, mt)
+    assert _fused_launches() == before + 1
+    assert got["params"].requires_grad
+    eager = pj.project_splats_plain(cloud, cam, settings, mt)
+    with torch.no_grad():
+        served = pj.project_splats(cloud, cam, settings, mt)
+    assert _fused_launches() == before + 2
+    torch.cuda.synchronize()
+    for label, ref in (("eager", eager), ("served", served)):
+        assert set(got) == set(ref), label
+        differ = [k for k in ref if not torch.equal(_bits(got[k].detach()), _bits(ref[k].detach()))]
+        assert not differ, (label, differ)
+    assert int(eager["mask"].sum()) > 0
+
+
+def _projection_grads(model, cam, settings, mt, g):
+    out = pj.project_splats(model.cloud(), cam, settings, mt)
+    grads = torch.autograd.grad((out["params"] * g).sum(), [getattr(model, k) for k in LEAVES])
+    return out["params"].detach(), grads
+
+
+@pytest.mark.parametrize("case", ["bench-512", "occluded-512-aabb", "bench-512-aabb-transform",
+                                  "bench-512-fixed-cutoff", "bench-512-selected", "bench-1080p-highlight",
+                                  "wide-1080p-transform", "sh1-512", "sh4-512-transform", "bench-1m"])
+def test_trained_projection_backward_matches_its_twin(card, case, monkeypatch):
+    """The backward kernel's leaf gradients under a seeded cotangent of the
+    rows against the twin (``project_backward_plain``, run on the card
+    after the same forward), within TWIN_BAR (norm of the difference over
+    norm) on the rows the forward leaves finite; the visibility channel's
+    gradient is 0."""
+    if case == "bench-1m":
+        model = TrainableCloud(cloud_from_numpy(_scene("bench", 1 << 20, 0), card))
+        cam = Camera.create(eye=(3.0, 4.0, 60.0), width=512, height=512, device=card)
+        settings, mt = CloudSettings(), None
+    else:
+        model, cam, settings, mt = _trained_inputs(card, case)
+    n = len(model.cloud())
+    g = torch.randn((n, 10), generator=torch.Generator(card).manual_seed(3), device=card)
+    g[::5] = 0.0
+    rows, got = _projection_grads(model, cam, settings, mt, g)
+    monkeypatch.setattr(pj, "_backward_kernel", pj.project_backward_plain)
+    _, twin = _projection_grads(model, cam, settings, mt, g)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(rows).all(dim=1)
+    assert int(finite.sum()) >= 0.99 * n
+    gaps = {k: rel_gap(a[finite], b[finite]) for k, a, b in zip(LEAVES, got, twin)}
+    assert all(v <= TWIN_BAR for v in gaps.values()), gaps
+    assert not bool(got[0][:, 3].any())
+
+
+def _ring_camera(k, device):
+    az = 2.0 * np.pi * k / 8
+    return Camera.create(eye=(60.0 * np.sin(az), 0.0, 60.0 * np.cos(az)), width=512, height=512, device=device)
+
+
+def _norm_gaps(got: dict, ref: dict, keys) -> float:
+    """The worst leaf's gap of norms over the reference leaf's norm or the
+    median leaf's (benchmark/traffic/train.py leaf_gaps)."""
+    med = statistics.median(ref[k] for k in keys)
+    return max(abs(got[k] - ref[k]) / max(ref[k], med, 1e-30) for k in keys)
+
+
+def test_three_train_steps_at_1m_match_the_eager_chain(card, monkeypatch):
+    """Three ``train_step``s (the 3DGS loss, Adam at 0.02) on a seeded 1M
+    scene through the kernels against the same steps through the eager
+    chain (the rule forced off), by the gs3d-1m.train-512 cell's gaps and
+    limits (PERF.md section 2): ``loss_gap`` 2e-3, ``grad_gap`` 1e-3 (the
+    first gradient's norms over the splats whose OBB axis is
+    well-conditioned), ``change_gap`` 1e-2."""
+    a = _scene("bench", 1 << 20, 4)
+    cams = [_ring_camera(k, card) for k in range(3)]
+    settings = CloudSettings()
+    with torch.no_grad():
+        moved = cloud_from_numpy(shifted_arrays(a), card)
+        targets = [rt.render_tiled(moved, c, settings) for c in cams]
+        cloud = cloud_from_numpy(a, card)
+        world = cloud.position
+        sxx, sxy, syy = cov_ops.cov2d(world, cov_ops.compute_cov3d(cloud.rotation, cloud.scale),
+                                      cams[0].view_from_world, cams[0].clip_from_view, cams[0].viewport[2:]).unbind(-1)
+        well = sxy.abs() >= 1e-3 * (sxx + syy)
+
+    def steps():
+        model = TrainableCloud.from_numpy(a, card)
+        opt = adam(model, 0.02)
+        before = _fused_launches()
+        losses, grads = [], None
+        for s, (c, t) in enumerate(zip(cams, targets)):
+            losses.append(float(train_step(model, opt, c, t, settings, gaussian_splatting_loss)))
+            if s == 0:
+                grads = {k: float(getattr(model, k).grad[well].norm()) for k in model.fields}
+        change = {k: float((getattr(model, k).detach() - getattr(cloud, k)).norm()) for k in model.fields}
+        return losses, grads, change, _fused_launches() - before
+
+    losses, grads, change, launched = steps()
+    assert launched == 3
+    monkeypatch.setattr(pj, "trained_projection_applies", lambda *args: False)
+    ref_losses, ref_grads, ref_change, ref_launched = steps()
+    assert ref_launched == 0
+    loss_gap = max(abs(x - y) / abs(y) for x, y in zip(losses, ref_losses))
+    grad_gap = _norm_gaps(grads, ref_grads, list(ref_grads))
+    med = statistics.median(ref_grads.values())
+    change_gap = _norm_gaps(change, ref_change, [k for k, v in ref_grads.items() if v >= 1e-3 * med])
+    print(f"loss_gap {loss_gap:.3e} grad_gap {grad_gap:.3e} change_gap {change_gap:.3e}, {int((~well).sum())} "
+          "ill-conditioned splats")
+    assert loss_gap <= 2e-3 and grad_gap <= 1e-3 and change_gap <= 1e-2, (loss_gap, grad_gap, change_gap)
+
+
+def test_projection_kernels_do_not_spill(card):
+    """ptxas's report of csrc/project.cu: every kernel, the training forward
+    and backward among them, without a spill."""
+    build.load("project")
+    usage = dict(build.ptxas_usage("project"))
+    assert sum("project_train_kernel" in k or "project_bwd_kernel" in k for k in usage) == 4, list(usage)
+    for kernel, line in usage.items():
+        print(f"{kernel}: {line}")
+        assert "0 bytes spill stores" in line and "0 bytes spill loads" in line, (kernel, line)
