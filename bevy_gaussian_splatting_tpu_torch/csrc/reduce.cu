@@ -5,7 +5,8 @@
 // `_reduce_kernel` (launched by `pallas_segment_reduce`).
 //
 // Inputs: dslot [P, cols] f32, the backward's per-pair gradients reordered to
-// expansion-slot order (cols = 10 for OBB / AABB rows, 16 for 2DGS); cum [N]
+// expansion-slot order (cols = 10 for OBB / AABB rows, 16 for 2DGS, 23 for
+// 2DGS with the surface maps); cum [N]
 // i32, the inclusive pair counts in depth order, clamped at P.  Depth rank r
 // owns the contiguous slots [cum[r-1], cum[r]) (cum[-1] = 0).  Output drank
 // [N, cols] f32; a rank with no slots gets 0.
@@ -33,8 +34,8 @@
 //      odd slot) go by 4-byte loads.
 //   2. Each thread sums (rank, column)s from shared memory, in slot order,
 //      and the block writes its [ranks, cols] output as one coalesced run.
-// The kernel is templated on the column count (10 and 16; 0 takes it from
-// the argument), so rows are indexed by constants.  A run longer than the
+// The kernel is templated on the column count (10, 16 and 23; 0 takes it
+// from the argument), so rows are indexed by constants.  A run longer than the
 // staging buffer (the 4DGS scene's larger splats: 128 ranks of up to 6
 // pairs at 1920x1080) is staged in windows of whole ranks, one after the
 // other, each as long as the buffer allows; a rank longer than the buffer
@@ -158,6 +159,8 @@ extern "C" int bgs_segment_reduce(const void* dslot, const void* cum, int n, int
       launch<10>(d, (const int*)cum, n, cols, out, s);
     } else if (cols == 16) {
       launch<16>(d, (const int*)cum, n, cols, out, s);
+    } else if (cols == 23) {
+      launch<23>(d, (const int*)cum, n, cols, out, s);
     } else {
       launch<0>(d, (const int*)cum, n, cols, out, s);
     }

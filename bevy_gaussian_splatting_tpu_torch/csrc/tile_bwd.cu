@@ -100,6 +100,27 @@
 // 16 warps, batches of 32, no floor on resident blocks) on the card; PERF.md
 // keeps that table.
 //
+// The kSurface instantiation (2DGS training with the surface maps of
+// csrc/tile_fwd.cu): rows of 23 columns (the 16, the depth's det T0, A0.z,
+// B0.z, C0.z, and n.xyz), staged as 24.  Per pixel it also reads gaux [T, 11, 256]: the cotangents of N.xyz,
+// D, the distortion dist and the median depth, the forward's totals ad =
+// sum w, z1 = sum w zeta, z2 = sum w zeta^2 (zeta = 1 / z, over the
+// fragments in the maps), the median's pair index, and s_extra = gN . N +
+// gD D + 2 g_dist dist.  The maps are sums over fragments of w times a
+// per-fragment value f_i (n_i, z_i, and for the distortion lam_i = sum_j
+// w_j (zeta_i - zeta_j)^2 = zeta_i^2 ad - 2 zeta_i z1 + z2, whose sum
+// against the weights is 2 dist), so their gradient in alpha is the
+// colour's with gc_i += gN . n_i + gD z_i + g_dist lam_i and the suffix
+// total += s_extra.  Through the depth, dz_i = gD w_i - g_dist 2 w_i
+// (zeta_i ad - z1) zeta_i^2, plus g_median on the median's pair; z = det T0
+// / q0.z gives d det T0 = dz / q0.z and dq0.z = -dz z / q0.z (zero where its
+// clamp held) into A0.z, B0.z, C0.z (times dxn, dyn, 1) and the centre
+// (columns 0 and 1, through dxn and dyn); dn = w gN.  A fragment is in the maps by
+// the forward's rule (a >= 1/255, z >= near), recomputed here on the same
+// bits.  Its 22 summed columns take one more level of the reduce-scatter
+// than 2DGS's 15, its shared memory (73,216 B) three resident blocks an
+// SM.
+//
 // Shared memory (dynamic, sized per mode): the staged chunk [columns][512]
 // (OBB / AABB 10 columns, 2DGS 17), the warp partials [8 warps][kBatch][row
 // columns] and the masks [512] B.  Above 48 KB (2DGS), cudaFuncSetAttribute
@@ -121,15 +142,23 @@ namespace {
 constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic shared memory a launch gets unasked
 constexpr int kMaxDevices = 64;
 
+// the surface instantiation's extra columns (the depth's coefficients, n),
+// after the 16
+constexpr int kSurfaceCols = 7;
+constexpr float kDepthEps = 1e-6f;  // the least |q0.z| of a fragment's depth (DEPTH_EPS)
+constexpr int kSurfaceGbarRows = 11;
+// a gradient row's columns
+template <int kMode, bool kSurface>
+constexpr int kRowOf = kRowCols<kMode> + (kSurface ? kSurfaceCols : 0);
 // staged columns (the colours and alpha last)
-template <int kMode>
-constexpr int kStaged = kMode == kMode2d ? 17 : 10;
+template <int kMode, bool kSurface>
+constexpr int kStaged = (kMode == kMode2d ? 17 : 10) + (kSurface ? kSurfaceCols : 0);
 // the column that only masks (exact zeros, no warp sum): AABB radius, 2DGS mr
 template <int kMode>
 constexpr int kMaskCol = kMode == kModeAabb ? 5 : kMode == kMode2d ? 2 : -1;
 // the columns the warp reduce sums
-template <int kMode>
-constexpr int kSummed = kRowCols<kMode> - (kMaskCol<kMode> >= 0 ? 1 : 0);
+template <int kMode, bool kSurface>
+constexpr int kSummed = kRowOf<kMode, kSurface> - (kMaskCol<kMode> >= 0 ? 1 : 0);
 // pairs whose warp partials are flushed together
 template <int kMode>
 constexpr int kBatch = kMode == kMode2d ? 32 : 64;
@@ -139,9 +168,10 @@ constexpr int kBatch = kMode == kMode2d ? 32 : 64;
 template <int kMode>
 constexpr int kMinBlocks = kMode == kMode2d ? 1 : 5;
 
-template <int kMode>
+template <int kMode, bool kSurface>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)kStaged<kMode> * kMaxChunk + (size_t)kWarps * kBatch<kMode> * kRowCols<kMode>)
+  return sizeof(float) * ((size_t)kStaged<kMode, kSurface> * kMaxChunk
+                          + (size_t)kWarps * kBatch<kMode> * kRowOf<kMode, kSurface>)
          + kMaxChunk;
 }
 
@@ -177,18 +207,22 @@ __device__ __forceinline__ int scatter_index(int lane) {
   }
 }
 
-template <int kMode>
+template <int kMode, bool kSurface = false>
 __global__ void __launch_bounds__(kPix, kMinBlocks<kMode>)
 composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count, const float* __restrict__ gbar,
                      int tx_count, float width_f, float full_height_f, float inv_w2,
                      float inv_h2, float inv_w, float inv_h, float two_w2, int y0, int chunk,
-                     float trans_eps, float* __restrict__ dparams) {
-  constexpr int kRow = kRowCols<kMode>;
-  constexpr int kCol = kStaged<kMode>;
+                     float trans_eps, float* __restrict__ dparams, const float* __restrict__ gaux,
+                     float near) {
+  static_assert(!kSurface || kMode == kMode2d, "the surface maps are 2DGS's");
+  constexpr int kRow = kRowOf<kMode, kSurface>;
+  constexpr int kColour = kRowCols<kMode> - 4;  // the row's r; g, b, alpha follow
+  constexpr int kCol = kStaged<kMode, kSurface>;
   constexpr int kR = kCol - 4;  // staged r; g, b, alpha follow
+  constexpr int kC = 13;        // staged det T0, A0.z, B0.z, C0.z, n.xyz (kSurface)
   constexpr int kB = kBatch<kMode>;
-  constexpr int kSum = kSummed<kMode>;
+  constexpr int kSum = kSummed<kMode, kSurface>;
   constexpr int kMask = kMaskCol<kMode>;
   // staged columns [kCol][kMaxChunk] (OBB 2-5: e1x, e1y, 1/b1, 1/b2; AABB
   // conic.x, conic.y, conic.z, r; 2DGS 2-12: mr/W, mr/H, A, B, C), then the
@@ -234,7 +268,24 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
   const float g_b = gb[2 * kPix + p];
   const float q_total = g_r * gb[4 * kPix + p] + g_g * gb[5 * kPix + p] + g_b * gb[6 * kPix + p];
   // S_i + ghat_T T_fin = s_total - q_acc
-  const float s_total = q_total + gb[3 * kPix + p] * gb[7 * kPix + p];
+  float s_total = q_total + gb[3 * kPix + p] * gb[7 * kPix + p];
+  // the surface maps' cotangents and totals (kSurface only)
+  float gnx = 0.0f, gny = 0.0f, gnz = 0.0f, gd = 0.0f, gl = 0.0f, gz = 0.0f;
+  float ad_t = 0.0f, z1_t = 0.0f, z2_t = 0.0f, med = -1.0f;
+  if constexpr (kSurface) {
+    const float* ga = gaux + (long long)t * kSurfaceGbarRows * kPix + p;
+    gnx = ga[0];
+    gny = ga[kPix];
+    gnz = ga[2 * kPix];
+    gd = ga[3 * kPix];
+    gl = ga[4 * kPix];
+    gz = ga[5 * kPix];
+    ad_t = ga[6 * kPix];
+    z1_t = ga[7 * kPix];
+    z2_t = ga[8 * kPix];
+    med = ga[9 * kPix];
+    s_total = s_total + ga[10 * kPix];
+  }
 
   // the gradient column whose warp sum this lane ends with, and whether it
   // is the lowest such lane (the one that stores it)
@@ -258,7 +309,7 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
       s[0][j] = row[0];
       s[1][j] = row[1];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) s[kR + k][j] = row[kRow - 4 + k];
+      for (int k = 0; k < 4; ++k) s[kR + k][j] = row[kColour + k];
       if constexpr (kMode == kModeObb) {
         const float b1 = row[4];
         const bool ok = b1 > 0.0f;
@@ -276,6 +327,10 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
         s[3][j] = row[2] * inv_h;
 #pragma unroll
         for (int k = 0; k < 9; ++k) s[4 + k][j] = row[3 + k];
+        if constexpr (kSurface) {
+#pragma unroll
+          for (int k = 0; k < kSurfaceCols; ++k) s[kC + k][j] = row[16 + k];
+        }
       }
       s_mask[j] = (unsigned char)warp_mask<kMode>(row, s_colx, s_rowy, inv_w, inv_h);
     }
@@ -336,7 +391,24 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
           const float raw = g * op;
           const float a = fminf(raw, 0.999f);
           const float w = a * T;
-          const float gc = g_r * s[kR][j] + g_g * s[kR + 1][j] + g_b * s[kR + 2][j];
+          float gc = g_r * s[kR][j] + g_g * s[kR + 1][j] + g_b * s[kR + 2][j];
+          // kSurface: the fragment's depth and its place in the maps
+          float z = 0.0f, zeta = 0.0f, q0z = 0.0f, inv_p0 = 0.0f;
+          bool frag = false;
+          if constexpr (kSurface) {
+            if (a >= trans_eps) {  // the forward's least alpha, the same float32 1/255
+              q0z = (dx * s[kC + 1][j] + dy * s[kC + 2][j]) + s[kC + 3][j];
+              inv_p0 = 1.0f / (fabsf(q0z) > kDepthEps ? q0z : kDepthEps);
+              z = s[kC][j] * inv_p0;
+              frag = z >= near;
+            }
+            if (frag) {
+              zeta = 1.0f / z;
+              const float gnn = (gnx * s[kC + 4][j] + gny * s[kC + 5][j]) + gnz * s[kC + 6][j];
+              const float lam = ((zeta * zeta) * ad_t - 2.0f * zeta * z1_t) + z2_t;
+              gc = gc + ((gnn + gd * z) + gl * lam);
+            }
+          }
           q_acc += gc * w;
           const float inv_om = 1.0f / fmaxf(1.0f - a, 1e-6f);
           float dalpha = gc * T - (s_total - q_acc) * inv_om;
@@ -368,15 +440,30 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
             const float dd2 = take3d ? 0.0f : -dpower;
             const float dus = (ds3d * 2.0f) * u;
             const float dvs = (ds3d * 2.0f) * v;
+            float dz = 0.0f;
+            if constexpr (kSurface) {
+              // the maps through the depth: D, the distortion, the median
+              if (frag) {
+                const float dzeta = gl * (2.0f * w * (zeta * ad_t - z1_t));
+                dz = gd * w - dzeta * (zeta * zeta);
+              }
+              if ((float)(first + j) == med) dz = dz + gz;
+            }
             const float dq0 = dus * inv_pz;
             const float dq1 = dvs * inv_pz;
             // the clamp passes no gradient where it held
             const float dq2 = fabsf(qz) > 1e-12f ? -(dus * u + dvs * v) * inv_pz : 0.0f;
+            // kSurface: z = det T0 / q0.z, into q0.z (where its clamp did not hold)
+            const float dq0z = kSurface && fabsf(q0z) > kDepthEps ? -(dz * z) * inv_p0 : 0.0f;
             // (dd2 * 2) * W^2 == dd2 * (2 W^2): scaling by 2 is exact
             const float dd = dd2 * two_w2;
             // columns 0, 1 are negated after the pixel sum (dxn = px - cx)
             d[0] = dd * dx + ((dq0 * s[4][j] + dq1 * s[5][j]) + dq2 * s[6][j]);  // -dcx
             d[1] = dd * dy + ((dq0 * s[7][j] + dq1 * s[8][j]) + dq2 * s[9][j]);  // -dcy
+            if constexpr (kSurface) {  // q0.z moves with the centre
+              d[0] = d[0] + dq0z * s[kC + 1][j];
+              d[1] = d[1] + dq0z * s[kC + 2][j];
+            }
             d[2] = 0.0f;                                                         // mr: mask only
             d[3] = dq0 * dx;
             d[4] = dq1 * dx;
@@ -387,11 +474,21 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
             d[9] = dq0;
             d[10] = dq1;
             d[11] = dq2;
+            if constexpr (kSurface) {
+              const float we = frag ? w : 0.0f;
+              d[16] = dz * inv_p0;  // d det T0
+              d[17] = dq0z * dx;    // dA0.z
+              d[18] = dq0z * dy;    // dB0.z
+              d[19] = dq0z;         // dC0.z
+              d[20] = we * gnx;     // dn
+              d[21] = we * gny;
+              d[22] = we * gnz;
+            }
           }
-          d[kRow - 4] = w * g_r;
-          d[kRow - 3] = w * g_g;
-          d[kRow - 2] = w * g_b;
-          d[kRow - 1] = dag;  // dopacity
+          d[kColour] = w * g_r;
+          d[kColour + 1] = w * g_g;
+          d[kColour + 2] = w * g_b;
+          d[kColour + 3] = dag;  // dopacity
           float vals[kSum];
 #pragma unroll
           for (int i = 0; i < kSum; ++i) vals[i] = d[kMask >= 0 && i >= kMask ? i + 1 : i];
@@ -428,9 +525,9 @@ composite_bwd_kernel(const float* __restrict__ params, const int* __restrict__ t
 // Raise `mode`'s dynamic shared memory limit above the default, once per
 // device (the attribute belongs to the device's context); a mode under the
 // default never asks.
-template <int kMode>
+template <int kMode, bool kSurface>
 int raise_smem_limit() {
-  constexpr size_t bytes = smem_bytes<kMode>();
+  constexpr size_t bytes = smem_bytes<kMode, kSurface>();
   if (bytes <= kDefaultSmem) return (int)cudaSuccess;
   static bool raised[kMaxDevices] = {};
   int device = 0;
@@ -438,35 +535,35 @@ int raise_smem_limit() {
   if (err != cudaSuccess) return (int)err;
   if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!raised[device]) {
-    err = cudaFuncSetAttribute(composite_bwd_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
+    err = cudaFuncSetAttribute(composite_bwd_kernel<kMode, kSurface>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     raised[device] = true;
   }
   return (int)cudaSuccess;
 }
 
-template <int kMode>
+template <int kMode, bool kSurface = false>
 int launch(const void* params, const void* tile_start, const void* tile_count, const void* gbar,
            int num_tiles, int tx_count, float width_f, float full_height_f, float inv_w2,
            float inv_h2, float inv_w, float inv_h, float two_w2, int y0, int chunk,
-           float trans_eps, void* dparams, cudaStream_t stream) {
-  const int err = raise_smem_limit<kMode>();
+           float trans_eps, void* dparams, const void* gaux, float near, cudaStream_t stream) {
+  const int err = raise_smem_limit<kMode, kSurface>();
   if (err != (int)cudaSuccess) return err;
-  composite_bwd_kernel<kMode><<<num_tiles, kPix, smem_bytes<kMode>(), stream>>>(
+  composite_bwd_kernel<kMode, kSurface><<<num_tiles, kPix, smem_bytes<kMode, kSurface>(), stream>>>(
       (const float*)params, (const int*)tile_start, (const int*)tile_count, (const float*)gbar,
       tx_count, width_f, full_height_f, inv_w2, inv_h2, inv_w, inv_h, two_w2, y0, chunk,
-      trans_eps, (float*)dparams);
+      trans_eps, (float*)dparams, (const float*)gaux, near);
   return (int)cudaGetLastError();
 }
 
-template <int kMode>
+template <int kMode, bool kSurface = false>
 int occupancy(int* blocks_per_sm, int* dynamic_smem) {
-  const int err = raise_smem_limit<kMode>();
+  const int err = raise_smem_limit<kMode, kSurface>();
   if (err != (int)cudaSuccess) return err;
-  *dynamic_smem = (int)smem_bytes<kMode>();
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, composite_bwd_kernel<kMode>,
-                                                            kPix, smem_bytes<kMode>());
+  *dynamic_smem = (int)smem_bytes<kMode, kSurface>();
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, composite_bwd_kernel<kMode, kSurface>, kPix, smem_bytes<kMode, kSurface>());
 }
 
 }  // namespace
@@ -476,23 +573,29 @@ extern "C" int bgs_composite_bwd(const void* params, const void* tile_start,
                                  int tx_count, float width_f, float full_height_f,
                                  float inv_w2, float inv_h2, float inv_w, float inv_h,
                                  float two_w2, int y0, int chunk, int mode, float trans_eps,
-                                 void* dparams, void* stream) {
+                                 void* dparams, const void* gaux, float near, void* stream) {
   if (chunk <= 0 || chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
   if (mode != kModeObb && mode != kModeAabb && mode != kMode2d) return (int)cudaErrorInvalidValue;
+  if (gaux != nullptr && mode != kMode2d) return (int)cudaErrorInvalidValue;
   if (num_tiles <= 0) return (int)cudaGetLastError();
   auto fn = mode == kModeObb    ? launch<kModeObb>
             : mode == kModeAabb ? launch<kModeAabb>
                                 : launch<kMode2d>;
+  if (gaux != nullptr) fn = launch<kMode2d, true>;
   return fn(params, tile_start, tile_count, gbar, num_tiles, tx_count, width_f, full_height_f,
-            inv_w2, inv_h2, inv_w, inv_h, two_w2, y0, chunk, trans_eps, dparams,
+            inv_w2, inv_h2, inv_w, inv_h, two_w2, y0, chunk, trans_eps, dparams, gaux, near,
             (cudaStream_t)stream);
 }
 
-// Resident blocks per SM of `mode`'s instantiation (with its shared memory
-// limit raised, as a launch does) and its dynamic shared memory in bytes.
+// Resident blocks per SM of `mode`'s instantiation (mode 3: 2DGS with the
+// surface maps; with its shared memory limit raised, as a launch does) and
+// its dynamic shared memory in bytes.
 extern "C" int bgs_composite_bwd_occupancy(int mode, int* blocks_per_sm, int* dynamic_smem) {
-  if (mode != kModeObb && mode != kModeAabb && mode != kMode2d) return (int)cudaErrorInvalidValue;
-  auto fn = mode == kModeObb ? occupancy<kModeObb> : mode == kModeAabb ? occupancy<kModeAabb> : occupancy<kMode2d>;
+  if (mode < kModeObb || mode > kMode2d + 1) return (int)cudaErrorInvalidValue;
+  auto fn = mode == kModeObb    ? occupancy<kModeObb>
+            : mode == kModeAabb ? occupancy<kModeAabb>
+            : mode == kMode2d   ? occupancy<kMode2d>
+                                : occupancy<kMode2d, true>;
   return fn(blocks_per_sm, dynamic_smem);
 }
 

@@ -55,6 +55,27 @@
 // One kernel body serves all six instantiations (a template on the mode and
 // the overlay): only the staged columns and the falloff differ.
 //
+// The seventh, kSurface (2DGS training with the surface regularisers of
+// Huang et al., SIGGRAPH 2024, section 4.2): rows of 23 columns, the 16 then
+// det T0, A0.z, B0.z, C0.z (a fragment's depth coefficients with the scales
+// factored out, ops/gaussian_2d.py surfel_depth_coeffs) and n.xyz (the unit
+// normal, view space, facing the camera).  Its colour and transmittance are
+// the serving branch's expressions in the same order, so they are bitwise
+// the same; beside them, for each blended fragment with a >= 1/255 (the
+// official rasteriser's least alpha, trans_eps's float32 value) whose depth
+// z = det T0 / q0.z, q0.z = (dxn A0.z + dyn B0.z) + C0.z clamped to 1e-6
+// in magnitude (not sign-preserving) and inverted once (the official (us,
+// vs, 1) . c), is at least `near`, in blend order, with w = a T:
+//   dist += w ((zeta^2 ad + z2) - 2 zeta z1), zeta = 1 / z (the running
+//     sums before the fragment's own);
+//   ad += w, z1 += w zeta, z2 += (w zeta) zeta, N += w n, D += w z;
+//   the median (z and the pair index) is replaced where T > 0.5.
+// It writes maps [T, 6, 256] (N.xyz, D, dist, median) and totals [T, 4,
+// 256] (ad, z1, z2, the median's pair index as a float, exact below 2^24;
+// -1 where none).  The seven columns are read from the row in device
+// memory when a warp visits the pair (a broadcast load, cached): staged
+// beside the 20 floats they would take the static shared memory past 48 KB.
+//
 // What changes: the TPU kernel blends a chunk with a Hillis-Steele cumprod
 // across lanes; here each thread (one pixel) blends its pairs in sequence,
 // C += a * T * rgb, T *= 1 - a.  The products associate differently, so the
@@ -127,14 +148,23 @@ constexpr int kStride = kMode == kMode2d ? 20 : 12;
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
-template <int kMode, bool kBbox>
+// the surface instantiation's extra columns (the depth's coefficients, n),
+// after the 16
+constexpr int kSurfaceCols = 7;
+constexpr float kDepthEps = 1e-6f;  // the least |q0.z| of a fragment's depth (DEPTH_EPS)
+constexpr float kMedianT = 0.5f;
+
+template <int kMode, bool kBbox, bool kSurface = false>
 __global__ void __launch_bounds__(kPix)
 composite_fwd_kernel(const float* __restrict__ params, const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count, int tx_count, float width_f,
                      float full_height_f, float inv_w2, float inv_h2, float inv_w, float inv_h,
                      float two_w2, int y0, int chunk, float trans_eps, float band,
-                     float* __restrict__ out) {
-  constexpr int kRow = kRowCols<kMode>;
+                     float* __restrict__ out, float* __restrict__ maps, float* __restrict__ totals,
+                     float near) {
+  static_assert(!kSurface || (kMode == kMode2d && !kBbox), "the surface maps are 2DGS's, without the overlay");
+  constexpr int kRow = kRowCols<kMode> + (kSurface ? kSurfaceCols : 0);
+  constexpr int kColour = kRowCols<kMode> - 4;  // r, g, b, alpha
   constexpr int kS = kStride<kMode>;
   __shared__ __align__(16) float s[kMaxChunk * kS];
   __shared__ unsigned char s_mask[kMaxChunk];  // each staged pair's warps
@@ -165,6 +195,9 @@ composite_fwd_kernel(const float* __restrict__ params, const int* __restrict__ t
 
   float T = 1.0f;
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
+  // the surface maps' running sums (kSurface only)
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f, dsum = 0.0f, dist = 0.0f, zmed = 0.0f;
+  float ad = 0.0f, z1 = 0.0f, z2 = 0.0f, med = -1.0f;
   for (int c = 0; c < n_chunks; ++c) {
     // between chunks: stop once every pixel of the tile is saturated (this
     // vote is also the barrier before the staging buffer is overwritten)
@@ -176,7 +209,7 @@ composite_fwd_kernel(const float* __restrict__ params, const int* __restrict__ t
     for (int j = tid; j < m; j += kPix) {
       const float* row = params + (long long)(first + j) * kRow;
       float* st = s + j * kS;
-      float4 colour = make_float4(row[kRow - 4], row[kRow - 3], row[kRow - 2], row[kRow - 1]);
+      float4 colour = make_float4(row[kColour], row[kColour + 1], row[kColour + 2], row[kColour + 3]);
       if constexpr (kMode == kModeObb) {
         const float b1 = row[4];
         const bool ok = b1 > 0.0f;
@@ -269,6 +302,29 @@ composite_fwd_kernel(const float* __restrict__ params, const int* __restrict__ t
         cr += w * wr;
         cg += w * wg;
         cb += w * wb;
+        if constexpr (kSurface) {
+          if (a >= trans_eps) {  // the fragments' least alpha: the same float32 1/255
+            const float* sr = params + (long long)(first + j) * kRow + kRowCols<kMode>;
+            const float q0z = ((px_ndc - h.x) * __ldg(sr + 1) + (py_ndc - h.y) * __ldg(sr + 2)) + __ldg(sr + 3);
+            const float z = __ldg(sr) * (1.0f / (fabsf(q0z) > kDepthEps ? q0z : kDepthEps));
+            if (z >= near) {
+              const float zeta = 1.0f / z;
+              dist += w * (((zeta * zeta) * ad + z2) - 2.0f * zeta * z1);
+              const float wz = w * zeta;
+              ad += w;
+              z1 += wz;
+              z2 += wz * zeta;
+              nx += w * __ldg(sr + 4);
+              ny += w * __ldg(sr + 5);
+              nz += w * __ldg(sr + 6);
+              dsum += w * z;
+              if (T > kMedianT) {
+                zmed = z;
+                med = (float)(first + j);
+              }
+            }
+          }
+        }
         T *= 1.0f - a;
       }
     }
@@ -279,6 +335,20 @@ composite_fwd_kernel(const float* __restrict__ params, const int* __restrict__ t
   o[kPix + p] = cg;
   o[2 * kPix + p] = cb;
   o[3 * kPix + p] = T;
+  if constexpr (kSurface) {
+    float* m = maps + (long long)t * 6 * kPix;
+    m[p] = nx;
+    m[kPix + p] = ny;
+    m[2 * kPix + p] = nz;
+    m[3 * kPix + p] = dsum;
+    m[4 * kPix + p] = dist;
+    m[5 * kPix + p] = zmed;
+    float* q = totals + (long long)t * 4 * kPix;
+    q[p] = ad;
+    q[kPix + p] = z1;
+    q[2 * kPix + p] = z2;
+    q[3 * kPix + p] = med;
+  }
 }
 
 }  // namespace
@@ -288,9 +358,11 @@ extern "C" int bgs_composite_fwd(const void* params, const void* tile_start,
                                  float width_f, float full_height_f, float inv_w2,
                                  float inv_h2, float inv_w, float inv_h, float two_w2, int y0,
                                  int chunk, int mode, int bbox, float trans_eps, float band,
-                                 void* out, void* stream) {
+                                 void* out, void* maps, void* totals, float near, void* stream) {
   if (chunk <= 0 || chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
   if (mode != kModeObb && mode != kModeAabb && mode != kMode2d) return (int)cudaErrorInvalidValue;
+  const bool surface = maps != nullptr;
+  if (surface && (mode != kMode2d || bbox || totals == nullptr)) return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
     auto kernel = mode == kModeObb    ? composite_fwd_kernel<kModeObb, false>
                   : mode == kModeAabb ? composite_fwd_kernel<kModeAabb, false>
@@ -300,10 +372,11 @@ extern "C" int bgs_composite_fwd(const void* params, const void* tile_start,
                : mode == kModeAabb ? composite_fwd_kernel<kModeAabb, true>
                                    : composite_fwd_kernel<kMode2d, true>;
     }
+    if (surface) kernel = composite_fwd_kernel<kMode2d, false, true>;
     kernel<<<num_tiles, kPix, 0, (cudaStream_t)stream>>>(
         (const float*)params, (const int*)tile_start, (const int*)tile_count, tx_count,
         width_f, full_height_f, inv_w2, inv_h2, inv_w, inv_h, two_w2, y0, chunk, trans_eps, band,
-        (float*)out);
+        (float*)out, (float*)maps, (float*)totals, near);
   }
   return (int)cudaGetLastError();
 }

@@ -56,7 +56,11 @@ from bevy_gaussian_splatting_tpu_torch.ops import sh as sh_ops
 from bevy_gaussian_splatting_tpu_torch.ops import sort as sort_ops
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
 from bevy_gaussian_splatting_tpu_torch.ops.cuda.sh import sh_colour
-from bevy_gaussian_splatting_tpu_torch.ops.gaussian_2d import surfel_affine_coeffs
+from bevy_gaussian_splatting_tpu_torch.ops.gaussian_2d import (
+    surfel_affine_coeffs,
+    surfel_depth_coeffs,
+    surfel_view_normal,
+)
 from bevy_gaussian_splatting_tpu_torch.ops.project import (
     as_float32,
     local_view_direction,
@@ -175,18 +179,42 @@ def _size(camera, size) -> tuple:
     return (camera.width, camera.height) if size is None else tuple(int(v) for v in size)
 
 
+def surface_cols(cloud, camera, splats: dict, model_transform=None, width: Optional[int] = None) -> list:
+    """The seven columns that 2DGS training with the surface maps packs
+    after the 16 (``tile_fwd.SURFACE_COLS``): a fragment's depth
+    coefficients with the scales factored out (``gaussian_2d.
+    surfel_depth_coeffs``: det T0, A0.z, B0.z, C0.z, folded for an image
+    ``width`` wide, default the camera's), and the surfel's camera-facing
+    unit normal in view space (``gaussian_2d.surfel_view_normal``)."""
+    cloud = as_float32(cloud)
+    with trace.span("gs.project.surfel"):
+        if model_transform is None:
+            model_transform = torch.eye(4, dtype=torch.float32, device=cloud.device)
+        world_pos = apply_transform(model_transform, cloud.position)
+        depth = surfel_depth_coeffs(world_pos, cloud.rotation, model_transform, camera.clip_from_world,
+                                    camera.clip_from_view, camera.viewport[2:], splats["mean_2d"],
+                                    camera.width if width is None else width)
+        n = surfel_view_normal(cloud.rotation, world_pos, model_transform, camera.view_from_world)
+    return [depth[:, k] for k in range(4)] + [n[:, k] for k in range(3)]
+
+
 def project_splats_plain(cloud, camera, settings: CloudSettings, model_transform=None, time=None, size=None,
-                         depth_minmax=None) -> dict:
+                         depth_minmax=None, surface: bool = False) -> dict:
     """Plain PyTorch version, differentiable by autograd: the eager chain
     (``project_gaussians``, whose span the caller's replaces) with the
     DEPTH ramp's range ``depth_minmax``, the radix key's sentinel cull
     folded into ``mask`` and the rows stacked from
-    :func:`pack_raster_param_cols` at ``size`` (default the camera's)."""
+    :func:`pack_raster_param_cols` at ``size`` (default the camera's);
+    ``surface`` (2DGS) appends :func:`surface_cols`."""
     splats = project_gaussians.__wrapped__(
         cloud, camera, settings, model_transform, depth_minmax=depth_minmax, time=time
     )
     splats["mask"] = splats["mask"] & (splats["sort_key"] != sort_ops.SENTINEL_KEY)
-    params = torch.stack(pack_raster_param_cols(splats, settings, *_size(camera, size)), dim=-1)
+    width, height = _size(camera, size)
+    cols = pack_raster_param_cols(splats, settings, width, height)
+    if surface:
+        cols += surface_cols(cloud, camera, splats, model_transform, width)
+    params = torch.stack(cols, dim=-1)
     keys = ("mask", "center_ndc", "sort_key") + _extent_keys(settings)
     return {"params": params, **{k: splats[k] for k in keys}}
 
@@ -238,7 +266,7 @@ def _fn(name: str, argtypes):
 
 
 def project_splats(cloud, camera, settings: CloudSettings, model_transform=None, time=None, size=None,
-                   depth_minmax=None) -> dict:
+                   depth_minmax=None, surface: bool = False) -> dict:
     """Project ``cloud`` for binning and compositing -> dict: ``mask`` [N]
     bool (the sentinel cull folded in), ``center_ndc`` [N, 2], ``sort_key``
     [N] int64, ``obb_axis`` and ``obb_bounds`` [N, 2] (OBB), ``radius_vp``
@@ -251,7 +279,13 @@ def project_splats(cloud, camera, settings: CloudSettings, model_transform=None,
     the card; ``depth_minmax`` the DEPTH ramp's range.  The kernel runs where
     :func:`fused_projection_applies` (it propagates no grad),
     :func:`project_splats_trained` where :func:`trained_projection_applies`,
-    the plain version everywhere else."""
+    the plain version everywhere else.  ``surface`` (2DGS training with the
+    surface maps) takes the plain version, whose rows gain the six
+    :func:`surface_cols`."""
+    if surface:
+        if settings.gaussian_mode != GaussianMode.GAUSSIAN_2D:
+            raise ValueError("the surface columns are 2DGS's: settings.gaussian_mode must be GAUSSIAN_2D")
+        return project_splats_plain(cloud, camera, settings, model_transform, time, size, depth_minmax, True)
     if not fused_projection_applies(cloud, settings, model_transform, time):
         if trained_projection_applies(cloud, settings, model_transform):
             return project_splats_trained(cloud, camera, settings, model_transform, size)

@@ -6,7 +6,7 @@ block owns up to ``BLOCK_RANKS`` consecutive ranks, stages their contiguous run
 of slot rows in shared memory (in windows of whole ranks where the run is
 longer than its ``STAGE_FLOATS`` buffer, as the 4DGS scene's are), and each
 (rank, column) sums its slots in slot order.  The row width is ``dslot``'s: 10 columns for OBB and AABB
-gradients, 16 for 2DGS.  On the H100 it is bound by memory (each owned slot
+gradients, 16 for 2DGS, 23 for 2DGS with the surface maps.  On the H100 it is bound by memory (each owned slot
 row read once, each rank row written once); see the source for the design.
 
 ``segment_reduce`` launches the kernel for CUDA tensors and runs the plain
@@ -127,7 +127,8 @@ def segment_reduce_plain(dslot: torch.Tensor, cum: torch.Tensor, n: int) -> torc
 
 def segment_reduce(dslot: torch.Tensor, cum: torch.Tensor, n: int) -> torch.Tensor:
     """Per-rank gradient sums [n, cols] of slot-ordered rows ``dslot``
-    [P, cols] (``cols`` 10 for OBB and AABB, 16 for 2DGS).
+    [P, cols] (``cols`` 10 for OBB and AABB, 16 for 2DGS, 23 for 2DGS with
+    the surface maps).
 
     ``cum`` [n] int32 holds the inclusive pair counts in depth order,
     clamped at P: rank r owns slots [cum[r-1], cum[r]).  Ranks with no slots

@@ -26,6 +26,25 @@ kernel's ``bbox=True`` branch: opaque green edge bands, tile_fwd.py:140-145,
 :158-162, :180-185, :289-312) is a second instantiation of the kernel in
 each mode; its edge band lies inside the same mask.
 
+2DGS training with the surface regularisers of Huang et al. (SIGGRAPH 2024,
+section 4.2) takes a third instantiation of the 2DGS branch,
+``aux_near`` given: its rows carry seven more columns (``SURFACE_COLS``: a
+fragment's depth coefficients det T0, A0.z, B0.z, C0.z and the
+camera-facing unit normal n in view space), and in the same pass over the
+pairs it writes, beside the colour,
+each pixel's surface maps (``SURFACE_MAPS`` rows: the normal N = sum w n,
+the depth D = sum w z, the distortion of inverse depth sum_{j<i} w_i w_j
+(1/z_i - 1/z_j)^2 and the median depth) and the totals its backward needs
+(``SURFACE_TOTALS`` rows).  A fragment enters the maps where its alpha is
+at least ``AUX_ALPHA_MIN`` and its depth z at least ``aux_near``, as the
+official rasteriser's fragments do.  The depth is the official one, (us, vs,
+1) . c with c the homography's column 2 (its ``Tw``), evaluated as det T0 /
+q0.z, the same number with the scales factored out of the homography
+(``ops/gaussian_2d.py`` ``surfel_depth_coeffs``, which says why).  The
+median is the depth of the last such fragment whose incoming transmittance
+is above ``MEDIAN_T``.  The colour and transmittance are those of the
+serving instantiation, bit for bit.
+
 ``composite_tiles_raw`` launches the kernel for CUDA tensors and runs the
 plain version, ``composite_tiles_raw_plain``, for CPU tensors.
 ``composite_tiles_raw.launches`` counts kernel launches, and
@@ -41,6 +60,7 @@ import numpy as np
 import torch
 
 from bevy_gaussian_splatting_tpu_torch.ops.cuda import build
+from bevy_gaussian_splatting_tpu_torch.ops.gaussian_2d import DEPTH_EPS
 from bevy_gaussian_splatting_tpu_torch.utils.trace import spanned
 
 TILE = 16
@@ -53,6 +73,19 @@ MODE_OBB = 0
 MODE_AABB = 1
 MODE_2D = 2
 MODES = {MODE_OBB: "obb", MODE_AABB: "aabb", MODE_2D: "2d"}
+# 2DGS training rows with the surface maps: the 16 columns, then det T0,
+# A0.z, B0.z, C0.z (a fragment's depth is det T0 / (dxn A0.z + dyn B0.z +
+# C0.z)) and n.xyz (the unit normal, view space, facing the camera)
+SURFACE_COLS = 7
+# per pixel: N.xyz, D, the inverse-depth distortion, the median depth
+SURFACE_MAPS = 6
+# per pixel, for the backward: sum w, sum w / z, sum w / z^2 over the
+# fragments in the maps, and the median fragment's pair index (-1: none)
+SURFACE_TOTALS = 4
+MEDIAN_T = 0.5  # the median's incoming transmittance must be above this
+AUX_NEAR = 0.2  # the official 2DGS rasteriser's near plane for fragments
+# the official rasteriser's least alpha of a fragment (1 / 255, float32)
+AUX_ALPHA_MIN = float(np.float32(1.0 / 255.0))
 ALPHA_CAP = 0.999
 TRANS_EPS = float(np.float32(1.0 / 255.0))
 MAX_CHUNK = 512
@@ -67,13 +100,16 @@ _ARGTYPES = (
     + [ctypes.c_float] * 7
     + [ctypes.c_int] * 4
     + [ctypes.c_float] * 2
-    + [ctypes.c_void_p] * 2
+    + [ctypes.c_void_p] * 3
+    + [ctypes.c_float]
+    + [ctypes.c_void_p]
 )
 
 
-def param_width(mode: int) -> int:
-    """Columns of a parameter row in ``mode``: 16 for 2DGS, else 10."""
-    return 16 if mode == MODE_2D else 10
+def param_width(mode: int, surface: bool = False) -> int:
+    """Columns of a parameter row in ``mode``: 16 for 2DGS (23 with the
+    surface columns), else 10."""
+    return 16 + (SURFACE_COLS if surface else 0) if mode == MODE_2D else 10
 
 
 def rgb_row(mode: int) -> int:
@@ -142,12 +178,14 @@ def tile_pixel_coords(tids, tx_count: int, width: int, full_height: int, y0: int
     return x * float(width), y * float(full_height)
 
 
-def _check_inputs(params, tile_start, tile_count, chunk, mode):
+def _check_inputs(params, tile_start, tile_count, chunk, mode, surface: bool = False):
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode}")
+    if surface and mode != MODE_2D:
+        raise ValueError("the surface maps are 2DGS's: mode must be MODE_2D")
     if params.dtype != torch.float32:
         raise TypeError(f"params must be float32, got {params.dtype}")
-    cols = param_width(mode)
+    cols = param_width(mode, surface)
     if params.dim() != 2 or params.shape[1] != cols:
         raise ValueError(f"params must be [P, {cols}] in mode {MODES[mode]}, got {tuple(params.shape)}")
     for name, t in (("tile_start", tile_start), ("tile_count", tile_count)):
@@ -263,11 +301,14 @@ def composite_tiles_raw_plain(
     walked: Optional[torch.Tensor] = None,
     bbox: bool = False,
     inside_count: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    aux_near: Optional[float] = None,
+):
     """Plain PyTorch version, vectorized over [tiles, chunk, 256] in batches
     of ``tile_batch`` tiles, with the kernel's chunk grid and exit rule.
     Within a chunk the blend is an exclusive ``cumprod``.  ``bbox`` draws
-    the bounding-box overlay (:func:`overlay_alpha`).
+    the bounding-box overlay (:func:`overlay_alpha`); ``aux_near`` adds the
+    surface maps and totals (:func:`composite_tiles_raw`), the running sums
+    of a chunk as exclusive ``cumsum``.
 
     ``walked``, if given ([T] int64), receives the number of in-range pairs
     each tile evaluated before its early exit, and ``inside_count`` the
@@ -278,6 +319,10 @@ def composite_tiles_raw_plain(
     # one zero row past the end keeps every clamped gather in bounds
     table = torch.cat([params, params.new_zeros((1, params.shape[1]))], dim=0)
     out = torch.empty((num_tiles, 4, PIX), dtype=torch.float32, device=dev)
+    if aux_near is not None:
+        maps = torch.zeros((num_tiles, SURFACE_MAPS, PIX), dtype=torch.float32, device=dev)
+        totals = torch.zeros((num_tiles, SURFACE_TOTALS, PIX), dtype=torch.float32, device=dev)
+        totals[:, 3] = -1.0
     lane = torch.arange(chunk, device=dev)
     for b0 in range(0, num_tiles, tile_batch):
         tids = torch.arange(b0, min(b0 + tile_batch, num_tiles), device=dev)
@@ -290,6 +335,8 @@ def composite_tiles_raw_plain(
         px, py = px[:, None, :], py[:, None, :]
         trans = torch.ones((tids.shape[0], PIX), dtype=torch.float32, device=dev)
         accum = torch.zeros((tids.shape[0], 3, PIX), dtype=torch.float32, device=dev)
+        if aux_near is not None:
+            m_acc, t_acc = maps[tids], totals[tids]
         # lanes past the batch's longest range are masked in every tile:
         # leave them out (alpha 0 multiplies and adds exactly nothing)
         span = int(total.max()) if tids.numel() else 0
@@ -319,10 +366,63 @@ def composite_tiles_raw_plain(
             w = alpha * excl * trans[:, None, :]
             for ch in range(3):
                 accum[:, ch] += torch.sum(w * overlay_rgb(q, edge, mode, ch), dim=1)
+            if aux_near is not None:
+                t_i = excl * trans[:, None, :]
+                _surface_chunk(m_acc, t_acc, q, falloff[2], alpha, t_i, w, aux_near, base[:, None] + lane_idx)
             trans = trans * cum[:, -1]
         out[tids, :3] = accum
         out[tids, 3] = trans
-    return out
+        if aux_near is not None:
+            maps[tids], totals[tids] = m_acc, t_acc
+    return out if aux_near is None else (out, maps, totals)
+
+
+def surface_fragments(q, falloff_aux, alpha, near: float):
+    """The fragments of 2DGS surface rows ``q`` [..., 23] that enter the
+    surface maps -> (z, inside, inv_z, q0z, inv_p0): the depth z = det T0 /
+    q0.z of the ray-plane intersection at the pixel (``splat_falloff``'s
+    offsets dxn, dyn; q0.z = (dxn A0.z + dyn B0.z) + C0.z from the row's
+    columns 16-19, clamped to ``DEPTH_EPS`` in magnitude, not
+    sign-preserving, and inverted once), in the maps where alpha >=
+    ``AUX_ALPHA_MIN`` and z >= ``near``, and 1 / z there (0 elsewhere)."""
+    q0z = (falloff_aux[0] * q[..., 17:18] + falloff_aux[1] * q[..., 18:19]) + q[..., 19:20]
+    inv_p0 = 1.0 / torch.where(q0z.abs() > DEPTH_EPS, q0z, torch.full_like(q0z, DEPTH_EPS))
+    z = q[..., 16:17] * inv_p0
+    inside = (alpha >= AUX_ALPHA_MIN) & (z >= near)
+    inv_z = torch.where(inside, 1.0 / torch.where(inside, z, 1.0), 0.0)
+    return z, inside, inv_z, q0z, inv_p0
+
+
+def _exclusive(run: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``run`` [B, 256] plus the sum of ``v`` [B, L, 256] over the lanes
+    before each lane -> [B, L, 256]."""
+    c = torch.cumsum(v, dim=1)
+    return run[:, None, :] + torch.cat([torch.zeros_like(c[:, :1]), c[:, :-1]], dim=1)
+
+
+def _surface_chunk(maps, totals, q, falloff_aux, alpha, t_i, w, near: float, pair_idx):
+    """Fold a chunk's fragments into the running ``maps`` [B, 6, 256] and
+    ``totals`` [B, 4, 256] (in place): the kernel's per-fragment steps, the
+    distortion's running sums taken before each fragment's own."""
+    z, inside, inv_z, _, _ = surface_fragments(q, falloff_aux, alpha, near)
+    we = torch.where(inside, w, 0.0)
+    wz = we * inv_z
+    ad, z1, z2 = (_exclusive(totals[:, k], v) for k, v in enumerate((we, wz, wz * inv_z)))
+    maps[:, 4] += torch.sum(we * ((inv_z * inv_z) * ad + z2 - 2.0 * inv_z * z1), dim=1)
+    for k in range(3):
+        maps[:, k] += torch.sum(we * q[..., 20 + k : 21 + k], dim=1)
+    maps[:, 3] += torch.sum(we * z, dim=1)
+    totals[:, 0] += torch.sum(we, dim=1)
+    totals[:, 1] += torch.sum(wz, dim=1)
+    totals[:, 2] += torch.sum(wz * inv_z, dim=1)
+    # the median: the chunk's last fragment in the maps entered above MEDIAN_T
+    lanes = torch.arange(alpha.shape[1], device=alpha.device)[None, :, None]
+    last = torch.where(inside & (t_i > MEDIAN_T), lanes, -1).amax(dim=1)  # [B, 256]
+    found = last >= 0
+    pick = last.clamp(min=0)[:, None, :]
+    maps[:, 5] = torch.where(found, torch.gather(z, 1, pick)[:, 0], maps[:, 5])
+    slot = torch.gather(pair_idx[..., None].expand_as(alpha), 1, pick)[:, 0]
+    totals[:, 3] = torch.where(found, slot.to(torch.float32), totals[:, 3])
 
 
 @spanned("gs.composite")
@@ -337,7 +437,8 @@ def composite_tiles_raw(
     chunk: int = MAX_CHUNK,
     mode: int = MODE_OBB,
     bbox: bool = False,
-) -> torch.Tensor:
+    aux_near: Optional[float] = None,
+):
     """Composite every tile -> raw [T, 4, 256]: rows 0-2 premultiplied rgb,
     row 3 final transmittance.
 
@@ -348,17 +449,31 @@ def composite_tiles_raw(
     ``full_height`` and ``y0`` place the tile grid in the full image (``y0``
     = 0 for one device).  ``bbox`` draws the bounding-box overlay, a
     separate instantiation of the kernel; ``composite_tiles_raw.instances``
-    counts the launches of each (mode name, bbox)."""
-    _check_inputs(params, tile_start, tile_count, chunk, mode)
+    counts the launches of each (mode name, bbox, surface maps).
+
+    ``aux_near`` (2DGS, no overlay; rows of ``param_width(MODE_2D, True)``
+    columns) also composites the surface maps -> ``(raw, maps, totals)``:
+    ``maps`` [T, SURFACE_MAPS, 256] rows N.xyz, D, the distortion of inverse
+    depth and the median depth (0 where no fragment is the median);
+    ``totals`` [T, SURFACE_TOTALS, 256] rows sum w, sum w / z, sum w / z^2
+    and the median fragment's pair index (-1 where none), for the
+    backward."""
+    surface = aux_near is not None
+    if surface and bbox:
+        raise ValueError("the surface maps are composited without the bounding-box overlay")
+    _check_inputs(params, tile_start, tile_count, chunk, mode, surface)
     if params.device.type == "cpu":
         return composite_tiles_raw_plain(
-            params, tile_start, tile_count, tx_count, width, full_height, y0, chunk, mode, bbox=bbox
+            params, tile_start, tile_count, tx_count, width, full_height, y0, chunk, mode, bbox=bbox,
+            aux_near=aux_near,
         )
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
     dev = params.device
     num_tiles = tile_start.shape[0]
     out = torch.empty((num_tiles, 4, PIX), dtype=torch.float32, device=dev)
+    maps = torch.empty((num_tiles, SURFACE_MAPS, PIX), dtype=torch.float32, device=dev) if surface else None
+    totals = torch.empty((num_tiles, SURFACE_TOTALS, PIX), dtype=torch.float32, device=dev) if surface else None
     inv_w2, inv_h2 = _coord_constants(width, full_height)
     inv_w, inv_h, two_w2 = _surfel_constants(width, full_height)
     lib = build.load("tile_fwd")
@@ -372,14 +487,15 @@ def composite_tiles_raw(
             params.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
             num_tiles, tx_count, float(width), float(full_height), inv_w2, inv_h2,
             inv_w, inv_h, two_w2, int(y0), chunk, mode, int(bbox), TRANS_EPS, EDGE_BAND,
-            out.data_ptr(), stream,
+            out.data_ptr(), maps.data_ptr() if surface else None, totals.data_ptr() if surface else None,
+            float(aux_near) if surface else 0.0, stream,
         )
     build.check(status, "composite_tiles_raw")
     if num_tiles > 0:
         composite_tiles_raw.launches += 1
-        key = (MODES[mode], bool(bbox))
+        key = (MODES[mode], bool(bbox)) + (("surface",) if surface else ())
         composite_tiles_raw.instances[key] = composite_tiles_raw.instances.get(key, 0) + 1
-    return out
+    return (out, maps, totals) if surface else out
 
 
 composite_tiles_raw.launches = 0
@@ -409,9 +525,15 @@ def composite_epilogue(out_raw: torch.Tensor, background, width: int, height: in
             bg_rgb, bg_a = bg_tiles[..., :3], bg_tiles[..., 3]
         accum = accum + trans[..., None] * bg_rgb
         alpha_out = alpha_out + trans * bg_a
-    tile_img = torch.cat([accum, alpha_out[..., None]], dim=-1)
+    return tiles_to_image(torch.cat([accum, alpha_out[..., None]], dim=-1), width, height)
+
+
+def tiles_to_image(tile_rows: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """Per-tile pixel rows [T, 256, C] in row-major pixel order -> the image
+    [height, width, C] (``height`` the padded grid's)."""
+    c = tile_rows.shape[-1]
     return (
-        tile_img.reshape(ty_count, tx_count, TILE, TILE, 4)
+        tile_rows.reshape(height // TILE, width // TILE, TILE, TILE, c)
         .permute(0, 2, 1, 3, 4)
-        .reshape(height, width, 4)
+        .reshape(height, width, c)
     )

@@ -101,6 +101,81 @@ def compute_cov2d_surfel(
     return T, mean_2d, extent, valid
 
 
+# the least |q0.z| of a fragment's depth (not sign-preserving): q0.z is
+# 1e5-1e6 at a ray that meets the plane, and det T0 / 1e-6 stays finite
+DEPTH_EPS = 1e-6
+
+
+def surfel_depth_coeffs(
+    position_world: torch.Tensor,  # [..., 3]
+    rotation: torch.Tensor,  # [..., 4]
+    model_transform: torch.Tensor,  # [4, 4]
+    clip_from_world: torch.Tensor,  # [4, 4]
+    clip_from_view: torch.Tensor,  # [4, 4]
+    viewport_size: torch.Tensor,  # [2]
+    mean_2d: torch.Tensor,  # [..., 2]
+    width: int,
+) -> torch.Tensor:
+    """The coefficients of a fragment's depth with the scales factored out,
+    [..., 4]: (det T0, A0.z, B0.z, C0.z) of T0, the homography of
+    :func:`compute_cov2d_surfel` with both scales 1, folded as
+    :func:`surfel_affine_coeffs` folds T about the centre ``mean_2d``.
+
+    A fragment's depth is the official 2DGS rasteriser's, (us, vs, 1) . c
+    with c the homography's column 2 and (us, vs) = (q.x, q.y) / q.z its
+    pixel's plane intersection.  Since c . q = det T for q = (pcx c - a) x
+    (pcy c - b) at any pixel, the depth is det T / q.z, and scaling row j of
+    T by s_j scales both by s_x s_y: the depth is det T0 / q0.z, q0.z = dxn
+    A0.z + dyn B0.z + C0.z.  Evaluated so, the scales enter it only through
+    the centre; as (us, vs, 1) . c (or det T / q.z) its gradient in them is
+    the difference of two terms of z / s each, rounding noise that outgrows
+    a small surfel's true gradient."""
+    # the tangent axes (rows 0 and 1 of the rotation matrix, as in
+    # compute_cov2d_surfel) through the model rotation, then T0's rows: the
+    # axes and the position times m = clip_from_world^T Ks, m and the
+    # position's row summed as compute_cov2d_surfel sums them.  The depth is
+    # a quotient of sums that cancel at a ray nearly in the plane, so the
+    # plain reference evaluates it in these same operations
+    r, qx, qy, qz = rotation.unbind(-1)
+    axes = torch.stack([
+        torch.stack([1.0 - 2.0 * (qy * qy + qz * qz), 2.0 * (qx * qy + r * qz), 2.0 * (qx * qz - r * qy)], dim=-1),
+        torch.stack([2.0 * (qx * qy - r * qz), 1.0 - 2.0 * (qx * qx + qz * qz), 2.0 * (qy * qz + r * qx)], dim=-1),
+    ], dim=-2)  # [..., 2, 3]
+    ks = intrinsic_matrix(clip_from_view, viewport_size)
+    m = sum(clip_from_world[i][:, None] * ks[i] for i in range(4))  # [4, 3]
+    u = (axes @ model_transform[:3, :3].T) @ m[:3]  # [..., 2, 3]
+    t2 = sum(position_world[..., k : k + 1] * m[k] for k in range(3)) + m[3]  # [..., 3]
+    # det T0 = c . (a x b) of T0's columns = t2 . (u0 x u1) (rows); the z
+    # components of b x c, c x a and a x b are those of u0 x u1's rows
+    uxu = torch.linalg.cross(u[..., 0, :], u[..., 1, :], dim=-1)  # (b x c, c x a, a x b).z
+    det = torch.sum(t2 * uxu, dim=-1)
+    wf = float(width)
+    c0 = (mean_2d[..., 0] * uxu[..., 0] + mean_2d[..., 1] * uxu[..., 1]) + uxu[..., 2]
+    return torch.stack([det, wf * uxu[..., 0], wf * uxu[..., 1], c0], dim=-1)
+
+
+def surfel_view_normal(
+    rotation: torch.Tensor,  # [..., 4]
+    position_world: torch.Tensor,  # [..., 3]
+    model_transform: torch.Tensor,  # [4, 4]
+    view_from_world: torch.Tensor,  # [4, 4]
+) -> torch.Tensor:
+    """The surfel's unit normal in view space, facing the camera [..., 3]:
+    the rotation's third axis (row 2 of the reference rotation matrix, as
+    :func:`compute_cov2d_surfel` takes rows 0 and 1 for the tangent axes)
+    through the model and view rotations, normalised, and negated where it
+    points away from the camera (the official 2DGS rasteriser's
+    ``preprocessCUDA``: n . -p_view < 0)."""
+    r, qx, qy, qz = (rotation[..., i] for i in range(4))
+    axis = torch.stack([2.0 * (qx * qz + r * qy), 2.0 * (qy * qz - r * qx), 1.0 - 2.0 * (qx * qx + qy * qy)], dim=-1)
+    rot = view_from_world[:3, :3] @ model_transform[:3, :3]
+    n = axis @ rot.T
+    n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=1e-12)
+    p_view = position_world @ view_from_world[:3, :3].T + view_from_world[:3, 3]
+    away = torch.sum(n * p_view, dim=-1, keepdim=True) > 0.0
+    return torch.where(away, -n, n)
+
+
 def surfel_bounding_radius(extent: torch.Tensor, cutoff: torch.Tensor) -> torch.Tensor:
     """max_radius in the reference's doubled pixel units; the quad spans
     +- max_radius/2 true pixels around the projected center

@@ -57,6 +57,7 @@ from bevy_gaussian_splatting_tpu_torch.ops.cuda.tile_fwd import (
     preferred_chunk,
     splat_falloff,
     tile_ndc,
+    tiles_to_image,
 )
 from bevy_gaussian_splatting_tpu_torch.ops.project import as_float32
 from bevy_gaussian_splatting_tpu_torch.ops.transforms import apply_transform
@@ -107,16 +108,18 @@ def tile_budget(n: int) -> int:
 
 @trace.spanned("gs.project")
 def project_for_binning(
-    cloud, camera: Camera, settings: CloudSettings, model_transform=None, depth_minmax=None, time=None, size=None
+    cloud, camera: Camera, settings: CloudSettings, model_transform=None, depth_minmax=None, time=None, size=None,
+    surface: bool = False,
 ) -> dict:
     """The frame's projection at ``time`` (default ``settings.time``), as
     ``render_tiled`` prepares it: ``ops/cuda/project.py``
     :func:`project_splats`, the binning's fields and the compositor's rows
     (``params``) packed for an image of ``size`` (default the camera's),
-    from one kernel where it applies and the eager chain elsewhere.  Each
-    call counts ``project.calls`` (``utils/trace.py``)."""
+    from one kernel where it applies and the eager chain elsewhere;
+    ``surface`` adds the 2DGS surface columns.  Each call counts
+    ``project.calls`` (``utils/trace.py``)."""
     trace.count("project.calls")
-    return project_splats(cloud, camera, settings, model_transform, time, size, depth_minmax)
+    return project_splats(cloud, camera, settings, model_transform, time, size, depth_minmax, surface)
 
 
 def _pixel_extents(splats: dict, width: int, height: int):
@@ -438,7 +441,8 @@ def render_tiled(
     height: Optional[int] = None,
     pairs_hint: Optional[int] = None,
     counter: Optional[str] = None,
-) -> torch.Tensor:
+    aux_near: Optional[float] = None,
+):
     """Render -> [H, W, 4] linear premultiplied RGBA on the cloud's device,
     differentiable in the cloud's tensors (and in ``background``) where
     they require grad.  ``background`` is None, a solid [4] RGBA or a full
@@ -454,7 +458,21 @@ def render_tiled(
     bounding-box overlay with ``differentiable=True``: there, as in the JAX
     package, the plain ``composite_tiles`` that autograd differentiates.
     ``render()`` serves with ``differentiable=False``, ``train_step``
-    trains with the default."""
+    trains with the default.
+
+    ``aux_near`` (2DGS, without the bounding-box overlay; the official
+    rasteriser's near plane is ``tile_fwd.AUX_NEAR``) returns ``(image,
+    maps)``: the image as above and a dict of [H, W] maps (``normal`` [H,
+    W, 3]), each differentiable, composited in the same pass (``ops/cuda/
+    tile_fwd.py``): ``alpha`` (1 - T, without the background), ``normal``
+    (sum w n, view space), ``depth`` (sum w z), ``distortion`` (sum over
+    fragment pairs j < i of w_i w_j (1/z_i - 1/z_j)^2) and ``median`` (the
+    median fragment's depth, 0 where there is none), over the fragments
+    at a depth of ``aux_near`` or more (``train/losses.py``
+    ``SurfaceLoss`` takes them)."""
+    surface = aux_near is not None
+    if surface and (settings.gaussian_mode != GaussianMode.GAUSSIAN_2D or settings.visualize_bounding_box):
+        raise ValueError("aux_near renders 2DGS surfels (GaussianMode.GAUSSIAN_2D) without the bounding-box overlay")
     width = camera.width if width is None else int(width)
     height = camera.height if height is None else int(height)
     if width % TILE:
@@ -478,7 +496,8 @@ def render_tiled(
     depth_minmax = None
     if settings.rasterize_mode == RasterizeMode.DEPTH:
         depth_minmax = depth_range(cloud, camera, settings, model_transform)
-    splats = project_for_binning(cloud, camera, settings, model_transform, depth_minmax, time, (width, height))
+    splats = project_for_binning(cloud, camera, settings, model_transform, depth_minmax, time, (width, height),
+                                 surface=surface)
     params = splats["params"]
     mode = kernel_mode(settings)
     if settings.visualize_bounding_box and differentiable:
@@ -496,10 +515,19 @@ def render_tiled(
         out_raw = composite_core(
             params, *bins, tx_count=tx_count, width=width, full_height=height,
             chunk=preferred_chunk(p_max, bins.start.shape[0]), mode=mode,
-            bbox=settings.visualize_bounding_box,
+            bbox=settings.visualize_bounding_box, aux_near=aux_near,
         )
+    if surface:
+        out_raw, maps = out_raw
     img = composite_epilogue(out_raw, background, width, h_pad)
-    return img[:height] if h_pad != height else img
+    img = img[:height] if h_pad != height else img
+    if not surface:
+        return img
+    with trace.span("gs.composite"):
+        rows = torch.cat([1.0 - out_raw[:, 3:4], maps], dim=1).transpose(1, 2)
+        planes = tiles_to_image(rows, width, h_pad)[:height]
+    return img, {"alpha": planes[..., 0], "normal": planes[..., 1:4], "depth": planes[..., 4],
+                 "distortion": planes[..., 5], "median": planes[..., 6]}
 
 
 def make_tiled_pipeline(

@@ -27,6 +27,7 @@ import torch
 
 from bevy_gaussian_splatting_tpu_torch.device import DeviceLike, resolve_device
 from bevy_gaussian_splatting_tpu_torch.models.cloud import Gaussian3dCloud
+from bevy_gaussian_splatting_tpu_torch.utils import trace
 
 
 class DensifyState(NamedTuple):
@@ -60,12 +61,14 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(acc)
 
 
+@trace.spanned("gs.densify")
 def accumulate_stats(state: DensifyState, grads) -> DensifyState:
     """Fold one step's positional gradients into the accumulators.
 
     ``grads`` is the cloud-shaped gradient of the training step
     (``TrainableCloud.grads()`` after ``train_step``); the densification
-    signal is the norm of d(position)."""
+    signal is the norm of d(position).  A call is the span ``gs.densify``
+    (``utils/trace.py``)."""
     gnorm = _norm(grads.position_visibility[:, :3])
     return state._replace(
         grad_accum=state.grad_accum + gnorm,
@@ -94,6 +97,7 @@ def _quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + w * t + torch.linalg.cross(u, t)
 
 
+@trace.spanned("gs.densify")
 @torch.no_grad()
 def densify_and_prune(
     cloud: Gaussian3dCloud,
@@ -114,7 +118,10 @@ def densify_and_prune(
     child drawn from the splat's own distribution, both scales divided by
     ``split_scale_shrink``).  Live gaussians with opacity below
     ``prune_opacity`` are pruned (opacity and visibility zeroed).  Stats are
-    int64 scalar tensors: added, split, cloned, pruned, live."""
+    int64 scalar tensors: added, split, cloned, pruned, live.  A call is the
+    span ``gs.densify`` and adds its added and pruned gaussians to the
+    counters ``densify.added`` and ``densify.pruned`` (``utils/trace.py``
+    ``count_later``: read only with the counters)."""
     n = len(cloud)
     k = min(k_budget, n)
     pv, sh, rot, so = cloud.position_visibility, cloud.spherical_harmonic, cloud.rotation, cloud.scale_opacity
@@ -176,4 +183,6 @@ def densify_and_prune(
         "pruned": prune.sum(),
         "live": (new_so[:, 3] > 0.0).sum(),
     }
+    trace.count_later("densify.added", stats["added"])
+    trace.count_later("densify.pruned", stats["pruned"])
     return new_cloud, new_state, stats

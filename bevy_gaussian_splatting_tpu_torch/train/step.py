@@ -25,7 +25,7 @@ from bevy_gaussian_splatting_tpu_torch.models.cloud import Gaussian3dCloud, clou
 from bevy_gaussian_splatting_tpu_torch.ops.project import as_float32
 from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings
 from bevy_gaussian_splatting_tpu_torch.ops.rasterize_tile import render_tiled
-from bevy_gaussian_splatting_tpu_torch.train.losses import mse
+from bevy_gaussian_splatting_tpu_torch.train.losses import SurfaceLoss, mse
 from bevy_gaussian_splatting_tpu_torch.utils import trace
 
 FIELDS = tuple(f.name for f in dataclasses.fields(Gaussian3dCloud))  # a 3DGS cloud's
@@ -79,6 +79,7 @@ def train_step(
     background: Optional[torch.Tensor] = None,
     pairs_max: Optional[int] = None,
     time=None,
+    surface_loss: Optional[SurfaceLoss] = None,
 ) -> torch.Tensor:
     """Render ``model`` through ``camera`` (a 4DGS cloud at ``time``,
     default ``settings.time``), take ``loss_fn(image, target)``,
@@ -86,18 +87,30 @@ def train_step(
     scalar tensor; reading it waits for the card).  The gradients stay in
     the parameters' ``.grad`` until the next step.
 
+    ``surface_loss`` (2DGS) adds 2DGS's geometric terms: the render also
+    composites the surface maps (``render_tiled(..., aux_near=...)``) and
+    the loss is ``loss_fn(image, target) + surface_loss(maps, camera)``
+    (``train/losses.py``).
+
     A step is the span ``gs.step`` (``utils/trace.py``), and counts in the
     counters ``train.budget`` (the pair budget) and ``train.pairs`` (the
-    frame's uncapped pairs, read only with the counters)."""
+    frame's uncapped pairs, read only with the counters); a step with
+    ``surface_loss`` counts in ``geometry.steps``."""
     with trace.span("gs.step"):
         with trace.span("gs.adam"):
             optimizer.zero_grad(set_to_none=True)
         image = render_tiled(
             model.cloud(), camera, settings or CloudSettings(),
             background=background, pairs_max=pairs_max, time=time, counter="train",
+            aux_near=None if surface_loss is None else surface_loss.near,
         )
+        if surface_loss is not None:
+            image, maps = image
+            trace.count("geometry.steps")
         with trace.span("gs.loss"):
             loss = loss_fn(image, target)
+            if surface_loss is not None:
+                loss = loss + surface_loss(maps, camera)
         with trace.span("gs.backward"):
             loss.backward()
         with trace.span("gs.adam"):

@@ -13,7 +13,10 @@ The reference's observability layer is bevy's FrameTimeDiagnosticsPlugin
     while a ``torch.profiler`` records, so it lands in the same Chrome
     trace as the card's kernels;
   - :func:`count`, :func:`count_later` and :func:`counters`: the program's
-    counters, for code that has no object of its own to keep them on;
+    counters, for code that has no object of its own to keep them on (among
+    them ``geometry.steps``, the training steps whose loss took the 2DGS
+    surface maps, and ``densify.added`` / ``densify.pruned``, the gaussians
+    each densification added and pruned);
   - :class:`StageTimer`: host-side spans with names (the wall time of
     whatever the caller puts inside; synchronise inside the span to time
     the card's work), each also a :func:`span` of the same name.

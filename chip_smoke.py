@@ -13,7 +13,7 @@ NVIDIA card.
 Phases, each of which raises on failure (nothing is caught).  Phases 3-5,
 14-17 and 6 run with OBB bounds (``CloudSettings()``), then phases 3-5, 14
 and 7 with AABB bounds (``CloudSettings(aabb=True)``), then phase 8, then
-phases 3-5, 14 and 6 with 2DGS surfels
+phases 3-5, 14, 6 and 26 with 2DGS surfels
 (``CloudSettings(gaussian_mode=GAUSSIAN_2D)``), then phases 9, 20 and 21, then
 phases 23-25, then phases 10-13 for 4DGS with OBB (with phase 18 after 12) and
 then AABB bounds, then phases 19 and 22:
@@ -238,6 +238,13 @@ then AABB bounds, then phases 19 and 22:
              backward's leaf gradients within 1e-3 of its twin; each kernel
              alone by CUDA events against its byte bound, the eager chain
              and its autograd beside them, ptxas's registers and spills.
+ 26. surface 2DGS training with the surface maps (``train_step(...,
+             surface_loss=SurfaceLoss())``) on the 1M scene at 512x512: one
+             step with the counters zeroed launches the expansion, the
+             surface forward, the backward and the 23-column reduce once
+             each; on that step's recorded inputs each kernel against its
+             plain twin (colour bitwise the serving instantiation's), and
+             kernel, plain and serving-instantiation ms against the bound.
 
 It prints the kernels line (one entry per kernel and mode: the four kernels
 in each of the three modes, then the expansion and the forward compositor of
@@ -377,6 +384,12 @@ NOISE_SH_BAR = 1e-5
 # difference over norm (tests/torch_port_cases.py SH_GRAD_REL)
 SH_GRAD_BAR = 1e-5
 PROJECT_TWIN_BAR = 1e-3  # the training projection's backward kernel against its twin (tests/test_torch_cuda.py)
+# the 2DGS surface maps, kernel against plain (tests/test_torch_2dgs_geometry.py's card bars): each map's and
+# total's norm of difference over norm, the distortion's, and the share of pixels whose median fragment differs
+# (where T crosses 0.5 within rounding)
+SURFACE_MAP_BAR = 1e-4
+SURFACE_DIST_BAR = 1e-3
+SURFACE_MEDIAN_SHARE = 1e-4
 NOISE_CPU_STRIDE = 64
 MESH_BOUNDARY = 1e-5  # a point-in-mesh flip within this of a face or a face's diagonal (unit-box units) is rounding
 # the native runtime against the numpy / FlexBuffers paths (phase 20): turns of each load, the PLY bar between the
@@ -475,7 +488,7 @@ def phase_build() -> None:
             log(f"[build] ptxas {name}.cu {kernel}: {usage}")
     occ = tb.occupancy()
     log("[build] composite_backward resident blocks per SM and dynamic shared memory: "
-        + ", ".join(f"{m} {occ[m][0]} blocks, {occ[m][1]} B" for m in ("obb", "aabb", "2d")))
+        + ", ".join(f"{m} {occ[m][0]} blocks, {occ[m][1]} B" for m in ("obb", "aabb", "2d", "2d_surface")))
 
 
 def bound(nbytes: float, nops: float, ops_per_s: float):
@@ -1985,6 +1998,173 @@ def phase_project_train(cloud) -> None:
         log(f"[kernels project train] ptxas {kernel}: {line}")
 
 
+def phase_surface(arrays: dict) -> None:
+    """2DGS training with the surface maps (``train_step(...,
+    surface_loss=SurfaceLoss())``, the cell ``gs2d-1m.train-512``'s path)
+    on the 1M scene at 512x512: one step with the kernels' launch counters
+    zeroed just before it must launch the expansion, the surface forward
+    ``<2, false, true>``, the backward and the 23-column reduce once each
+    and count one ``geometry.steps``.  The three calls' inputs in that step
+    (``ops/cuda/core.py``'s, recorded) then hold each kernel to its plain
+    twin: the forward's colour and transmittance within IMAGE_BAR and bit
+    for bit the serving instantiation's on the first 16 columns, its maps
+    and totals within SURFACE_MAP_BAR of each map's norm (the distortion
+    SURFACE_DIST_BAR) and the median's fragment the same at all but
+    SURFACE_MEDIAN_SHARE of the pixels; the backward per column within
+    GRAD_BAR of its largest |plain| at the step's own cotangents, the radius
+    column exactly 0; the reduce bit for bit.  Each is timed by CUDA events
+    against its plain twin and its least time (bytes; operations without
+    the maps' per-fragment work, so a lower bound), beside the serving
+    instantiations on the same rows."""
+    from bevy_gaussian_splatting_tpu_torch.models.cloud import cloud_from_numpy
+    from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import core
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_bwd as tb
+    from bevy_gaussian_splatting_tpu_torch.ops.cuda import tile_fwd as tf
+    from bevy_gaussian_splatting_tpu_torch.train.losses import SurfaceLoss, mse
+    from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, adam, shifted_arrays, train_step
+    from bevy_gaussian_splatting_tpu_torch.utils import trace
+
+    settings = CloudSettings(gaussian_mode=GaussianMode.GAUSSIAN_2D)
+    width, height = SIZES[0]
+    size = f"{width}x{height}"
+    model = TrainableCloud.from_numpy(arrays, "cuda")
+    optimizer = adam(model, TRAIN_LR)
+    camera, p_max, pairs, target = train_target(model, cloud_from_numpy(shifted_arrays(arrays), "cuda"), settings,
+                                                width, height)
+    # a warm-up step, outside the counted one
+    train_step(model, optimizer, camera, target, settings, mse, pairs_max=p_max, surface_loss=SurfaceLoss())
+
+    # the checked step: counters zeroed, the three calls' inputs recorded
+    calls = ("composite_tiles_raw", "composite_backward", "segment_reduce")
+    real = {name: getattr(core, name) for name in calls}
+    seen = {}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            seen[name] = (args, kwargs)
+            return real[name](*args, **kwargs)
+        return call
+
+    counters = train_counters()
+    for f in counters:
+        f.launches = 0
+    key = ("2d", False, "surface")
+    surface_before = tf.composite_tiles_raw.instances.get(key, 0)
+    geometry_before = trace.counters().get("geometry.steps", 0)
+    for name in calls:
+        setattr(core, name, recorder(name))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = train_step(model, optimizer, camera, target, settings, mse, pairs_max=p_max, surface_loss=SurfaceLoss())
+        value = float(loss)
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, fn in real.items():
+            setattr(core, name, fn)
+    launches = {f.__name__: f.launches for f in counters}
+    surface_launches = tf.composite_tiles_raw.instances.get(key, 0) - surface_before
+    geometry_steps = trace.counters().get("geometry.steps", 0) - geometry_before
+    if set(launches.values()) != {1} or surface_launches != 1 or geometry_steps != 1:
+        raise AssertionError(f"surface {size}: the step launched {launches}, the surface forward "
+                             f"{surface_launches} times, geometry.steps {geometry_steps} (each must be 1)")
+    bad = [name for name in model.fields if not bool(torch.isfinite(getattr(model, name).grad).all())]
+    if not math.isfinite(value) or bad:
+        raise AssertionError(f"surface {size}: loss {value}, non-finite gradients in {bad}")
+    log(f"[train 2d surface {size}] pairs {pairs} p_max {p_max} | one step {step_ms:.3f} ms, loss {value:.6e} | "
+        f"launches {', '.join(f'{k} {v}' for k, v in launches.items())}, of them the surface forward "
+        f"{surface_launches}; geometry.steps {geometry_steps}")
+
+    # the forward on the step's rows against its twin and the serving instantiation
+    (rows, start, count, tx_count, w, full_h, y0, chunk, kmode, bbox), fkw = seen["composite_tiles_raw"]
+    near = fkw["aux_near"]
+    geo = (tx_count, w, full_h, y0, chunk, kmode)
+    fwd = lambda: tf.composite_tiles_raw(rows, start, count, *geo, aux_near=near)  # noqa: E731
+    raw, maps, totals = fwd()
+    again = fwd()
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip((raw, maps, totals), again)):
+        raise AssertionError(f"surface forward {size}: two launches on the same inputs differ")
+    del again
+    rows16 = rows[:, :16].contiguous()
+    serve = lambda: tf.composite_tiles_raw(rows16, start, count, *geo)  # noqa: E731
+    if not torch.equal(raw.view(torch.int32), serve().view(torch.int32)):
+        raise AssertionError(f"surface forward {size}: colour and transmittance differ from the serving <2, false>")
+    walked = torch.zeros(start.shape[0], dtype=torch.int64, device=rows.device)
+    inside = torch.zeros_like(walked)
+    p_raw, p_maps, p_totals = tf.composite_tiles_raw_plain(rows, start, count, *geo, tile_batch=512, walked=walked,
+                                                           inside_count=inside, aux_near=near)
+    raw_err = float((raw - p_raw).abs().max())
+    gaps = {name: rel_gap(maps[:, k], p_maps[:, k]) for k, name in enumerate(("N.x", "N.y", "N.z", "D", "dist"))}
+    gaps.update({f"totals{k}": rel_gap(totals[:, k], p_totals[:, k]) for k in range(3)})
+    median_share = max(float((maps[:, 5] != p_maps[:, 5]).float().mean()),
+                       float((totals[:, 3] != p_totals[:, 3]).float().mean()))
+    bars = {name: SURFACE_DIST_BAR if name == "dist" else SURFACE_MAP_BAR for name in gaps}
+    if (not raw_err <= IMAGE_BAR["2d"] or not all(gaps[k] <= bars[k] for k in gaps)
+            or not median_share <= SURFACE_MEDIAN_SHARE):
+        raise AssertionError(f"surface forward {size}: raw {raw_err:.3e} (bar {IMAGE_BAR['2d']}), maps "
+                             f"{gaps} (bars {bars}), median fragment differs at {median_share:.2e} of the pixels "
+                             f"(bar {SURFACE_MEDIAN_SHARE})")
+    del p_raw, p_maps, p_totals
+    n_walked, n_inside = int(walked.sum()), int(inside.sum())
+    num_tiles = start.shape[0]
+    fwd_bytes = n_walked * rows.shape[1] * 4 + 2 * 4 * num_tiles + (raw.numel() + maps.numel() + totals.numel()) * 4
+    fwd_bound, fwd_by = bound(fwd_bytes, n_walked * STAGE_OPS_PER_PAIR["2d"]
+                              + n_inside * (COMPOSITE_OPS_PER_INSIDE["2d"] + 1), FP32_NO_FMA_OPS_PER_S)
+    fwd_ms = cuda_ms(fwd, 20)
+    serve_ms = cuda_ms(serve, 20)
+    fwd_plain_ms = cuda_ms(lambda: tf.composite_tiles_raw_plain(rows, start, count, *geo, tile_batch=512,
+                                                                aux_near=near), 2)
+    log(f"[kernels 2d surface {size}] forward <2, false, true>: raw max_abs_err {raw_err:.3e} (bar "
+        f"{IMAGE_BAR['2d']}), colour and transmittance bitwise the serving <2, false>, maps |kernel - plain| / "
+        f"|plain| {', '.join(f'{k} {v:.2e}' for k, v in gaps.items())} (bars {SURFACE_MAP_BAR}, dist "
+        f"{SURFACE_DIST_BAR}), median fragment differs at {median_share:.2e} of the pixels, bitwise equal twice | "
+        f"{fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}, bound {fwd_bound:.4f} by {fwd_by}, "
+        f"{100.0 * fwd_bound / fwd_ms:.1f}%; serving <2, false> on the first 16 columns {serve_ms:.4f}) | pairs "
+        f"walked {n_walked}, (pair, pixel) inside {n_inside} | {card_name_and_limit()}")
+
+    # the backward at the step's own cotangents
+    (b_rows, b_start, b_count, gbar, *b_geo), bkw = seen["composite_backward"]
+    gaux = bkw["gaux"]
+    bwd = lambda: tb.composite_backward(b_rows, b_start, b_count, gbar, *b_geo, gaux=gaux, aux_near=near)  # noqa: E731
+    got = bwd()
+    if not torch.equal(got, bwd()):
+        raise AssertionError(f"surface backward {size}: two launches on the same inputs differ")
+    plain = tb.composite_backward_plain(b_rows, b_start, b_count, gbar, *b_geo, tile_batch=512, gaux=gaux,
+                                        aux_near=near)
+    if got.shape[1] != 23 or bool(got[:, 2].any()) or bool(plain[:, 2].any()):
+        raise AssertionError(f"surface backward {size}: {got.shape[1]} columns, or the radius column has a gradient")
+    col_max = plain.abs().amax(dim=0)
+    col_rel = ((got - plain).abs().amax(dim=0) / col_max.clamp(min=1e-30)).tolist()
+    if not all(r <= GRAD_BAR for r in col_rel):
+        raise AssertionError(f"surface backward {size}: per-column |kernel - plain| / max|plain| "
+                             f"{[f'{r:.2e}' for r in col_rel]} above {GRAD_BAR}")
+    del plain
+    bwd_bytes = (n_walked * b_rows.shape[1] * 4 + 2 * 4 * num_tiles + (gbar.numel() + gaux.numel()) * 4
+                 + got.numel() * 4)
+    bwd_bound, bwd_by = bound(bwd_bytes, n_walked * STAGE_OPS_PER_PAIR["2d"]
+                              + n_inside * (BACKWARD_OPS_PER_INSIDE["2d"] + 1), FP32_NO_FMA_OPS_PER_S)
+    bwd_ms = cuda_ms(bwd, 10)
+    serve_bwd_ms = cuda_ms(lambda: tb.composite_backward(rows16, b_start, b_count, gbar, *b_geo), 10)
+    bwd_plain_ms = cuda_ms(lambda: tb.composite_backward_plain(b_rows, b_start, b_count, gbar, *b_geo, tile_batch=512,
+                                                               gaux=gaux, aux_near=near), 1)
+    log(f"[kernels 2d surface {size}] backward <2, true>: per-column |kernel - plain| / max|plain| "
+        f"{' '.join(f'{r:.2e}' for r in col_rel)} (bar {GRAD_BAR}) at the step's cotangents, bitwise equal twice | "
+        f"{bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}, bound {bwd_bound:.4f} by {bwd_by}, "
+        f"{100.0 * bwd_bound / bwd_ms:.1f}%; <2> on the first 16 columns {serve_bwd_ms:.4f}) | {card_name_and_limit()}")
+
+    # the 23-column reduce on the step's slot rows
+    (dslot, cum, n), _ = seen["segment_reduce"]
+    entry, line = reduce_case(dslot, cum, n, f"2d surface {size}", 20)
+    log(f"[kernels 2d surface {size}] reduce <23>: {line} ({100.0 * entry['bound_ms'] / entry['ms']:.1f}%) | "
+        f"{card_name_and_limit()}")
+    log("[surface] " + json.dumps({
+        "forward": {"ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound, "serving_ms": serve_ms},
+        "backward": {"ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound, "serving_ms": serve_bwd_ms},
+        "reduce": {k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "launches": {**launches, "surface_forward": surface_launches}}))
+
+
 def phase_serve_4d(cloud, settings) -> dict:
     """4DGS serving (bench.py:370-394): a time sweep of ``render_orbit``
     renders every frame in one pass (``oneshots``), each through the
@@ -3372,6 +3552,7 @@ def main() -> int:
             train = {k: v + converge[k] for k, v in train.items()}
         elif mode == "2d":
             train = timed("train 2d", phase_train, arrays, settings, SURFEL_TRAIN_STEPS, False, opts.profile)
+            timed("surface 2d", phase_surface, arrays)
         else:
             timed("main views", phase_main_views, cloud)
             train = timed("train obb", phase_train, arrays, settings, TRAIN_STEPS, True, opts.profile)

@@ -3,14 +3,17 @@ CPU.
 
 Under a CPU ``torch.profiler`` a bin, a replay, a time-driven one-pass and
 an off-grid frame, and a 3DGS and a 4DGS training step, open exactly the
-``gs.*`` spans of their layers, nested as the layers are.  Without a
+``gs.*`` spans of their layers, nested as the layers are; so do a 2DGS step
+with the geometric terms (``gs.loss.geometry``) and a densification
+(``gs.densify``).  Without a
 profiler no span enters ``record_function``, and a frame and a step
 dispatch the same ATen operations as with every span taken out; images and
 losses are bitwise the same with the profiler on and off.  The counters:
 one pair-budget recount in ``_RECOUNT_PERIOD`` frames of a key, its pairs
 those of an independent ``pair_count``, every one-pass frame in
-``stats["oneshots"]``, a step's pairs those of its camera; values kept on
-several devices sum."""
+``stats["oneshots"]``, a step's pairs those of its camera, the geometric
+steps and a densify's added and pruned gaussians; values kept on several
+devices sum."""
 
 import contextlib
 import json
@@ -25,7 +28,8 @@ from bevy_gaussian_splatting_tpu_torch.models.cloud import random_gaussians_3d_s
 from bevy_gaussian_splatting_tpu_torch.models.settings import CloudSettings, GaussianMode
 from bevy_gaussian_splatting_tpu_torch.ops import rasterize_tile as rt
 from bevy_gaussian_splatting_tpu_torch.render import api
-from bevy_gaussian_splatting_tpu_torch.train.losses import gaussian_splatting_loss
+from bevy_gaussian_splatting_tpu_torch.train import densify
+from bevy_gaussian_splatting_tpu_torch.train.losses import SurfaceLoss, gaussian_splatting_loss
 from bevy_gaussian_splatting_tpu_torch.train.step import TrainableCloud, adam, train_step
 from bevy_gaussian_splatting_tpu_torch.utils import trace
 from torch_port_cases import EYE  # also keeps one PyTorch thread per worker
@@ -160,6 +164,33 @@ def test_surfel_frames_and_steps_open_the_surfel_span():
     _expect(tree, "gs.frame", REPLAY_FRAME - PROJECT | SURFEL_PROJECT)
     _, tree, _ = _step(profiled=True, settings=SETTINGS_2D)
     _expect(tree, "gs.step", STEP - PROJECT | SURFEL_PROJECT)
+
+
+def test_surface_loss_and_densify_open_their_spans():
+    """A 2DGS step with the geometric terms (``surface_loss``) opens
+    ``gs.loss.geometry`` under ``gs.loss`` and counts in ``geometry.steps``;
+    accumulating the densification statistics and a densify are each a
+    ``gs.densify`` span of their own, and the densify's added and pruned
+    gaussians count in ``densify.added`` and ``densify.pruned``."""
+    model = TrainableCloud(_cloud())
+    opt = adam(model, 0.01)
+    cam = Camera.create(eye=EYE, width=W, height=H, device="cpu")
+    target = torch.zeros((H, W, 4))
+    state = densify.init_densify_state(N, device="cpu")
+    before = trace.counters()
+
+    def run():
+        train_step(model, opt, cam, target, SETTINGS_2D, gaussian_splatting_loss, surface_loss=SurfaceLoss())
+        return densify.densify_and_prune(model.cloud(), densify.accumulate_stats(state, model.grads()), k_budget=16)
+
+    (_, _, stats), tree = _profiled(run)
+    step = STEP - PROJECT | SURFEL_PROJECT | {("gs.loss.geometry", "gs.loss")}
+    assert set(tree) == {("gs.step", None), ("gs.densify", None)} | step, sorted(set(tree) ^ step)
+    assert tree[("gs.densify", None)] == 2 and tree[("gs.loss.geometry", "gs.loss")] == 1
+    after = trace.counters()
+    for name, want in (("geometry.steps", 1), ("densify.added", int(stats["added"])),
+                       ("densify.pruned", int(stats["pruned"]))):
+        assert after[name] - before.get(name, 0) == want, name
 
 
 def test_without_a_profiler_no_span_is_entered(monkeypatch):
